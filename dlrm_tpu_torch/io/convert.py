@@ -1,0 +1,111 @@
+"""Carry parameters between numpy and this package.
+
+``np_params`` is the JAX package's parameter pytree as numpy arrays, with
+``emb`` as the logical ``(total_rows, D)`` stack (the JAX package's
+``ops.embedding.unpack_tables`` gives it from its packed storage)::
+
+    {"bottom": [{"w", "b"}...], "emb": (total_rows, D), "top": [...]}
+
+Numpy has no bfloat16 of its own: bf16 tensors leave as f32 (exact), and
+arrays arrive in whatever float dtype they have and are cast to the
+config's dtypes.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from dlrm_tpu_torch.config import DLRMConfig
+
+
+def _to_torch(a, dtype: torch.dtype, device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # torch.from_numpy wants a writable buffer
+        a = a.copy()
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: reinterpret bits
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def _check_mlp(layers, sizes, name):
+    if len(layers) != len(sizes) - 1:
+        raise ValueError(f"{name}: {len(layers)} layers, the config has "
+                         f"{len(sizes) - 1}")
+    for i, layer in enumerate(layers):
+        want = (sizes[i], sizes[i + 1])
+        if tuple(np.shape(layer["w"])) != want or \
+                tuple(np.shape(layer["b"])) != want[1:]:
+            raise ValueError(f"{name}[{i}]: w {np.shape(layer['w'])} / b "
+                             f"{np.shape(layer['b'])}, the config needs "
+                             f"{want} / {want[1:]}")
+
+
+def params_from_numpy(np_params: dict, config: DLRMConfig,
+                      device="cpu") -> dict:
+    """numpy pytree -> parameter dict of tensors on ``device``, in the
+    config's dtypes; shapes are checked against the config."""
+    _check_mlp(np_params["bottom"], config.bottom_mlp_sizes, "bottom")
+    _check_mlp(np_params["top"], config.full_top_mlp_sizes, "top")
+    emb_shape = (config.total_rows, config.feature_size)
+    if tuple(np.shape(np_params["emb"])) != emb_shape:
+        raise ValueError(f"emb {np.shape(np_params['emb'])}, the config "
+                         f"needs the logical stack {emb_shape}")
+
+    def mlp(layers):
+        return [{k: _to_torch(layer[k], config.weight_dtype, device)
+                 for k in ("w", "b")} for layer in layers]
+
+    return {"bottom": mlp(np_params["bottom"]),
+            "emb": _to_torch(np_params["emb"], config.embedding_dtype,
+                             device),
+            "top": mlp(np_params["top"])}
+
+
+def params_to_numpy(params: dict) -> dict:
+    """Parameter dict -> numpy pytree (bf16 widened to f32)."""
+    def mlp(layers):
+        return [{k: _to_numpy(layer[k]) for k in ("w", "b")}
+                for layer in layers]
+
+    return {"bottom": mlp(params["bottom"]), "emb": _to_numpy(params["emb"]),
+            "top": mlp(params["top"])}
+
+
+def save_npz(path: str, np_params: dict) -> None:
+    """Write a numpy pytree as one .npz (keys ``bottom.{i}.w``, ``emb``,
+    ...); bf16 arrays are widened to f32."""
+    flat: Dict[str, np.ndarray] = {}
+    for part in ("bottom", "top"):
+        for i, layer in enumerate(np_params[part]):
+            for k in ("w", "b"):
+                flat[f"{part}.{i}.{k}"] = np.asarray(layer[k])
+    flat["emb"] = np.asarray(np_params["emb"])
+    flat = {k: a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+            for k, a in flat.items()}
+    with open(path, "wb") as f:
+        np.savez(f, **flat)
+
+
+def load_npz(path: str) -> dict:
+    """Read a .npz written by :func:`save_npz` back into a numpy pytree."""
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+
+    def mlp(part):
+        n = sum(1 for k in flat if k.startswith(part + ".") and k.endswith(".w"))
+        return [{"w": flat[f"{part}.{i}.w"], "b": flat[f"{part}.{i}.b"]}
+                for i in range(n)]
+
+    return {"bottom": mlp("bottom"), "emb": flat["emb"], "top": mlp("top")}
