@@ -62,6 +62,9 @@ class DLRMConfig:
       small_table_threshold: tables with at most this many rows are looked
         up as the JAX package's one-hot matmul path would: under a bf16
         ``compute_dtype`` their rows are rounded to bf16 before pooling.
+      remat: recompute the dense tower (interaction and MLP activations)
+        on backward instead of storing them (``torch.utils.checkpoint``);
+        the same gradients, fewer stored activations.
     """
 
     bottom_mlp_sizes: Tuple[int, ...]
@@ -70,6 +73,7 @@ class DLRMConfig:
     table_sizes: Tuple[int, ...]
     n_hot: int = 1
     interaction_pad_to: int = 1
+    remat: bool = False
     weight_dtype: torch.dtype = torch.float32
     embedding_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32

@@ -17,12 +17,14 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from dlrm_tpu_torch.config import DLRMConfig
 from dlrm_tpu_torch.ops import embedding as emb_ops
 from dlrm_tpu_torch.ops.interaction import (dot_interaction,
                                             dot_interaction_pairwise)
 from dlrm_tpu_torch.ops.interaction_fused import fused_dot_interaction
+from dlrm_tpu_torch.ops.loss import bce_loss
 from dlrm_tpu_torch.ops.mlp import init_mlp, mlp_apply
 
 _INTERACTIONS = {
@@ -75,6 +77,21 @@ def forward_from_pooled(dense_params: dict, pooled: torch.Tensor,
     out = mlp_apply(dense_params["top"], z, final="sigmoid",
                     compute_dtype=cd)
     return out[:, 0]
+
+
+def loss_from_pooled(dense_params: dict, pooled: torch.Tensor,
+                     dense: torch.Tensor, labels: torch.Tensor,
+                     config: DLRMConfig) -> torch.Tensor:
+    """BCE loss of the dense tower given pooled embeddings: the one loss
+    closure of every training path.  With ``config.remat`` the dense tower
+    runs under ``torch.utils.checkpoint`` and is recomputed on backward
+    (the counterpart of ``jax.checkpoint``); the gradients are the same."""
+    if config.remat:
+        out = checkpoint(forward_from_pooled, dense_params, pooled, dense,
+                         config, use_reentrant=False)
+    else:
+        out = forward_from_pooled(dense_params, pooled, dense, config)
+    return bce_loss(out, labels)
 
 
 def forward(params: dict, dense: torch.Tensor, sparse: torch.Tensor,

@@ -1,9 +1,13 @@
-"""Command-line entry point: the serving subset of ``dlrm_tpu/run.py``.
+"""Command-line entry point: the single-device subset of ``dlrm_tpu/run.py``.
 
+  train     exact-SGD training on one device (synthetic or Criteo data)
   predict   batch CTR scoring of a binarized dataset -> .npy
 
-Run as ``python -m dlrm_tpu_torch predict ...``.  Parameters come from an
-.npz written by ``dlrm_tpu_torch.io.convert.save_npz``.
+Run as ``python -m dlrm_tpu_torch <subcommand> ...``.  ``predict`` reads
+parameters from an .npz written by ``dlrm_tpu_torch.io.convert.save_npz``.
+Every flag of the JAX package's CLI is parsed; one this package does not
+serve yet exits non-zero, naming the ROADMAP.md item that brings it, unless
+it is left at its default.
 """
 
 from __future__ import annotations
@@ -18,18 +22,79 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-# Flags of the JAX package's predict that this package does not serve yet,
-# with the ROADMAP.md item that brings each.
+_Q = "ROADMAP.md queue 1, "
+_CKPT = _Q + "item 7, 'Checkpoints, telemetry and CLI'"
+_MULTI = _Q + "item 9, 'Multi-GPU'"
+_TPU_LAYOUT = ("is TPU storage layout, which the port does not carry over "
+               "(ROADMAP.md, north star)")
+
+# Flags of the JAX package's CLI that this package does not serve yet:
+# flag -> (default, why).  A flag at its default passes.
 _NOT_YET = {
-    "ckpt_dir": "--ckpt-dir needs checkpoints (ROADMAP.md queue 1, item 8, "
-                "'Checkpoints, telemetry and CLI': io/checkpoint.py); pass "
-                "--params params.npz",
-    "hdf5": "--hdf5 needs the HDF5 interop (ROADMAP.md queue 1, item 2, "
-            "'HDF5 interop and validation': io/hdf5.py); pass --params "
-            "params.npz",
-    "quantize_tables": "--quantize-tables needs int8 serving (ROADMAP.md "
-                       "queue 1, item 7, 'Int8 serving': ops/quant.py)",
+    "ckpt_dir": (None, f"--ckpt-dir needs checkpoints ({_CKPT}: "
+                       "io/checkpoint.py); predict takes --params params.npz"),
+    "save_interval": (1000, f"--save-interval needs checkpoints ({_CKPT})"),
+    "max_to_keep": (3, f"--max-to-keep needs checkpoints ({_CKPT})"),
+    "profile_dir": (None, f"--profile-dir needs the telemetry port ({_CKPT}: "
+                          "utils/telemetry.py)"),
+    "hdf5": (None, f"--hdf5 needs the HDF5 interop ({_Q}item 1, 'HDF5 "
+                   "interop and validation': io/hdf5.py); pass --params "
+                   "params.npz"),
+    "validate_data": (False, f"--validate-data needs the rest of the data "
+                             f"port ({_Q}item 2, 'Data, rest')"),
+    "eval_data": (None, f"--eval-data needs the metrics port ({_Q}item 3, "
+                        "'Metrics')"),
+    "eval_after": (False, f"--eval-after needs the metrics port ({_Q}item "
+                          "3, 'Metrics')"),
+    "eval_every": (None, f"--eval-every needs the metrics port ({_Q}item 3, "
+                         "'Metrics')"),
+    "eval_steps": (None, f"--eval-steps needs the metrics port ({_Q}item 3, "
+                         "'Metrics')"),
+    "optimizer": ("sgd", f"--optimizer other than sgd needs the optimizer "
+                         f"port ({_Q}item 4, 'Optimizers')"),
+    "grad_clip_norm": (None, f"--grad-clip-norm needs the optimizer port "
+                             f"({_Q}item 4, 'Optimizers')"),
+    "adagrad_impl": ("hybrid", f"--adagrad-impl needs the optimizer port "
+                               f"({_Q}item 4, 'Optimizers')"),
+    "update_interval": (1, f"--update-interval > 1 needs block mode ({_Q}"
+                           "item 5, 'Block mode')"),
+    "block_scan": (False, f"--block-scan needs block mode ({_Q}item 5, "
+                          "'Block mode')"),
+    "quantize_tables": (None, f"--quantize-tables needs int8 serving ({_Q}"
+                              "item 6, 'Int8 serving': ops/quant.py)"),
+    "hbm_budget_gb": (None, f"--hbm-budget-gb needs two-tier tables ({_Q}"
+                            "item 8, 'Two-tier tables')"),
+    "host_prefetch": (False, f"--host-prefetch needs two-tier tables ({_Q}"
+                             "item 8, 'Two-tier tables')"),
+    "sharded": (None, f"--sharded needs the multi-GPU port ({_MULTI}); this "
+                      "package trains on one device"),
+    "mesh_shape": (None, f"--mesh-shape needs the multi-GPU port ({_MULTI})"),
+    "paranoid": (None, f"--paranoid needs the multi-GPU port ({_MULTI})"),
+    "max_rows_per_shard": (None, f"--max-rows-per-shard needs the multi-GPU "
+                                 f"port ({_MULTI})"),
+    "col_sharded_tables": (None, f"--col-sharded-tables needs the multi-GPU "
+                                 f"port ({_MULTI})"),
+    "host_tables": (None, f"--host-tables needs the multi-GPU port "
+                          f"({_MULTI})"),
+    "exchange_dtype": (None, f"--exchange-dtype needs the multi-GPU port "
+                             f"({_MULTI})"),
+    "distributed": (False, f"--distributed needs the multi-GPU port "
+                           f"({_MULTI})"),
+    "coordinator": (None, f"--coordinator needs the multi-GPU port "
+                          f"({_MULTI})"),
+    "num_processes": (None, f"--num-processes needs the multi-GPU port "
+                            f"({_MULTI})"),
+    "process_id": (None, f"--process-id needs the multi-GPU port "
+                         f"({_MULTI})"),
+    "chunk_budget_mb": (None, f"--chunk-budget-mb {_TPU_LAYOUT}"),
+    "platform": (None, "--platform selects a JAX backend; pass --device"),
 }
+
+
+def _refuse_unported(args) -> None:
+    for flag, (default, why) in _NOT_YET.items():
+        if getattr(args, flag, default) != default:
+            raise SystemExit(why)
 
 
 # -- config plumbing -----------------------------------------------------------
@@ -68,6 +133,8 @@ def _build_config(args, device: torch.device):
         over["embedding_dtype"] = torch.bfloat16
     if args.pad_to is not None:
         over["interaction_pad_to"] = args.pad_to
+    if args.remat:
+        over["remat"] = True
     if args.table_sizes:
         over["table_sizes"] = tuple(
             int(s) for s in args.table_sizes.split(","))
@@ -93,9 +160,35 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
                    help="pad interaction output width to a multiple")
     p.add_argument("--table-sizes", default=None,
                    help="comma-separated table row counts (overrides preset)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the dense tower on backward "
+                   "(torch.utils.checkpoint): fewer stored activations")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda when available, "
                    "else cpu)")
+    p.add_argument("--chunk-budget-mb", type=int, default=None,
+                   help="not served (TPU storage layout)")
+    p.add_argument("--validate-data", action="store_true",
+                   help="not served yet")
+    p.add_argument("--exchange-dtype", default=None, choices=["f32", "bf16"],
+                   help="not served yet (multi-GPU)")
+    p.add_argument("--platform", default=None,
+                   help="not served (a JAX backend); use --device")
+
+
+def _add_dist_flags(p: argparse.ArgumentParser) -> None:
+    for flag, kw in (("--distributed", {"action": "store_true"}),
+                     ("--coordinator", {}),
+                     ("--num-processes", {"type": int}),
+                     ("--process-id", {"type": int})):
+        p.add_argument(flag, help="not served yet (multi-GPU)", **kw)
+
+
+def _strict_bool(s: str) -> bool:
+    v = s.lower()
+    if v not in ("true", "false"):
+        raise argparse.ArgumentTypeError(f"expected true|false, got {s!r}")
+    return v == "true"
 
 
 def _device(args) -> torch.device:
@@ -111,6 +204,43 @@ def _data_iter(args):
 
     return iter(DACLoader(load(args.data), args.batch_size,
                           drop_remainder=False))
+
+
+def _train_data_iter(args, config, steps: Optional[int]):
+    """Training batches: ``--data`` (full batches, epoch after epoch with
+    the loader's shuffles until ``steps``, one epoch without it), or the
+    synthetic stream of ``--synthetic`` from ``--seed``.  The same batches
+    as the JAX package's ``train`` for the same flags."""
+    from dlrm_tpu_torch.data import synthetic
+    from dlrm_tpu_torch.data.criteo import DACLoader, load
+
+    if args.data:
+        loader = DACLoader(load(args.data), args.batch_size,
+                           shuffle=args.shuffle,
+                           shuffle_rows=args.shuffle_rows,
+                           shuffle_window=args.shuffle_window,
+                           seed=args.seed)
+        if len(loader) == 0:
+            raise SystemExit(
+                f"dataset {args.data} has fewer records than one batch "
+                f"({args.batch_size}); lower --batch-size")
+
+        def gen():
+            count = 0
+            while True:
+                for batch in loader:
+                    yield batch
+                    count += 1
+                    if steps is not None and count >= steps:
+                        return
+                if steps is None:
+                    return
+
+        return gen()
+    if args.synthetic == "skewed":
+        truth = synthetic.ClickthroughModel(config, seed=12345)
+        return truth.stream(args.batch_size, steps, args.seed + 1)
+    return synthetic.batch_stream(config, args.batch_size, steps, args.seed)
 
 
 def score_batch(params: dict, batch: dict, config,
@@ -132,9 +262,7 @@ def cmd_predict(args) -> int:
     .npy, in input order, and print one JSON line."""
     from dlrm_tpu_torch.io.convert import load_npz, params_from_numpy
 
-    for flag, why in _NOT_YET.items():
-        if getattr(args, flag):
-            raise SystemExit(why)
+    _refuse_unported(args)
     if args.data is None:
         raise SystemExit("predict needs --data")
     if args.params is None:
@@ -151,13 +279,134 @@ def cmd_predict(args) -> int:
     np.save(args.out, out)
     print(json.dumps({"examples": int(n), "out": args.out,
                       "seconds": round(time.time() - t0, 2),
-                      "mean_score": float(out.mean()) if n else None}))
+                      "mean_score": float(out.mean()) if n else None,
+                      "device": device.type}))
+    return 0
+
+
+def _train_lr(args):
+    """``--lr``, or the schedule of ``--lr-schedule`` over it; resolves
+    ``--epochs`` into ``args.steps``."""
+    if args.data is None and args.steps is None:
+        raise SystemExit("synthetic training needs --steps")
+    if args.epochs:
+        if args.data is None:
+            raise SystemExit("--epochs needs --data")
+        if args.steps is not None:
+            raise SystemExit("pass --steps or --epochs, not both")
+        from dlrm_tpu_torch.data.criteo import load
+        per_epoch = len(load(args.data)) // args.batch_size
+        if per_epoch == 0:
+            raise SystemExit("dataset smaller than one batch")
+        args.steps = args.epochs * per_epoch
+    if args.lr_schedule == "constant":
+        return args.lr
+    from dlrm_tpu_torch.train.optim import make_schedule
+    return make_schedule(args.lr, schedule=args.lr_schedule,
+                         warmup_steps=args.warmup_steps,
+                         decay_start=args.decay_start,
+                         decay_steps=args.decay_steps)
+
+
+def cmd_train(args) -> int:
+    """Exact-SGD training on one device from parameters drawn from the
+    config's seed; prints a status line every ``--log-every`` steps to
+    stderr and one JSON line at the end."""
+    from dlrm_tpu_torch.models.dlrm import init_params
+    from dlrm_tpu_torch.train.train import train
+
+    _refuse_unported(args)
+    lr = _train_lr(args)
+    device = _device(args)
+    config = _build_config(args, device)
+    print(f"device: {device} ({config.interaction_impl} interaction)",
+          file=sys.stderr)
+    params = init_params(torch.Generator(device).manual_seed(config.seed),
+                         config, device)
+    t_start = time.time()
+    done = [0]  # steps taken; train() syncs on the last step too
+
+    def log(step, loss):
+        done[0] = step + 1
+        eps = done[0] * args.batch_size / max(time.time() - t_start, 1e-9)
+        print(f"step {done[0]} loss {loss:.5f} ({eps:,.0f} examples/s)",
+              file=sys.stderr)
+
+    res = train(params, _train_data_iter(args, config, args.steps),
+                config=config, lr=lr, callback=log,
+                sync_every=max(args.log_every, 1))
+    print(json.dumps({"steps": done[0],
+                      "final_loss": res["losses"][-1] if res["losses"]
+                      else None,
+                      "seconds": round(time.time() - t_start, 2),
+                      "device": device.type}))
     return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="dlrm_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    tr = sub.add_parser("train", help="train a DLRM with exact SGD on one "
+                        "device")
+    _add_config_flags(tr)
+    tr.add_argument("--data", default=None, help="binarized dataset "
+                    "(default: synthetic)")
+    tr.add_argument("--synthetic", default="uniform",
+                    choices=["uniform", "skewed"],
+                    help="uniform ids, or skewed: learnable Zipf-id CTR "
+                    "with a planted ground truth")
+    tr.add_argument("--shuffle", action="store_true",
+                    help="shuffle the batch order each epoch")
+    tr.add_argument("--shuffle-rows", action="store_true",
+                    help="permute rows within windows of --shuffle-window "
+                    "batches, and the window order, each epoch")
+    tr.add_argument("--shuffle-window", type=int, default=8,
+                    help="row-shuffle window size in batches")
+    tr.add_argument("--batch-size", type=int, default=2048)
+    tr.add_argument("--lr", type=float, default=0.1)
+    tr.add_argument("--lr-schedule", default="constant",
+                    choices=["constant", "warmup_poly_decay"])
+    tr.add_argument("--warmup-steps", type=int, default=0)
+    tr.add_argument("--decay-start", type=int, default=0)
+    tr.add_argument("--decay-steps", type=int, default=0)
+    tr.add_argument("--steps", type=int, default=None)
+    tr.add_argument("--epochs", type=int, default=None,
+                    help="train for N epochs over --data (instead of "
+                    "--steps)")
+    tr.add_argument("--seed", type=int, default=0,
+                    help="data seed (synthetic stream, shuffles)")
+    tr.add_argument("--log-every", type=int, default=100,
+                    help="read the loss (a host sync) every N steps")
+    tr.add_argument("--prefetch", type=int, default=2,
+                    help="accepted; batches are copied to the device "
+                    "plainly, one at a time, until data/prefetch.py is "
+                    "ported")
+    for flag, kw in (
+            ("--optimizer", {"default": "sgd"}),
+            ("--grad-clip-norm", {"type": float}),
+            ("--adagrad-impl", {"default": "hybrid"}),
+            ("--update-interval", {"type": int, "default": 1}),
+            ("--block-scan", {"action": "store_true"}),
+            ("--eval-data", {}),
+            ("--eval-after", {"action": "store_true"}),
+            ("--eval-every", {"type": int}),
+            ("--eval-steps", {"type": int}),
+            ("--profile-dir", {}),
+            ("--host-prefetch", {"action": "store_true"}),
+            ("--hbm-budget-gb", {"type": float}),
+            ("--ckpt-dir", {}),
+            ("--save-interval", {"type": int, "default": 1000}),
+            ("--max-to-keep", {"type": int, "default": 3}),
+            ("--sharded", {"type": _strict_bool}),
+            ("--paranoid", {"type": int}),
+            ("--mesh-shape", {}),
+            ("--max-rows-per-shard", {"type": int}),
+            ("--col-sharded-tables", {}),
+            ("--host-tables", {})):
+        tr.add_argument(flag, help="not served yet", **kw)
+    _add_dist_flags(tr)
+    tr.set_defaults(fn=cmd_train)
 
     pr = sub.add_parser("predict", help="batch CTR scoring -> .npy")
     _add_config_flags(pr)

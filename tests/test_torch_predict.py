@@ -127,14 +127,35 @@ def test_predict_prints_json_line(tmp_path, rng, capsys):
           "--out", out, "--batch-size", "32", "--device", "cpu"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["examples"] == 70 and line["out"] == out
-    assert set(line) == {"examples", "out", "seconds", "mean_score"}
+    assert set(line) == {"examples", "out", "seconds", "mean_score",
+                         "device"}
     assert line["mean_score"] == pytest.approx(float(np.load(out).mean()))
 
 
+@pytest.mark.parametrize("device", ["cpu", None])
+def test_predict_line_reports_the_device(device, tmp_path, rng, capsys):
+    """The line names the device the scores were computed on, so a run
+    that fell back to the CPU shows it (without --device: cuda when
+    available, else cpu)."""
+    tcfg = _tiny26()
+    data, pz, out = (str(tmp_path / n) for n in ("d.bin", "p.npz", "s.npy"))
+    _write_dac(data, 40, rng)
+    convert.save_npz(pz, convert.params_to_numpy(_init(tcfg)))
+    argv = ["predict", "--config", "tiny", "--table-sizes",
+            ",".join(map(str, TABLES)), "--data", data, "--params", pz,
+            "--out", out]
+    if device:
+        argv += ["--device", device]
+    main(argv)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    want = device or ("cuda" if torch.cuda.is_available() else "cpu")
+    assert line["device"] == want
+
+
 @pytest.mark.parametrize("flag,value,item", [
-    ("--ckpt-dir", "x", "item 8, 'Checkpoints"),
-    ("--hdf5", "x.h5", "item 2, 'HDF5 interop"),
-    ("--quantize-tables", "int8", "item 7, 'Int8 serving"),
+    ("--ckpt-dir", "x", "item 7, 'Checkpoints"),
+    ("--hdf5", "x.h5", "item 1, 'HDF5 interop"),
+    ("--quantize-tables", "int8", "item 6, 'Int8 serving"),
 ])
 def test_predict_flags_not_served_yet(flag, value, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
