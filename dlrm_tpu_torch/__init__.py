@@ -5,9 +5,10 @@ It mirrors ``dlrm_tpu``'s module layout and names.  Ported so far: batch
 serving — config, lookup, MLPs, the dot interaction (plain torch, and
 hand-written CUDA forward and backward kernels in ``csrc/``), the model
 forward, the Criteo loader and ``python -m dlrm_tpu_torch predict`` — and
-single-device exact-SGD training: the loss, compressed embedding gradients,
-the train step and loop, learning-rate schedules and
-``python -m dlrm_tpu_torch train``.
+single-device training: the loss, compressed embedding gradients, the train
+step and loop, SGD, Adagrad and row-wise Adagrad, gradient clipping,
+coalesced K-step blocks, learning-rate schedules, evaluation (accuracy, AUC,
+loss) and ``python -m dlrm_tpu_torch train`` / ``eval``.
 """
 
 from dlrm_tpu_torch.config import (
@@ -21,12 +22,15 @@ from dlrm_tpu_torch.config import (
     tiny_config,
 )
 from dlrm_tpu_torch.models.dlrm import forward, init_params
-from dlrm_tpu_torch.train.train import (init_train_state, make_train_step,
-                                        train, train_step)
+from dlrm_tpu_torch.ops.loss import bce_loss
+from dlrm_tpu_torch.train.train import (init_opt_state, init_train_state,
+                                        make_train_step, make_train_step_opt,
+                                        train, train_step, train_step_opt)
 
 __all__ = [
     "DLRMConfig", "KAGGLE_TABLE_SIZES", "TERABYTE_TABLE_SIZES",
     "fixture_config", "kaggle_config", "multi_fixture_config",
-    "terabyte_config", "tiny_config", "forward", "init_params",
+    "terabyte_config", "tiny_config", "forward", "init_params", "bce_loss",
     "init_train_state", "make_train_step", "train", "train_step",
+    "init_opt_state", "make_train_step_opt", "train_step_opt",
 ]

@@ -1,10 +1,22 @@
-"""Carry parameters between numpy and this package.
+"""Carry parameters and optimizer state between numpy and this package.
 
 ``np_params`` is the JAX package's parameter pytree as numpy arrays, with
 ``emb`` as the logical ``(total_rows, D)`` stack (the JAX package's
 ``ops.embedding.unpack_tables`` gives it from its packed storage)::
 
     {"bottom": [{"w", "b"}...], "emb": (total_rows, D), "top": [...]}
+
+``np_opt`` is an optimizer state in the same logical view::
+
+    {"dense": None | {"bottom": [{"w", "b"}...], "top": [...]},
+     "emb": None | (total_rows, D) | (total_rows,), "count": int}
+
+``dense`` holds the Adagrad accumulator of every dense parameter (optax's
+``ScaleByRssState.sum_of_squares``), ``emb`` the logical view of the JAX
+package's chunked lane-packed accumulators (``unpack_tables`` of the
+elementwise ones; each chunk's ``(rows, pack)`` flattened and cut to the
+tables' rows for the row-wise ones), ``count`` the steps taken.  SGD has
+neither accumulator.
 
 Numpy has no bfloat16 of its own: bf16 tensors leave as f32 (exact), and
 arrays arrive in whatever float dtype they have and are cast to the
@@ -81,6 +93,41 @@ def params_to_numpy(params: dict) -> dict:
 
     return {"bottom": mlp(params["bottom"]), "emb": _to_numpy(params["emb"]),
             "top": mlp(params["top"])}
+
+
+def opt_state_from_numpy(np_opt: dict, config: DLRMConfig, optimizer: str,
+                         device="cpu") -> dict:
+    """numpy optimizer state -> the state ``train.init_opt_state`` makes
+    for ``optimizer``, on ``device`` (f32 accumulators; shapes checked
+    against the config)."""
+    dense = emb = None
+    if optimizer != "sgd":
+        for part, sizes in (("bottom", config.bottom_mlp_sizes),
+                            ("top", config.full_top_mlp_sizes)):
+            _check_mlp(np_opt["dense"][part], sizes, f"dense.{part}")
+        dense = {part: [{k: _to_torch(layer[k], config.weight_dtype, device)
+                         for k in ("w", "b")}
+                        for layer in np_opt["dense"][part]]
+                 for part in ("bottom", "top")}
+        want = ((config.total_rows, config.feature_size)
+                if optimizer == "adagrad" else (config.total_rows,))
+        if tuple(np.shape(np_opt["emb"])) != want:
+            raise ValueError(f"emb accumulator {np.shape(np_opt['emb'])}, "
+                             f"{optimizer} on this config needs {want}")
+        emb = _to_torch(np_opt["emb"], torch.float32, device)
+    return {"dense": dense, "emb": emb, "count": int(np_opt["count"])}
+
+
+def opt_state_to_numpy(opt_state: dict) -> dict:
+    """Optimizer state -> numpy, the inverse of
+    :func:`opt_state_from_numpy`."""
+    dense, emb = opt_state["dense"], opt_state["emb"]
+    return {"dense": None if dense is None else {
+                part: [{k: _to_numpy(layer[k]) for k in ("w", "b")}
+                       for layer in dense[part]]
+                for part in ("bottom", "top")},
+            "emb": None if emb is None else _to_numpy(emb),
+            "count": int(opt_state["count"])}
 
 
 def save_npz(path: str, np_params: dict) -> None:

@@ -114,7 +114,7 @@ def mixed_lookup(emb: torch.Tensor, ids: torch.Tensor, config
                       config)
 
 
-def _tree_map(fn, dense_params: dict) -> dict:
+def tree_map(fn, dense_params: dict) -> dict:
     """Map over the leaves of a dense parameter dict
     ``{part: [{name: Tensor}]}`` (the model's ``bottom`` / ``top``)."""
     return {part: [{k: fn(v) for k, v in layer.items()} for layer in layers]
@@ -122,7 +122,7 @@ def _tree_map(fn, dense_params: dict) -> dict:
 
 
 def tree_leaves(dense_params: dict) -> list:
-    """The leaves of a dense parameter dict, in :func:`_tree_map` order."""
+    """The leaves of a dense parameter dict, in :func:`tree_map` order."""
     return [v for layers in dense_params.values() for layer in layers
             for v in layer.values()]
 
@@ -149,12 +149,12 @@ def sparse_value_and_grad(loss_fn: Callable, *,
     def wrapped(dense_params, emb, ids, offsets, *args):
         flat = translate_ids(ids, offsets)
         rows = gather_rows(emb, flat).detach().requires_grad_()
-        live = _tree_map(lambda p: p.detach().requires_grad_(), dense_params)
+        live = tree_map(lambda p: p.detach().requires_grad_(), dense_params)
         loss = loss_fn(live, pool_fn(rows), *args)
         leaves = tree_leaves(live)
         grads = torch.autograd.grad(loss, leaves + [rows])
         it = iter(grads)
-        dgrads = _tree_map(lambda _: next(it), live)
+        dgrads = tree_map(lambda _: next(it), live)
         drows = grads[-1]
         sparse = SparseGrad(ids=flat.reshape(-1),
                             rows=drows.reshape(-1, drows.shape[-1]))
@@ -178,26 +178,49 @@ def apply_sparse_sgd(emb: torch.Tensor, grad: SparseGrad, lr) -> torch.Tensor:
     return emb.index_add_(0, grad.ids, upd)
 
 
+def sum_duplicates(grad: SparseGrad) -> SparseGrad:
+    """The distinct ids in ascending order with the f32 sum of each one's
+    rows (no padding slots, so the length depends on the data; on CUDA
+    ``unique`` reads it back, a host sync, and the sums run in a changing
+    order)."""
+    uniq, inverse = torch.unique(grad.ids, sorted=True, return_inverse=True)
+    rows = torch.zeros((uniq.shape[0], grad.rows.shape[1]),
+                       dtype=torch.float32, device=grad.rows.device)
+    rows.index_add_(0, inverse, grad.rows.float())
+    return SparseGrad(ids=uniq, rows=rows)
+
+
 def dedup_sparse_grad(grad: SparseGrad, *,
                       max_unique: Optional[int] = None) -> SparseGrad:
-    """Sum the rows of duplicate ids (the reference's ``SparseIndexer``).
-
-    As in the JAX package: ``max_unique`` slots (default: the input
-    length), the distinct ids in ascending order first, then id ``-1`` with
-    zero rows.  Ids past ``max_unique`` distinct ones are dropped.
+    """:func:`sum_duplicates` in the JAX package's fixed-size form (the
+    reference's ``SparseIndexer``): ``max_unique`` slots (default: the
+    input length), the distinct ids in ascending order first, then id
+    ``-1`` with zero rows, in the gradient's dtype.  Ids past
+    ``max_unique`` distinct ones are dropped.
     """
-    n = grad.ids.shape[0]
-    max_unique = n if max_unique is None else max_unique
-    uniq, inverse = torch.unique(grad.ids, sorted=True, return_inverse=True)
-    keep = inverse < max_unique
-    rows = torch.zeros((max_unique, grad.rows.shape[1]),
-                       dtype=grad.rows.dtype, device=grad.rows.device)
-    rows.index_add_(0, inverse[keep], grad.rows[keep])
+    max_unique = grad.ids.shape[0] if max_unique is None else max_unique
+    u = sum_duplicates(grad)
+    k = min(u.ids.shape[0], max_unique)
     ids = torch.full((max_unique,), -1, dtype=grad.ids.dtype,
                      device=grad.ids.device)
-    k = min(uniq.shape[0], max_unique)
-    ids[:k] = uniq[:k]
+    rows = torch.zeros((max_unique, grad.rows.shape[1]),
+                       dtype=grad.rows.dtype, device=grad.rows.device)
+    ids[:k] = u.ids[:k]
+    rows[:k] = u.rows[:k].to(grad.rows.dtype)
     return SparseGrad(ids=ids, rows=rows)
+
+
+def split_by_tables(grad: SparseGrad, batch: int, num_tables: int,
+                    tables: Sequence[int]) -> SparseGrad:
+    """The entries of a per-hit gradient over all tables (as
+    :func:`sparse_value_and_grad` returns it, flattened from (B, T[, H]))
+    that belong to ``tables``, in their original order."""
+    idx = torch.as_tensor(tables, device=grad.ids.device)
+    ids = grad.ids.reshape(batch, num_tables, -1).index_select(1, idx)
+    rows = grad.rows.reshape(batch, num_tables, -1, grad.rows.shape[-1]
+                             ).index_select(1, idx)
+    return SparseGrad(ids=ids.reshape(-1),
+                      rows=rows.reshape(-1, rows.shape[-1]))
 
 
 def uncompress(grad: SparseGrad, total_rows: int, dim: int) -> torch.Tensor:

@@ -1,10 +1,14 @@
 """Command-line entry point: the single-device subset of ``dlrm_tpu/run.py``.
 
-  train     exact-SGD training on one device (synthetic or Criteo data)
+  train     training on one device (synthetic or Criteo data): SGD, Adagrad
+            or row-wise Adagrad, gradient clipping, coalesced K-step blocks,
+            evaluation during and after
+  eval      accuracy / AUC / loss of saved parameters
   predict   batch CTR scoring of a binarized dataset -> .npy
 
-Run as ``python -m dlrm_tpu_torch <subcommand> ...``.  ``predict`` reads
-parameters from an .npz written by ``dlrm_tpu_torch.io.convert.save_npz``.
+Run as ``python -m dlrm_tpu_torch <subcommand> ...``.  ``eval`` and
+``predict`` read parameters from an .npz written by
+``dlrm_tpu_torch.io.convert.save_npz``.
 Every flag of the JAX package's CLI is parsed; one this package does not
 serve yet exits non-zero, naming the ROADMAP.md item that brings it, unless
 it is left at its default.
@@ -23,8 +27,9 @@ import numpy as np
 import torch
 
 _Q = "ROADMAP.md queue 1, "
-_CKPT = _Q + "item 7, 'Checkpoints, telemetry and CLI'"
-_MULTI = _Q + "item 9, 'Multi-GPU'"
+_DATA = _Q + "item 1, 'Data, HDF5 interop and validation'"
+_CKPT = _Q + "item 3, 'Checkpoints, telemetry and CLI'"
+_MULTI = _Q + "item 5, 'Multi-GPU'"
 _TPU_LAYOUT = ("is TPU storage layout, which the port does not carry over "
                "(ROADMAP.md, north star)")
 
@@ -32,40 +37,22 @@ _TPU_LAYOUT = ("is TPU storage layout, which the port does not carry over "
 # flag -> (default, why).  A flag at its default passes.
 _NOT_YET = {
     "ckpt_dir": (None, f"--ckpt-dir needs checkpoints ({_CKPT}: "
-                       "io/checkpoint.py); predict takes --params params.npz"),
+                       "io/checkpoint.py); eval and predict take --params "
+                       "params.npz"),
     "save_interval": (1000, f"--save-interval needs checkpoints ({_CKPT})"),
     "max_to_keep": (3, f"--max-to-keep needs checkpoints ({_CKPT})"),
     "profile_dir": (None, f"--profile-dir needs the telemetry port ({_CKPT}: "
                           "utils/telemetry.py)"),
-    "hdf5": (None, f"--hdf5 needs the HDF5 interop ({_Q}item 1, 'HDF5 "
-                   "interop and validation': io/hdf5.py); pass --params "
-                   "params.npz"),
+    "hdf5": (None, f"--hdf5 needs the HDF5 interop ({_DATA}: io/hdf5.py); "
+                   "pass --params params.npz"),
     "validate_data": (False, f"--validate-data needs the rest of the data "
-                             f"port ({_Q}item 2, 'Data, rest')"),
-    "eval_data": (None, f"--eval-data needs the metrics port ({_Q}item 3, "
-                        "'Metrics')"),
-    "eval_after": (False, f"--eval-after needs the metrics port ({_Q}item "
-                          "3, 'Metrics')"),
-    "eval_every": (None, f"--eval-every needs the metrics port ({_Q}item 3, "
-                         "'Metrics')"),
-    "eval_steps": (None, f"--eval-steps needs the metrics port ({_Q}item 3, "
-                         "'Metrics')"),
-    "optimizer": ("sgd", f"--optimizer other than sgd needs the optimizer "
-                         f"port ({_Q}item 4, 'Optimizers')"),
-    "grad_clip_norm": (None, f"--grad-clip-norm needs the optimizer port "
-                             f"({_Q}item 4, 'Optimizers')"),
-    "adagrad_impl": ("hybrid", f"--adagrad-impl needs the optimizer port "
-                               f"({_Q}item 4, 'Optimizers')"),
-    "update_interval": (1, f"--update-interval > 1 needs block mode ({_Q}"
-                           "item 5, 'Block mode')"),
-    "block_scan": (False, f"--block-scan needs block mode ({_Q}item 5, "
-                          "'Block mode')"),
+                             f"port ({_DATA})"),
     "quantize_tables": (None, f"--quantize-tables needs int8 serving ({_Q}"
-                              "item 6, 'Int8 serving': ops/quant.py)"),
+                              "item 2, 'Int8 serving': ops/quant.py)"),
     "hbm_budget_gb": (None, f"--hbm-budget-gb needs two-tier tables ({_Q}"
-                            "item 8, 'Two-tier tables')"),
+                            "item 4, 'Two-tier tables')"),
     "host_prefetch": (False, f"--host-prefetch needs two-tier tables ({_Q}"
-                             "item 8, 'Two-tier tables')"),
+                             "item 4, 'Two-tier tables')"),
     "sharded": (None, f"--sharded needs the multi-GPU port ({_MULTI}); this "
                       "package trains on one device"),
     "mesh_shape": (None, f"--mesh-shape needs the multi-GPU port ({_MULTI})"),
@@ -197,37 +184,30 @@ def _device(args) -> torch.device:
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
-def _data_iter(args):
-    """One epoch of ``--data`` in file order, the ragged tail included
-    (serving must score every row)."""
+def _batch_iter(config, *, data: Optional[str], batch_size: int,
+                steps: Optional[int], seed: int = 0,
+                synthetic: str = "uniform", keep_remainder: bool = False,
+                **shuffle):
+    """The batch stream of a subcommand, the same batches as the JAX
+    package's for the same flags: ``data`` (epoch after epoch with the
+    loader's shuffles until ``steps``, one epoch without it; the ragged
+    tail batch included with ``keep_remainder``), or the synthetic stream
+    ``synthetic`` from ``seed``."""
+    from dlrm_tpu_torch.data import synthetic as synth
     from dlrm_tpu_torch.data.criteo import DACLoader, load
 
-    return iter(DACLoader(load(args.data), args.batch_size,
-                          drop_remainder=False))
-
-
-def _train_data_iter(args, config, steps: Optional[int]):
-    """Training batches: ``--data`` (full batches, epoch after epoch with
-    the loader's shuffles until ``steps``, one epoch without it), or the
-    synthetic stream of ``--synthetic`` from ``--seed``.  The same batches
-    as the JAX package's ``train`` for the same flags."""
-    from dlrm_tpu_torch.data import synthetic
-    from dlrm_tpu_torch.data.criteo import DACLoader, load
-
-    if args.data:
-        loader = DACLoader(load(args.data), args.batch_size,
-                           shuffle=args.shuffle,
-                           shuffle_rows=args.shuffle_rows,
-                           shuffle_window=args.shuffle_window,
-                           seed=args.seed)
+    if data:
+        loader = DACLoader(load(data), batch_size,
+                           drop_remainder=not keep_remainder, seed=seed,
+                           **shuffle)
         if len(loader) == 0:
             raise SystemExit(
-                f"dataset {args.data} has fewer records than one batch "
-                f"({args.batch_size}); lower --batch-size")
+                f"dataset {data} has fewer records than one batch "
+                f"({batch_size}); lower --batch-size")
 
         def gen():
             count = 0
-            while True:
+            while steps is None or count < steps:
                 for batch in loader:
                     yield batch
                     count += 1
@@ -237,10 +217,35 @@ def _train_data_iter(args, config, steps: Optional[int]):
                     return
 
         return gen()
-    if args.synthetic == "skewed":
-        truth = synthetic.ClickthroughModel(config, seed=12345)
-        return truth.stream(args.batch_size, steps, args.seed + 1)
-    return synthetic.batch_stream(config, args.batch_size, steps, args.seed)
+    if synthetic == "skewed":
+        truth = synth.ClickthroughModel(config, seed=12345)
+        return truth.stream(batch_size, steps, seed + 1)
+    return synth.batch_stream(config, batch_size, steps, seed)
+
+
+def _block_iter(source, k: int):
+    """Stack K consecutive batches on the host for a coalesced block step;
+    a remainder shorter than K at the end of the stream is stacked as a
+    shorter block."""
+    buf = []
+
+    def flush(buf):
+        return {key: np.stack([np.asarray(x[key]) for x in buf])
+                for key in buf[0]}
+
+    for b in source:
+        buf.append(b)
+        if len(buf) == k:
+            yield flush(buf)
+            buf = []
+    if buf:
+        yield flush(buf)
+
+
+def _crossed(prev: int, cur: int, every: Optional[int]) -> bool:
+    """True when the steps (prev, cur] hold a multiple of ``every`` (a
+    block advances the step counter by K at a time)."""
+    return bool(every) and (cur // every) > (prev // every)
 
 
 def score_batch(params: dict, batch: dict, config,
@@ -272,8 +277,11 @@ def cmd_predict(args) -> int:
     config = _build_config(args, device)
     t0 = time.time()
     params = params_from_numpy(load_npz(args.params), config, device)
+    # one epoch in file order, the ragged tail included: every row scored
     scores = [score_batch(params, batch, config, device)
-              for batch in _data_iter(args)]
+              for batch in _batch_iter(config, data=args.data,
+                                       batch_size=args.batch_size,
+                                       steps=None, keep_remainder=True)]
     out = np.concatenate(scores) if scores else np.zeros((0,), np.float32)
     n = out.shape[0]
     np.save(args.out, out)
@@ -284,9 +292,13 @@ def cmd_predict(args) -> int:
     return 0
 
 
-def _train_lr(args):
-    """``--lr``, or the schedule of ``--lr-schedule`` over it; resolves
-    ``--epochs`` into ``args.steps``."""
+def _train_plan(args) -> argparse.Namespace:
+    """Check the train flags against each other and derive the plan: the
+    learning rate (``--lr``, or the schedule of ``--lr-schedule`` over it),
+    the block size and the clip; resolves ``--epochs`` into
+    ``args.steps``."""
+    from dlrm_tpu_torch.train import optim
+
     if args.data is None and args.steps is None:
         raise SystemExit("synthetic training needs --steps")
     if args.epochs:
@@ -299,46 +311,167 @@ def _train_lr(args):
         if per_epoch == 0:
             raise SystemExit("dataset smaller than one batch")
         args.steps = args.epochs * per_epoch
-    if args.lr_schedule == "constant":
-        return args.lr
-    from dlrm_tpu_torch.train.optim import make_schedule
-    return make_schedule(args.lr, schedule=args.lr_schedule,
-                         warmup_steps=args.warmup_steps,
-                         decay_start=args.decay_start,
-                         decay_steps=args.decay_steps)
+    if args.optimizer not in optim.OPTIMIZERS:
+        raise SystemExit(f"--optimizer {args.optimizer!r}: choose from "
+                         f"{', '.join(optim.OPTIMIZERS)}")
+    try:
+        optim.check_emb_impl(args.adagrad_impl)
+    except ValueError:
+        raise SystemExit(f"--adagrad-impl {args.adagrad_impl!r}: want "
+                         "hybrid, hybrid:<MB>, dedup or dense_g") from None
+    lr = args.lr
+    if args.lr_schedule != "constant":
+        lr = optim.make_schedule(args.lr, schedule=args.lr_schedule,
+                                 warmup_steps=args.warmup_steps,
+                                 decay_start=args.decay_start,
+                                 decay_steps=args.decay_steps)
+    return argparse.Namespace(lr=lr, block=max(args.update_interval or 1, 1),
+                              clip=args.grad_clip_norm)
+
+
+def _build_step(args, config, plan, params: dict):
+    """The step of a training run as ``step(batch) -> (loss, steps
+    advanced)`` on tensors of the parameters' device, and ``align(step)``
+    (or None) that keeps a scheduled block step's count on the loop's.
+
+    As in the JAX package: plain SGD takes the SGD step, or the SGD block
+    (which carries the clip itself) under ``--update-interval``; any other
+    optimizer, or a clip at K=1, takes the optimizer-state step or block.
+    A block's ``--adagrad-impl hybrid`` reads as ``dense_g`` there; in this
+    package every value runs the one implementation."""
+    from dlrm_tpu_torch.train import train as T
+
+    lr, block, clip = plan.lr, plan.block, plan.clip
+    keys = ("dense", "sparse", "labels")
+    align = None
+    if args.optimizer == "sgd" and (clip is None or block > 1):
+        if block > 1:
+            fn = T.make_train_block(config, lr, grad_clip_norm=clip)
+            if hasattr(fn, "step"):
+                align = lambda s: setattr(fn, "step", s)
+        else:
+            fn = T.make_train_step(config, lr)
+        call = lambda b: fn(params, *(b[k] for k in keys))
+    else:
+        opt_state = T.init_opt_state(params, config=config,
+                                     optimizer=args.optimizer)
+        if block > 1:
+            impl = args.adagrad_impl
+            fn = T.make_train_block_opt(
+                config, optimizer=args.optimizer, lr=lr,
+                adagrad_impl="dense_g" if impl.startswith("hybrid") else impl,
+                unroll=not args.block_scan, grad_clip_norm=clip)
+        else:
+            fn = T.make_train_step_opt(
+                config, optimizer=args.optimizer, lr=lr,
+                emb_impl=args.adagrad_impl, grad_clip_norm=clip)
+        call = lambda b: fn(params, opt_state, *(b[k] for k in keys))
+    if block > 1:
+        return (lambda b: (call(b)[-1], int(b["dense"].shape[0]))), align
+    return (lambda b: (call(b), 1)), align
+
+
+def run_training(args, config, params: dict, say=lambda *a: None) -> dict:
+    """The loop of ``train`` on ``params`` (in place, on their device):
+    steps or blocks over the batch stream, a status line through ``say``
+    every ``--log-every`` steps, evaluation every ``--eval-every`` steps
+    and at the end; returns the result line's dict (without ``device``)."""
+    from dlrm_tpu_torch.train.metrics import evaluate
+    from dlrm_tpu_torch.train.train import batch_to_device
+
+    plan = _train_plan(args)
+    device = params["emb"].device
+    step_fn, align = _build_step(args, config, plan, params)
+
+    def run_eval():
+        # the training file when there is no --eval-data; an all-synthetic
+        # evaluation needs a bound: 10 batches, from a seed of its own
+        eval_data = args.eval_data or args.data
+        eval_steps = args.eval_steps
+        if eval_data is None and eval_steps is None:
+            eval_steps = 10
+        return evaluate(params, _batch_iter(
+            config, data=eval_data, batch_size=args.batch_size,
+            steps=eval_steps, seed=10_000, synthetic=args.synthetic,
+            keep_remainder=True), config)
+
+    eval_record: List[dict] = []
+    losses: List[float] = []
+    t_start = time.time()
+    step = prev = 0
+    loss = None
+    source = _batch_iter(
+        config, data=args.data, batch_size=args.batch_size, steps=args.steps,
+        seed=args.seed, synthetic=args.synthetic, shuffle=args.shuffle,
+        shuffle_rows=args.shuffle_rows, shuffle_window=args.shuffle_window)
+    if plan.block > 1:
+        source = _block_iter(source, plan.block)
+    for batch in source:
+        prev = step
+        if align is not None:
+            align(step)
+        loss, advanced = step_fn(batch_to_device(batch, device))
+        step += advanced
+        if _crossed(prev, step, args.log_every):
+            loss = float(loss)  # a host sync
+            losses.append(loss)
+            eps = step * args.batch_size / max(time.time() - t_start, 1e-9)
+            say(f"step {step} loss {loss:.5f} ({eps:,.0f} examples/s)")
+        if _crossed(prev, step, args.eval_every):
+            m = run_eval()
+            m["step"] = step
+            eval_record.append(m)
+            say(f"eval @ step {step}: acc={m['accuracy']:.4f} "
+                f"auc={m['auc']:.4f} loss={m['loss']:.5f}")
+    # a run shorter than --log-every still reports its final loss
+    if step > 0 and not _crossed(prev, step, args.log_every):
+        losses.append(float(loss))
+    result = {"steps": step,
+              "final_loss": losses[-1] if losses else None,
+              "seconds": round(time.time() - t_start, 2)}
+    if eval_record:
+        result["eval_record"] = eval_record
+    if args.eval_data or args.eval_after:
+        result["eval"] = run_eval()
+    return result
 
 
 def cmd_train(args) -> int:
-    """Exact-SGD training on one device from parameters drawn from the
-    config's seed; prints a status line every ``--log-every`` steps to
-    stderr and one JSON line at the end."""
+    """Training on one device from parameters drawn from the config's
+    seed; prints status lines to stderr and one JSON line at the end."""
     from dlrm_tpu_torch.models.dlrm import init_params
-    from dlrm_tpu_torch.train.train import train
 
     _refuse_unported(args)
-    lr = _train_lr(args)
     device = _device(args)
     config = _build_config(args, device)
     print(f"device: {device} ({config.interaction_impl} interaction)",
           file=sys.stderr)
     params = init_params(torch.Generator(device).manual_seed(config.seed),
                          config, device)
-    t_start = time.time()
-    done = [0]  # steps taken; train() syncs on the last step too
+    result = run_training(args, config, params,
+                          say=lambda *a: print(*a, file=sys.stderr))
+    print(json.dumps({**result, "device": device.type}))
+    return 0
 
-    def log(step, loss):
-        done[0] = step + 1
-        eps = done[0] * args.batch_size / max(time.time() - t_start, 1e-9)
-        print(f"step {done[0]} loss {loss:.5f} ({eps:,.0f} examples/s)",
-              file=sys.stderr)
 
-    res = train(params, _train_data_iter(args, config, args.steps),
-                config=config, lr=lr, callback=log,
-                sync_every=max(args.log_every, 1))
-    print(json.dumps({"steps": done[0],
-                      "final_loss": res["losses"][-1] if res["losses"]
-                      else None,
-                      "seconds": round(time.time() - t_start, 2),
+def cmd_eval(args) -> int:
+    """Accuracy, AUC and mean loss of saved parameters over ``--data``
+    (every row: the ragged tail batch counts), or over 10 synthetic batches
+    without it; prints one JSON line."""
+    from dlrm_tpu_torch.io.convert import load_npz, params_from_numpy
+    from dlrm_tpu_torch.train.metrics import evaluate
+
+    _refuse_unported(args)
+    if args.params is None:
+        raise SystemExit("eval needs --params (an .npz from "
+                         "dlrm_tpu_torch.io.convert.save_npz)")
+    device = _device(args)
+    config = _build_config(args, device)
+    params = params_from_numpy(load_npz(args.params), config, device)
+    eval_steps = args.eval_steps or (None if args.data else 10)
+    data = _batch_iter(config, data=args.data, batch_size=args.batch_size,
+                       steps=eval_steps, keep_remainder=True)
+    print(json.dumps({**evaluate(params, data, config),
                       "device": device.type}))
     return 0
 
@@ -347,8 +480,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="dlrm_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    tr = sub.add_parser("train", help="train a DLRM with exact SGD on one "
-                        "device")
+    tr = sub.add_parser("train", help="train a DLRM on one device")
     _add_config_flags(tr)
     tr.add_argument("--data", default=None, help="binarized dataset "
                     "(default: synthetic)")
@@ -382,16 +514,42 @@ def build_parser() -> argparse.ArgumentParser:
                     help="accepted; batches are copied to the device "
                     "plainly, one at a time, until data/prefetch.py is "
                     "ported")
+    tr.add_argument("--optimizer", default="sgd",
+                    help="sgd | adagrad | rowwise_adagrad (one f32 "
+                    "accumulator scalar per embedding row; the dense "
+                    "parameters take elementwise Adagrad)")
+    tr.add_argument("--grad-clip-norm", type=float, default=None,
+                    help="global-norm gradient clipping over the step's "
+                    "full gradient (dense towers and embedding rows); in a "
+                    "block, each micro-step is clipped")
+    tr.add_argument("--update-interval", type=int, default=1,
+                    help="K: coalesce the big-table embedding updates of K "
+                    "consecutive steps into one update (big-table rows are "
+                    "read as of block entry: stale by fewer than K steps).  "
+                    "Kept for the bounded-staleness semantics: on one GPU "
+                    "a block is no faster than K steps, and an SGD block "
+                    "is slower (it splits every micro-step's gradient rows "
+                    "into big and small tables, which the SGD step need "
+                    "not)")
+    tr.add_argument("--adagrad-impl", default="hybrid",
+                    help="hybrid | hybrid:<MB> | dedup | dense_g: the JAX "
+                    "package's three exact-Adagrad implementations, which "
+                    "give the same results at different TPU cost.  This "
+                    "package has one implementation (dedup then apply) and "
+                    "runs it for every accepted value")
+    tr.add_argument("--block-scan", action="store_true",
+                    help="accepted: a compile-time choice of the JAX "
+                    "package; blocks here run one Python loop either way")
+    tr.add_argument("--eval-data", default=None,
+                    help="binarized dataset to evaluate on (default: "
+                    "--data, else 10 synthetic batches)")
+    tr.add_argument("--eval-after", action="store_true",
+                    help="evaluate after the last step")
+    tr.add_argument("--eval-every", type=int, default=None,
+                    help="evaluate every N steps")
+    tr.add_argument("--eval-steps", type=int, default=None,
+                    help="evaluate on this many batches")
     for flag, kw in (
-            ("--optimizer", {"default": "sgd"}),
-            ("--grad-clip-norm", {"type": float}),
-            ("--adagrad-impl", {"default": "hybrid"}),
-            ("--update-interval", {"type": int, "default": 1}),
-            ("--block-scan", {"action": "store_true"}),
-            ("--eval-data", {}),
-            ("--eval-after", {"action": "store_true"}),
-            ("--eval-every", {"type": int}),
-            ("--eval-steps", {"type": int}),
             ("--profile-dir", {}),
             ("--host-prefetch", {"action": "store_true"}),
             ("--hbm-budget-gb", {"type": float}),
@@ -407,6 +565,22 @@ def build_parser() -> argparse.ArgumentParser:
         tr.add_argument(flag, help="not served yet", **kw)
     _add_dist_flags(tr)
     tr.set_defaults(fn=cmd_train)
+
+    ev = sub.add_parser("eval", help="accuracy / AUC / loss")
+    _add_config_flags(ev)
+    ev.add_argument("--data", default=None, help="binarized dataset "
+                    "(default: 10 synthetic batches)")
+    ev.add_argument("--params", default=None,
+                    help="parameters .npz (io/convert.save_npz)")
+    ev.add_argument("--ckpt-dir", default=None, help="not served yet")
+    ev.add_argument("--hdf5", default=None, help="not served yet")
+    ev.add_argument("--batch-size", type=int, default=16384)
+    ev.add_argument("--eval-steps", type=int, default=None,
+                    help="evaluate on this many batches")
+    ev.add_argument("--quantize-tables", default=None, choices=["int8"],
+                    help="not served yet")
+    _add_dist_flags(ev)
+    ev.set_defaults(fn=cmd_eval)
 
     pr = sub.add_parser("predict", help="batch CTR scoring -> .npy")
     _add_config_flags(pr)

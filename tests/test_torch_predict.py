@@ -153,9 +153,9 @@ def test_predict_line_reports_the_device(device, tmp_path, rng, capsys):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--ckpt-dir", "x", "item 7, 'Checkpoints"),
-    ("--hdf5", "x.h5", "item 1, 'HDF5 interop"),
-    ("--quantize-tables", "int8", "item 6, 'Int8 serving"),
+    ("--ckpt-dir", "x", "item 3, 'Checkpoints"),
+    ("--hdf5", "x.h5", "item 1, 'Data, HDF5 interop"),
+    ("--quantize-tables", "int8", "item 2, 'Int8 serving"),
 ])
 def test_predict_flags_not_served_yet(flag, value, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
