@@ -7,18 +7,24 @@ result):
   1. the card (nvidia-smi name and power limit) and the kernel build;
   2. every hand-written kernel against its plain torch version on the card,
      at the main paths' shapes and at ragged / padded ones, f32 and bf16,
-     timed with CUDA events; the fused interaction's autograd gradient
-     against autograd through the gram interaction;
+     on the two sources (x, feats) the model hands over, timed with CUDA
+     events; the forward on the stacked T's views gives the same bits, and
+     takes the bulk-copy path wherever the rows allow it; the fused
+     interaction's autograd gradient against autograd through the gram
+     interaction;
   3. serving: Kaggle fs=128 at full width (26 tables, 33.76 M rows x 128 in
      f32, random weights from a seed) scoring batches of 16384 through the
-     scoring function of `predict`, with the kernels' launch counts read
-     around it;
+     scoring function of `predict`, with the kernels' launch counts (and
+     the forward's bulk-copy launches) read around it, then a
+     `torch.profiler` breakdown of a served batch that must show no cat
+     and no full-size copy of the pooled rows;
   4. training: the same model, 8 exact-SGD steps at B=32768 through
      `dlrm_tpu_torch.train`, launch counts read around them; 4 steps from a
      copy of the same start under the gram interaction give the same
      losses, dense parameters and touched table rows; then the step time
      under fused and gram in turns, and a `torch.profiler` breakdown of
-     the fused step by kernel group with the device's idle share;
+     the fused step by kernel group with the device's idle share, which
+     must show no cat and no full-size copy of the embedding gradient;
   5. evaluation: the same model, `evaluate` over 8 batches of 16384 and a
      ragged one of 107, against the metrics of `score_batch`'s scores;
   6. the optimizers at full width: 4 Adagrad and 4 row-wise Adagrad steps at
@@ -127,15 +133,15 @@ def phase_card():
                 print(f"  ptxas {stem}:", line.strip())
 
 
-def _bound(kname: str, t, cot, out) -> dict:
+def _bound(kname: str, inputs: list, outputs: list, b: int, f: int,
+           d: int) -> dict:
     """The least time the card could take for one call: every input read
-    once and the output written once at the HBM rate, against the f32
+    once and every output written once at the HBM rate, against the f32
     multiply-adds the function needs at the f32 peak.  Forward: the P pair
     dots of D products per sample.  Backward: dT = (dZ + dZ^T) T, F * F * D
-    products per sample."""
-    b, f, d = t.shape
-    inputs = [t] if kname == "interaction_fwd" else [cot, t]
-    nbytes = sum(x.numel() * x.element_size() for x in inputs + [out])
+    products per sample.  The byte count does not depend on how the
+    inputs are laid out (one T, or x and feats apart)."""
+    nbytes = sum(x.numel() * x.element_size() for x in inputs + outputs)
     flops = 2 * b * d * (f * (f - 1) // 2 if kname == "interaction_fwd"
                          else f * f)
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
@@ -144,12 +150,27 @@ def _bound(kname: str, t, cot, out) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
+def _fwd_views_agree(F, t, pad_to: int, out) -> bool:
+    """Checks that the forward on the T-view form (t[:, 0], t[:, 1:])
+    gives the bits of the two-source form's ``out``; returns whether that
+    launch took the bulk-copy path."""
+    before = F.interaction_fwd.bulk_launches
+    tview = F.interaction_fwd(t[:, 0], t[:, 1:], pad_to)
+    torch.cuda.synchronize()
+    check(torch.equal(tview, out), f"interaction_fwd: T-view and two-source "
+          f"forms differ at {tuple(t.shape)} {t.dtype}")
+    return F.interaction_fwd.bulk_launches > before
+
+
 def phase_kernels() -> dict:
     """Both kernels against their plain versions at every shape a main
     path gives them ((16384, 27, 128) serving and evaluation, (32768, 27,
     128) training steps and blocks, (8192, 27, 128) the clipped step) and
-    at narrow and ragged ones; returns the numbers at (16384, 27, 128)
-    f32, per kernel."""
+    at narrow and ragged ones, on the two sources x = T[:, 0] and feats =
+    T[:, 1:] as the model hands them over; the forward also on the T-view
+    form, which must give the same bits.  Rows of 16-byte multiples take
+    the forward's bulk-copy path, the rows of (13, 5, 6) its plain-load
+    path.  Returns the numbers at (16384, 27, 128) f32, per kernel."""
     from dlrm_tpu_torch.ops import interaction_fused as F
     from dlrm_tpu_torch.ops.interaction import dot_interaction
 
@@ -159,11 +180,12 @@ def phase_kernels() -> dict:
           "plain ms")
     for b, f, d in [(BATCH, 27, 128), (TRAIN_BATCH, 27, 128),
                     (CLIP_BATCH, 27, 128), (BATCH, 27, 16), (107, 27, 128),
-                    (13, 4, 8)]:
+                    (13, 4, 8), (13, 5, 6)]:
         for pad_to in (1, 128):
             for dtype in (torch.float32, torch.bfloat16):
                 t = torch.randn((b, f, d), generator=g, device=DEV
                                 ).to(dtype)
+                x, feats = t[:, 0].contiguous(), t[:, 1:].contiguous()
                 width = F.output_width(f, d, pad_to)
                 # nonzero padding columns: the backward must ignore them
                 cot = torch.randn((b, width), generator=g, device=DEV
@@ -173,15 +195,20 @@ def phase_kernels() -> dict:
                 rtol = 1e-5 if dtype == torch.float32 else 1e-2
                 cases = {
                     "interaction_fwd": (
-                        lambda: F.interaction_fwd(t, pad_to),
-                        lambda: F.fused_interaction_t_reference(t, pad_to)),
+                        lambda: F.interaction_fwd(x, feats, pad_to),
+                        lambda: F.fused_interaction_reference(x, feats,
+                                                              pad_to)),
                     "interaction_bwd": (
-                        lambda: F.interaction_bwd(cot, t),
-                        lambda: F.fused_interaction_t_bwd_reference(cot, t)),
+                        lambda: F.interaction_bwd(cot, x, feats),
+                        lambda: F.fused_interaction_bwd_reference(cot, x,
+                                                                  feats)),
                 }
                 name = "f32" if dtype == torch.float32 else "bf16"
                 for kname, (kern, plain) in cases.items():
                     got, ref = kern(), plain()
+                    if kname == "interaction_bwd":  # (dx, dfeats) as one dT
+                        got, ref = (torch.cat([y[0][:, None], y[1]], dim=1)
+                                    for y in (got, ref))
                     torch.cuda.synchronize()
                     check(got.shape == ref.shape and got.dtype == dtype,
                           f"{kname}: shape/dtype {tuple(got.shape)} "
@@ -190,6 +217,10 @@ def phase_kernels() -> dict:
                         p = f * (f - 1) // 2
                         check(bool((got[:, d + p:] == 0).all()),
                               "padding columns not zero")
+                        bulk = _fwd_views_agree(F, t, pad_to, got)
+                        check(bulk == ((d * t.element_size()) % 16 == 0),
+                              f"interaction_fwd at {(b, f, d)} {name}: bulk "
+                              f"path {bulk}")
                     torch.testing.assert_close(got.float(), ref.float(),
                                                atol=1e-4, rtol=rtol)
                     err = (got.float() - ref.float()).abs().max().item()
@@ -198,10 +229,14 @@ def phase_kernels() -> dict:
                           f"{err:.3g}, {ms:.4f}, {plain_ms:.4f}")
                     if (b, d, pad_to, dtype) == (BATCH, 128, 1,
                                                  torch.float32):
+                        if kname == "interaction_fwd":
+                            ins, outs = [x, feats], [got]
+                        else:  # dx and dfeats have the sizes of x, feats
+                            ins, outs = [cot, x, feats], [x, feats]
                         main[kname] = {
                             "max_abs_err": err, "ms": ms,
                             "plain_ms": plain_ms,
-                            **_bound(kname, t, cot, got),
+                            **_bound(kname, ins, outs, b, f, d),
                             # no single PyTorch call computes either
                             # function (plain: bmm + triangular index + cat;
                             # index_put + symmetrise + bmm + add)
@@ -229,16 +264,20 @@ def phase_kernels() -> dict:
 @contextlib.contextmanager
 def counted(what: str, fwd: int, bwd: int):
     """A main path: both kernels' counts are set to 0 before it and read
-    after it; it must have launched them ``fwd`` and ``bwd`` times.  The
-    counts are added to LAUNCHES."""
+    after it; it must have launched them ``fwd`` and ``bwd`` times, every
+    forward on the bulk-copy path.  The counts are added to LAUNCHES."""
     from dlrm_tpu_torch.ops import interaction_fused as F
 
     F.interaction_fwd.launches = 0
+    F.interaction_fwd.bulk_launches = 0
     F.interaction_bwd.launches = 0
     yield
     got = (F.interaction_fwd.launches, F.interaction_bwd.launches)
     check(got == (fwd, bwd), f"{what} launched interaction_fwd {got[0]} and "
           f"interaction_bwd {got[1]} times, not {fwd} and {bwd}")
+    check(F.interaction_fwd.bulk_launches == fwd,
+          f"{what}: {fwd - F.interaction_fwd.bulk_launches} of {fwd} "
+          f"interaction_fwd launches did not take the bulk-copy path")
     LAUNCHES[0] += fwd
     LAUNCHES[1] += bwd
 
@@ -287,6 +326,14 @@ def phase_serving() -> None:
           f"|diff| {diff:.3g}; mean score {np.mean(scores):.6f}")
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+
+    def serve(data):
+        for batch in data:
+            score_batch(params, batch, config, dev)
+
+    _profile_steps("served batches", serve, batches,
+                   pooled_bytes=BATCH * len(config.table_sizes)
+                   * config.feature_size * 4)
     del params
     torch.cuda.empty_cache()
 
@@ -368,8 +415,10 @@ def phase_training() -> None:
           f"{touched.numel()} touched rows {row_diff:.3g}, dense params "
           f"{dense_diff:.3g}")
     _fused_vs_gram_steps(params, start, batches, config)
-    _profile_steps("fused SGD", lambda data: train(
-        params, data, config=config, lr=0.1), batches)
+    _profile_steps("fused SGD steps", lambda data: train(
+        params, data, config=config, lr=0.1), batches,
+        pooled_bytes=TRAIN_BATCH * len(config.table_sizes)
+        * config.feature_size * 4)
     del params, start, mid_rows
     torch.cuda.empty_cache()
 
@@ -416,16 +465,23 @@ _PROFILE_GROUPS = (
     ("host-to-device copies", ("Memcpy HtoD",)),
     ("interaction_bwd kernel", ("interaction_bwd_kernel",)),
     ("interaction_fwd kernel", ("interaction_fwd_kernel",)),
-    ("torch.cat in stack_features (builds T)", ("CatArrayBatched",)),
+    ("torch.cat (none on the fused path)", ("CatArrayBatched",)),
     ("device copies (direct_copy_kernel)", ("direct_copy",)),
 )
 
 
-def _profile_steps(what: str, run, batches, steps: int = 5) -> None:
-    """`torch.profiler` over ``steps`` training steps after 3 warm-up
-    steps: device time a step by group, and the device's idle share of the
-    host-to-host window.  ``run(data)`` takes one step a batch of ``data``,
-    reading each loss back."""
+def _profile_steps(what: str, run, batches, steps: int = 5,
+                   pooled_bytes: int = 0) -> None:
+    """`torch.profiler` over ``steps`` steps (or served batches) after 3
+    warm-up ones: device time a step by group, and the device's idle share
+    of the host-to-host window.  ``run(data)`` takes one step a batch of
+    ``data``, reading each result back.
+
+    With ``pooled_bytes`` (the size of the pooled embeddings, or of their
+    gradient) the fused path is held to what it promises: no `torch.cat`
+    kernel (T is never stacked) and no copy kernel as long as copying that
+    many bytes takes at the HBM rate (the embedding gradient reaches the
+    update as a view)."""
     from torch.profiler import ProfilerActivity, profile
 
     run(batches[:3])
@@ -451,19 +507,33 @@ def _profile_steps(what: str, run, batches, steps: int = 5) -> None:
     groups["elementwise and reductions (all else)"] = sum(other.values())
     busy_ms = sum(groups.values()) / 1e3
     if busy_ms == 0:
-        print(f"training profile, {what}: the profiler recorded no device "
-              f"time (not measured)")
+        print(f"profile, {what}: the profiler recorded no device time (not "
+              f"measured)")
         return
-    print(f"training profile, {steps} {what} steps after 3: "
-          f"{busy_ms / steps:.3f} ms of device time a step, "
-          f"{wall_ms / steps:.3f} ms host to host a step, device idle "
-          f"{100 * (1 - busy_ms / wall_ms):.1f}%")
+    print(f"profile, {steps} {what} after 3: {busy_ms / steps:.3f} ms of "
+          f"device time a step, {wall_ms / steps:.3f} ms host to host a "
+          f"step, device idle {100 * (1 - busy_ms / wall_ms):.1f}%")
     for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {name}: {us / 1e3 / steps:.3f} ms a step "
               f"({100 * us / 1e3 / busy_ms:.1f}%)")
     for key, us in sorted(other.items(), key=lambda kv: -kv[1])[:6]:
         print(f"    of all else: {us / 1e3 / steps:.3f} ms a step: "
               f"{key[:110]}")
+    if pooled_bytes:
+        full_copy_us = 2 * pooled_bytes / HBM_BYTES_PER_S * 1e6
+        kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        cats = [n for n, _ in kernels if "CatArrayBatched" in n]
+        copies = [us for n, us in kernels if "direct_copy" in n]
+        longest = max(copies, default=0.0)
+        check(not cats, f"{what}: {len(cats)} cat kernels on the fused path")
+        check(longest < full_copy_us, f"{what}: a copy kernel of "
+              f"{longest:.1f} us, as long as a copy of the {pooled_bytes} B "
+              f"of pooled rows ({full_copy_us:.1f} us at the HBM rate)")
+        print(f"  fused path: no cat kernel; the longest of "
+              f"{len(copies)} copy kernels {longest:.1f} us, below the "
+              f"{full_copy_us:.1f} us a copy of the {pooled_bytes / 1e6:.1f} "
+              f"MB of pooled rows takes at the HBM rate")
 
 
 def _to_dev(batch: dict) -> list:
@@ -882,7 +952,7 @@ def phase_optimizers() -> None:
         for b in data:
             float(ada_step(params, states["adagrad"], *_to_dev(b)))
 
-    _profile_steps("fused Adagrad", adagrad_steps, batches)
+    _profile_steps("fused Adagrad steps", adagrad_steps, batches)
     print(f"optimizer phases: peak device memory "
           f"{torch.cuda.max_memory_allocated(DEV) / 1e9:.2f} GB (tables, the "
           f"Adagrad accumulator, and for a while a clone of the tables)")

@@ -1,20 +1,27 @@
 // Fused DLRM dot-interaction backward for Hopper (sm_90a).
 //
 // Replaces the TPU kernel dlrm_tpu/ops/interaction_pallas.py::_bwd_kernel.
-// Given T (B, F, D) and the cotangent g (B, W) of the forward's output row
+// T (B, F, D) arrives as the forward's two sources: the dense row x (B, D)
+// and the feature rows feats (B, F-1, D), each with its own base pointer
+// and per-sample stride (the stacked form passes the views T[:, 0] and
+// T[:, 1:]).  Given the cotangent g (B, W) of the forward's output row
 // [T[b,0,:] | Z[b,i,j] for i > j | zero padding up to W], it writes
 //
 //   dT[b] = S[b] T[b],  S = dZ + dZ^T,  dZ strictly lower, from g[b, D:D+P]
 //   dT[b, 0, :] += g[b, :D]
 //
-// accumulated in f32 and stored in T's dtype (f32 or bf16; g has T's dtype
-// and is read as f32).  The padding columns g[b, D+P:] are never read.
+// with dT's row 0 going to dx (B, D) and its rows 1.. to dfeats (B, F-1, D),
+// again each through its own pointer and stride (one dT through the same
+// two views in the stacked form).  Sums in f32, stored in T's dtype (f32 or
+// bf16; g has T's dtype and is read as f32).  The padding columns
+// g[b, D+P:] are never read.
 //
 // What bounds it: at the Kaggle fs=128 shape (F=27, D=128, P=351) one f32
 // sample reads 13,824 B of T and 1,916 B of g and writes 13,824 B of dT for
 // 93,312 FMAs, about 3 FMAs per byte: far below the card's balance point,
-// so the kernel should be bound by bytes.  It reads T and g once and writes
-// dT once; S never reaches device memory.  Inside the block:
+// so the kernel should be bound by bytes.  It reads x, feats and g once and
+// writes dx and dfeats once; S never reaches device memory.  Inside the
+// block:
 //   * a block takes S consecutive samples (the caller picks S so that the
 //     staging fits in shared memory).  Their T rows are copied into shared
 //     memory as f32, with 16-byte loads where the rows allow, at a row
@@ -27,7 +34,8 @@
 //     FMAs.  Neighbouring lanes take neighbouring column tiles, so the T
 //     reads of a warp are contiguous and the S reads broadcast;
 //   * a tile adds g[b, k0:k0+4] to row 0 and stores its rows straight to
-//     dT, 16 bytes (f32) or 8 bytes (bf16) a row where D is a multiple of 4.
+//     dx or dfeats, 16 bytes (f32) or 8 bytes (bf16) a row where D is a
+//     multiple of 4.
 // Columns D..D4-1 of the staged T are never written: they feed only output
 // columns that are not stored.  The ragged edge (the last block may hold
 // fewer than S samples) is masked; no padding of B is needed.
@@ -101,12 +109,31 @@ __device__ __forceinline__ void fma4(float* acc, float a, float4 b) {
   acc[3] = fmaf(a, b.w, acc[3]);
 }
 
+// Row r of sample b of T (or of dT): x[b] for r = 0, else feats[b, r-1].
+template <typename P>
+__device__ __forceinline__ P* row_of(P* x, long long sx, P* feats,
+                                     long long sf, long long b, int r, int d) {
+  return r == 0 ? x + b * sx
+                : feats + b * sf + static_cast<long long>(r - 1) * d;
+}
+
+template <typename T>
+struct Rows {
+  const T* x;
+  long long sx;
+  const T* feats;
+  long long sf;
+  T* dx;
+  long long sdx;
+  T* dfeats;
+  long long sdf;
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-interaction_bwd_kernel(const T* __restrict__ g, const T* __restrict__ t,
-                       T* __restrict__ dt, long long batch, int f, int d,
-                       int width, int samples_per_block, bool vec_loads,
-                       bool vec_stores) {
+interaction_bwd_kernel(const T* __restrict__ g, Rows<T> io, long long batch,
+                       int f, int d, int width, int samples_per_block,
+                       bool vec_loads, bool vec_stores) {
   extern __shared__ __align__(16) float smem[];
   const int fp = round_up4(f);
   const int d4 = round_up4(d);
@@ -121,20 +148,27 @@ interaction_bwd_kernel(const T* __restrict__ g, const T* __restrict__ t,
 
   // 1. Stage the ns samples' T rows as f32 at stride d4 (row r of sample s
   //    is staged row s * f + r).
-  const T* src = t + b0 * f * d;
-  if (vec_loads) {  // d * sizeof(T) is a multiple of 16: whole vectors per row
+  if (vec_loads) {  // every row 16-byte aligned and a 16-byte multiple, so
+                    // d4 == d: a sample is x's row, then its feature rows
     constexpr int kVec = Elem<T>::kVec;
     const int per_row = d / kVec;
-    const uint4* src4 = reinterpret_cast<const uint4*>(src);
-    for (int k = threadIdx.x; k < ns * f * per_row; k += blockDim.x) {
-      const int row = k / per_row;
-      Elem<T>::unpack(__ldg(src4 + k),
-                      rows + row * d4 + (k - row * per_row) * kVec);
+    for (int s = 0; s < ns; ++s) {
+      const uint4* x4 = reinterpret_cast<const uint4*>(io.x + (b0 + s) * io.sx);
+      const uint4* f4 = reinterpret_cast<const uint4*>(io.feats +
+                                                       (b0 + s) * io.sf) -
+                        per_row;
+      float* dst = rows + s * t_floats;
+      for (int k = threadIdx.x; k < f * per_row; k += blockDim.x) {
+        Elem<T>::unpack(__ldg(k < per_row ? x4 + k : f4 + k), dst + k * kVec);
+      }
     }
   } else {
     for (int k = threadIdx.x; k < ns * f * d; k += blockDim.x) {
       const int row = k / d;
-      rows[row * d4 + (k - row * d)] = Elem<T>::to_f(src[k]);
+      const int s = row / f;
+      const int c = k - row * d;
+      rows[row * d4 + c] = Elem<T>::to_f(
+          row_of(io.x, io.sx, io.feats, io.sf, b0 + s, row - s * f, d)[c]);
     }
   }
 
@@ -189,18 +223,18 @@ interaction_bwd_kernel(const T* __restrict__ g, const T* __restrict__ t,
         if (k0 + q < d) acc[0][q] += Elem<T>::to_f(g0[q]);
       }
     }
-    T* out = dt + bi * f * d + k0;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int i = 4 * ti + r;
       if (i >= f) break;
+      T* out = row_of(io.dx, io.sdx, io.dfeats, io.sdf, bi, i, d) + k0;
       if (vec_stores) {  // d % 4 == 0, so the whole tile lies inside the row
-        Elem<T>::store4(out + i * d,
+        Elem<T>::store4(out,
                         make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
       } else {
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          if (k0 + q < d) Elem<T>::store1(out + i * d + q, acc[r][q]);
+          if (k0 + q < d) Elem<T>::store1(out + q, acc[r][q]);
         }
       }
     }
@@ -208,9 +242,9 @@ interaction_bwd_kernel(const T* __restrict__ g, const T* __restrict__ t,
 }
 
 template <typename T>
-int launch(const void* g, const void* t, void* dt, long long batch, int f,
-           int d, int width, int samples_per_block, int vec_loads,
-           int vec_stores, cudaStream_t stream) {
+int launch(const void* g, const Rows<T>& io, long long batch, int f, int d,
+           int width, int samples_per_block, int vec_loads, int vec_stores,
+           cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(samples_per_block) *
                       sample_floats(f, d) * sizeof(float);
   if (smem > 48 * 1024) {
@@ -222,28 +256,46 @@ int launch(const void* g, const void* t, void* dt, long long batch, int f,
   const long long blocks = (batch + samples_per_block - 1) / samples_per_block;
   interaction_bwd_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem,
                               stream>>>(
-      static_cast<const T*>(g), static_cast<const T*>(t), static_cast<T*>(dt),
-      batch, f, d, width, samples_per_block, vec_loads != 0, vec_stores != 0);
+      static_cast<const T*>(g), io, batch, f, d, width, samples_per_block,
+      vec_loads != 0, vec_stores != 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* g, const void* x, long long sx, const void* feats,
+             long long sf, void* dx, long long sdx, void* dfeats,
+             long long sdf, long long batch, int f, int d, int width,
+             int samples_per_block, int vec_loads, int vec_stores,
+             cudaStream_t s) {
+  const Rows<T> io{static_cast<const T*>(x), sx, static_cast<const T*>(feats),
+                   sf, static_cast<T*>(dx), sdx, static_cast<T*>(dfeats), sdf};
+  return launch<T>(g, io, batch, f, d, width, samples_per_block, vec_loads,
+                   vec_stores, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (g, t and dt all of it).  vec_loads: t's
-// base is 16-byte aligned and D * sizeof(T) is a multiple of 16.
-// vec_stores: dt's base is 16-byte aligned and D is a multiple of 4.
-// Returns 0 or the cudaError_t of the launch.  The Python wrapper
+// dtype: 0 = float32, 1 = bfloat16 (g, x, feats, dx and dfeats all of it).
+// sx, sf, sdx, sdf: sample strides in elements; the rows inside a sample
+// are contiguous.  vec_loads: every row of x and feats is 16-byte aligned
+// and D * sizeof(T) is a multiple of 16.  vec_stores: every row of dx and
+// dfeats is aligned to 4 elements and D is a multiple of 4.  Returns 0 or
+// the cudaError_t of the launch.  The Python wrapper
 // (dlrm_tpu_torch/ops/interaction_fused.py) checks every argument and picks
 // the geometry.
-extern "C" int interaction_bwd(const void* g, const void* t, void* dt,
+extern "C" int interaction_bwd(const void* g, const void* x, long long sx,
+                               const void* feats, long long sf, void* dx,
+                               long long sdx, void* dfeats, long long sdf,
                                int dtype, long long batch, int f, int d,
                                int width, int samples_per_block,
                                int vec_loads, int vec_stores, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(g, t, dt, batch, f, d, width, samples_per_block,
-                         vec_loads, vec_stores, s);
+    return dispatch<float>(g, x, sx, feats, sf, dx, sdx, dfeats, sdf, batch,
+                           f, d, width, samples_per_block, vec_loads,
+                           vec_stores, s);
   }
-  return launch<__nv_bfloat16>(g, t, dt, batch, f, d, width,
-                               samples_per_block, vec_loads, vec_stores, s);
+  return dispatch<__nv_bfloat16>(g, x, sx, feats, sf, dx, sdx, dfeats, sdf,
+                                 batch, f, d, width, samples_per_block,
+                                 vec_loads, vec_stores, s);
 }

@@ -151,8 +151,8 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
                    help="recompute the dense tower on backward "
                    "(torch.utils.checkpoint): fewer stored activations")
     p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, "
-                   "else cpu)")
+                   help="torch device (default: cuda; without a GPU the "
+                   "command exits unless --device cpu is given)")
     p.add_argument("--chunk-budget-mb", type=int, default=None,
                    help="not served (TPU storage layout)")
     p.add_argument("--validate-data", action="store_true",
@@ -179,9 +179,15 @@ def _strict_bool(s: str) -> bool:
 
 
 def _device(args) -> torch.device:
+    """``--device``, else the GPU; without one the run stops rather than
+    move to the CPU unasked."""
     if args.device:
         return torch.device(args.device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device found: this command runs on the GPU "
+                         "unless asked otherwise; pass --device cpu to run "
+                         "it on the CPU")
+    return torch.device("cuda")
 
 
 def _batch_iter(config, *, data: Optional[str], batch_size: int,

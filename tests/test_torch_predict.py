@@ -134,9 +134,9 @@ def test_predict_prints_json_line(tmp_path, rng, capsys):
 
 @pytest.mark.parametrize("device", ["cpu", None])
 def test_predict_line_reports_the_device(device, tmp_path, rng, capsys):
-    """The line names the device the scores were computed on, so a run
-    that fell back to the CPU shows it (without --device: cuda when
-    available, else cpu)."""
+    """The line names the device the scores were computed on.  Without
+    --device the command runs on the GPU; with no GPU it exits naming
+    --device cpu instead of falling back to the CPU."""
     tcfg = _tiny26()
     data, pz, out = (str(tmp_path / n) for n in ("d.bin", "p.npz", "s.npy"))
     _write_dac(data, 40, rng)
@@ -146,10 +146,14 @@ def test_predict_line_reports_the_device(device, tmp_path, rng, capsys):
             "--out", out]
     if device:
         argv += ["--device", device]
+    elif not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="--device cpu"):
+            main(argv)
+        assert not Path(out).exists()
+        return
     main(argv)
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    want = device or ("cuda" if torch.cuda.is_available() else "cpu")
-    assert line["device"] == want
+    assert line["device"] == (device or "cuda")
 
 
 @pytest.mark.parametrize("flag,value,item", [
