@@ -34,12 +34,29 @@ result):
      the step times of the three optimizers at K=1 and K=4 in turns, a
      `torch.profiler` breakdown of the Adagrad step and the time of an
      `evaluate` batch;
-  7. small inputs: the forward, and 3 training steps, on the card against
+  7. int8 serving at full width: the serving phase's tables (the same
+     seed) quantized on the card, codes and scales held bit for bit to the
+     host quantizer on the first and last 4096 rows of every table, the
+     footprint read; 8 batches of 16384 through `score_batch` on the int8
+     tables (launch counts read around them), held to the f32 scores
+     within 5e-3; int8 against f32 serving times in turns, a
+     `torch.profiler` breakdown of an int8 batch, and `predict
+     --quantize-tables int8` in a subprocess against the port in process;
+  8. data: Criteo text written from a seed at the full Kaggle table sizes,
+     `python -m dlrm_tpu_torch preprocess` (the native engine) against the
+     numpy path byte for byte, `train --data --validate-data --prefetch 2`
+     at full width in a subprocess against the same steps in process with
+     plain copies (and through `device_prefetch`, launch counts read
+     around both), `--validate-data` refusing a file that does not fit
+     the tables, then the SGD step fed from `DACLoader` through
+     `device_prefetch` and through plain copies, in turns, and a profile of
+     each (host-to-device copy time, its stream, idle share);
+  9. small inputs: the forward, and 3 training steps, on the card against
      the same on the CPU for every interaction, f32, bf16 and multi-hot;
      3 steps and a K=3 block of every optimizer likewise;
-  8. the entry points: `python -m dlrm_tpu_torch predict`, `train` and
+ 10. the entry points: `python -m dlrm_tpu_torch predict`, `train` and
      `eval` in subprocesses on the card, held against the port in process;
-  9. a `{"kernels": [...]}` line, then the result line.
+ 11. a `{"kernels": [...]}` line, then the result line.
 It needs a CUDA device and the repository around it; without either it
 fails.
 """
@@ -471,7 +488,7 @@ _PROFILE_GROUPS = (
 
 
 def _profile_steps(what: str, run, batches, steps: int = 5,
-                   pooled_bytes: int = 0) -> None:
+                   pooled_bytes: int = 0, groups=()) -> None:
     """`torch.profiler` over ``steps`` steps (or served batches) after 3
     warm-up ones: device time a step by group, and the device's idle share
     of the host-to-host window.  ``run(data)`` takes one step a batch of
@@ -481,7 +498,9 @@ def _profile_steps(what: str, run, batches, steps: int = 5,
     gradient) the fused path is held to what it promises: no `torch.cat`
     kernel (T is never stacked) and no copy kernel as long as copying that
     many bytes takes at the HBM rate (the embedding gradient reaches the
-    update as a view)."""
+    update as a view).  ``groups`` are matched before the common ones.
+    The host-to-device copies are listed by kind and CUDA stream, beside
+    the stream the forward kernel ran on."""
     from torch.profiler import ProfilerActivity, profile
 
     run(batches[:3])
@@ -492,13 +511,14 @@ def _profile_steps(what: str, run, batches, steps: int = 5,
         run(batches[i % len(batches)] for i in range(steps))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {name: 0.0 for name, _ in _PROFILE_GROUPS}
+    table = tuple(groups) + _PROFILE_GROUPS
+    groups = {name: 0.0 for name, _ in table}
     other = {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = evt.self_device_time_total
-        for name, keys in _PROFILE_GROUPS:
+        for name, keys in table:
             if any(k in evt.key for k in keys):
                 groups[name] += us
                 break
@@ -519,6 +539,19 @@ def _profile_steps(what: str, run, batches, steps: int = 5,
     for key, us in sorted(other.items(), key=lambda kv: -kv[1])[:6]:
         print(f"    of all else: {us / 1e3 / steps:.3f} ms a step: "
               f"{key[:110]}")
+    copies, fwd_streams = {}, set()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "Memcpy HtoD" in e.name:
+            k = (e.name, getattr(e, "device_resource_id", None))
+            copies[k] = copies.get(k, 0.0) + e.time_range.elapsed_us()
+        elif "interaction_fwd_kernel" in e.name:
+            fwd_streams.add(getattr(e, "device_resource_id", None))
+    for (name, stream), us in sorted(copies.items()):
+        print(f"  {name} on stream {stream}: {us / 1e3 / steps:.3f} ms a "
+              f"step (the forward kernel ran on stream(s) "
+              f"{sorted(fwd_streams)})")
     if pooled_bytes:
         full_copy_us = 2 * pooled_bytes / HBM_BYTES_PER_S * 1e6
         kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
@@ -812,6 +845,17 @@ def _check_block(params, state, config, optimizer: str, lr: float) -> None:
           f"losses {[round(x, 6) for x in blk_losses]}")
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic kernels (``index_add_`` as a sorted
+    ``index_put_``) for the duration; warn where there is none."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def _warm(state: dict) -> None:
     """Raise every accumulator of ``state`` to at least 1e-6.  From a zero
     accumulator an Adagrad step is lr * g * rsqrt(g^2 + 1e-10): lr * 1e5 * g
@@ -920,7 +964,11 @@ def phase_optimizers() -> None:
     for opt in ("rowwise_adagrad", "adagrad"):
         states[opt] = init_opt_state(params, config=config, optimizer=opt)
         step = make_train_step_opt(config, optimizer=opt, lr=lrs[opt])
-        with counted(f"{opt} steps", OPT_STEPS, OPT_STEPS):
+        # the cold steps sum duplicate ids without atomics: from zero
+        # accumulators Adagrad turns the atomics' run-to-run order into
+        # weight differences of up to 1e-4 (ROADMAP.md §3), and the checks
+        # below must start from the same state in every run
+        with counted(f"{opt} steps", OPT_STEPS, OPT_STEPS), _deterministic():
             losses = [float(step(params, states[opt], *_to_dev(b)))
                       for b in batches[:OPT_STEPS]]
         check(all(np.isfinite(losses)) and states[opt]["count"] == OPT_STEPS,
@@ -958,6 +1006,302 @@ def phase_optimizers() -> None:
           f"Adagrad accumulator, and for a while a clone of the tables)")
     del params, states
     torch.cuda.empty_cache()
+
+
+INT8_BYTES = 4_456_660_164    # Kaggle fs=128: 33,762,577 rows x (128 + 4) B
+INT8_BOUND = 5e-3             # the JAX package's bound (tests/test_quant.py)
+
+
+def _edge_rows(config, n: int = 4096) -> torch.Tensor:
+    """The first and last ``n`` rows of every table, as stacked-table
+    rows."""
+    out = []
+    for off, size in zip(config.table_offsets, config.table_sizes):
+        k = min(size, n)
+        out += [torch.arange(off, off + k),
+                torch.arange(off + size - k, off + size)]
+    return torch.unique(torch.cat(out))
+
+
+def _serve_ms(params, batches, config) -> float:
+    """Median host-to-host ms of `score_batch` over ``batches``."""
+    from dlrm_tpu_torch.run import score_batch
+
+    secs = []
+    for b in batches:
+        t0 = time.perf_counter()
+        score_batch(params, b, config, DEV)
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs) * 1e3
+
+
+def phase_int8_serving() -> None:
+    """Kaggle fs=128 at full width with int8 tables: the card's quantizer
+    against the host's, the footprint, 8 scored batches against f32, the
+    times, a profile, and `predict --quantize-tables int8`."""
+    from dlrm_tpu_torch import init_params, kaggle_config
+    from dlrm_tpu_torch.data.criteo import DACLoader, load
+    from dlrm_tpu_torch.data.synthetic import batch_stream
+    from dlrm_tpu_torch.io.convert import params_to_numpy, save_npz
+    from dlrm_tpu_torch.ops import quant
+    from dlrm_tpu_torch.run import score_batch
+
+    config = kaggle_config(feature_size=128, interaction_impl="fused")
+    torch.cuda.reset_peak_memory_stats(DEV)
+    params = init_params(torch.Generator(DEV).manual_seed(config.seed),
+                         config, DEV)
+    torch.cuda.synchronize(DEV)
+    t0 = time.perf_counter()
+    qemb = quant.quantize_emb(params["emb"], config)
+    torch.cuda.synchronize(DEV)
+    q_s = time.perf_counter() - t0
+    rows = _edge_rows(config).to(DEV)
+    sub = dataclasses.replace(config, table_sizes=(rows.numel(),))
+    host = quant.quantize_emb_host(params["emb"][rows].cpu().numpy(), sub)
+    check(torch.equal(qemb.codes[rows].cpu(), host.codes) and
+          torch.equal(qemb.scales[rows].cpu(), host.scales),
+          "int8 codes or scales on the card differ from the host's")
+    nbytes = quant.table_bytes(qemb)
+    f32_bytes = params["emb"].numel() * params["emb"].element_size()
+    check(nbytes == INT8_BYTES, f"int8 tables take {nbytes} B")
+    print(f"int8 quantization on the card: {q_s:.2f} s for "
+          f"{config.total_rows} rows; codes and scales of {rows.numel()} "
+          f"rows (the first and last 4096 of every table) equal the host "
+          f"quantizer's bit for bit; {nbytes} B of int8 tables and scales "
+          f"against {f32_bytes} B in f32")
+
+    qparams = {"bottom": params["bottom"], "emb": qemb,
+               "top": params["top"]}
+    batches = list(batch_stream(config, BATCH, MAIN_BATCHES, seed=0))
+    with counted("int8 serving", len(batches), 0):
+        scores = [score_batch(qparams, b, config, DEV) for b in batches]
+    f32 = [score_batch(params, b, config, DEV) for b in batches]
+    diff = max(float(np.abs(q - f).max()) for q, f in zip(scores, f32))
+    for s in scores:
+        check(s.shape == (BATCH,) and bool(np.isfinite(s).all())
+              and bool(((s > 0) & (s < 1)).all()), f"int8 scores {s}")
+    check(diff <= INT8_BOUND, f"int8 vs f32 scores differ by {diff}")
+    ms = {"f32": [], "int8": []}
+    for name, p in (("f32", params), ("int8", qparams),
+                    ("int8", qparams), ("f32", params)):
+        ms[name].append(_serve_ms(p, batches, config))
+    print(f"int8 serving: {len(batches)} batches of {BATCH}, interaction_fwd "
+          f"launched {len(batches)} times on the bulk-copy path; int8 vs f32 "
+          f"scores max |diff| {diff:.3g} (bound {INT8_BOUND}); ms a batch "
+          f"host to host in turns (f32, int8, int8, f32): {ms['f32'][0]:.3f}"
+          f" / {ms['int8'][0]:.3f} / {ms['int8'][1]:.3f} / "
+          f"{ms['f32'][1]:.3f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(DEV) / 1e9:.2f} GB")
+
+    def serve(data):
+        for b in data:
+            score_batch(qparams, b, config, DEV)
+
+    _profile_steps("int8 served batches", serve, batches,
+                   pooled_bytes=BATCH * config.num_tables
+                   * config.feature_size * 4,
+                   groups=(("int8 dequantize (int8 x f32 scale multiply)",
+                            ("MulFunctor",)),))
+    del params, qparams, qemb
+    torch.cuda.empty_cache()
+
+    # the CLI: full widths, the small tables of the entry-point phase
+    small = dataclasses.replace(config, table_sizes=TABLES)
+    n = 1000
+    with _scratch() as tmp:
+        data, pz, out = (str(tmp / f)
+                         for f in ("data.bin", "params.npz", "s.npy"))
+        _write_dac(data, n, np.random.default_rng(8))
+        p = init_params(torch.Generator().manual_seed(12), small)
+        save_npz(pz, params_to_numpy(p))
+        line = _run_cli(["predict", "--config", "kaggle", "--feature-size",
+                         "128", "--table-sizes", ",".join(map(str, TABLES)),
+                         "--data", data, "--params", pz, "--out", out,
+                         "--quantize-tables", "int8", "--device", DEV.type])
+        check(line["examples"] == n, f"predict line {line}")
+        on_card = {"bottom": [{k: v.to(DEV) for k, v in l.items()}
+                              for l in p["bottom"]],
+                   "top": [{k: v.to(DEV) for k, v in l.items()}
+                           for l in p["top"]],
+                   "emb": quant.quantize_emb(p["emb"].to(DEV), small)}
+        want = score_batch(on_card, DACLoader(load(data), n)[0], small, DEV)
+        diff = float(np.abs(np.load(out) - want).max())
+        check(diff <= 1e-6, f"predict --quantize-tables int8 vs in process: "
+              f"{diff}")
+        print(f"predict --quantize-tables int8 (quantized on the host) vs "
+              f"the card's quantizer in process: max |diff| {diff:.3g} over "
+              f"{n} rows")
+
+
+@contextlib.contextmanager
+def _scratch():
+    """A temporary directory inside the package's (gitignored) build
+    directory."""
+    build = REPO / "dlrm_tpu_torch" / "_build"
+    build.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        yield Path(tmp)
+
+
+def _criteo_text(path: Path, n: int, sizes, rng) -> None:
+    """``n`` Criteo text lines: 0/1 labels, 13 base-10 ints in [-5, 10000)
+    and 26 base-16 ids, column j's drawn from 1 .. sizes[j] - 1, so that
+    with the missing field (10% of fields are empty; empty parses as 0, an
+    id of its own) column j has at most sizes[j] distinct values."""
+    cols = [rng.integers(0, 2, size=n).astype(str)]
+    for _ in range(13):
+        v = rng.integers(-5, 10000, size=n).astype(str)
+        v[rng.random(n) < 0.1] = ""
+        cols.append(v)
+    for size in sizes:
+        v = np.char.mod("%x", rng.integers(1, max(size, 2), size=n))
+        v[rng.random(n) < 0.1] = ""
+        cols.append(v)
+    with open(path, "w") as f:
+        f.writelines("\t".join(r) + "\n" for r in zip(*cols))
+
+
+def _loss_lines(stderr: str) -> list:
+    """The per-step losses of `train --log-every 1`'s status lines."""
+    return [float(line.split()[3]) for line in stderr.splitlines()
+            if line.startswith("step ")]
+
+
+def phase_data() -> None:
+    """The Criteo pipeline at full Kaggle fs=128 width: preprocess, train
+    from the file with prefetch, --validate-data, and the step fed from
+    the loader through prefetch against plain copies."""
+    from dlrm_tpu_torch import init_params, kaggle_config
+    from dlrm_tpu_torch.data import criteo
+    from dlrm_tpu_torch.data.prefetch import device_prefetch
+    from dlrm_tpu_torch.data.synthetic import criteo_text_lines
+    from dlrm_tpu_torch.train.train import make_train_step
+
+    config = kaggle_config(feature_size=128, interaction_impl="fused")
+    sizes = ",".join(map(str, config.table_sizes))
+    steps = 4
+    n = steps * TRAIN_BATCH + 107
+    with _scratch() as tmp:
+        txt, binp, vocab = tmp / "day.txt", tmp / "day.bin", tmp / "v.npz"
+        t0 = time.perf_counter()
+        _criteo_text(txt, n, config.table_sizes, np.random.default_rng(17))
+        gen_s = time.perf_counter() - t0
+        line = _run_cli(["preprocess", str(txt), "--out", str(binp),
+                         "--vocab", str(vocab)], on_device=False)
+        check(line["native"] is True and line["records"] == n,
+              f"preprocess line {line}")
+        t0 = time.perf_counter()
+        criteo.process(str(txt), binpath=str(tmp / "np.bin"),
+                       vocab_path=str(tmp / "np.npz"), use_native=False)
+        numpy_s = time.perf_counter() - t0
+        same = (binp.read_bytes() == (tmp / "np.bin").read_bytes() and
+                vocab.read_bytes() == (tmp / "np.npz").read_bytes())
+        check(same, "preprocess (native) and process(use_native=False) "
+              "wrote different files")
+        check(all(s <= t for s, t in zip(line["vocab_sizes"],
+                                          config.table_sizes)),
+              f"vocabulary {line['vocab_sizes']} exceeds the tables")
+        print(f"data: {n} Criteo text lines ({txt.stat().st_size} B, "
+              f"written in {gen_s:.2f} s); preprocess with the native "
+              f"engine {line['seconds']} s, the numpy path {numpy_s:.2f} s, "
+              f"the same binary ({binp.stat().st_size} B) and vocabulary "
+              f"bytes")
+
+        res = _cli(["train", "--config", "kaggle", "--feature-size", "128",
+                    "--table-sizes", sizes, "--data", str(binp),
+                    "--validate-data", "--prefetch", "2", "--steps",
+                    str(steps), "--batch-size", str(TRAIN_BATCH),
+                    "--log-every", "1", "--device", DEV.type])
+        cli = json.loads(res.stdout.strip().splitlines()[-1])
+        cli_losses = _loss_lines(res.stderr)
+        check(cli["device"] == DEV.type and cli["steps"] == steps and
+              len(cli_losses) == steps, f"train line {cli}")
+
+        loader = criteo.DACLoader(criteo.load(str(binp)), TRAIN_BATCH)
+        step = make_train_step(config, 0.1)
+        runs = {}
+        for mode in ("plain", "prefetch"):
+            params = init_params(torch.Generator(DEV).manual_seed(
+                config.seed), config, DEV)
+            with counted(f"training from the file ({mode} copies)", steps,
+                         steps):
+                feed = loader if mode == "plain" else device_prefetch(
+                    loader, size=2, device=DEV)
+                # _to_dev: a plain copy, or nothing for prefetched tensors
+                runs[mode] = [float(step(params, *_to_dev(b)))
+                              for b in feed]
+            if mode == "plain":
+                del params
+                torch.cuda.empty_cache()
+        plain = runs["plain"]
+        diffs = [float(np.abs(np.subtract(runs["prefetch"], plain)).max()),
+                 abs(cli["final_loss"] - plain[-1]),
+                 float(np.abs(np.subtract(cli_losses, plain)).max())]
+        # atomics sum duplicate ids in another order a run; the status
+        # lines print 5 decimals
+        check(diffs[0] <= 1e-5 and diffs[1] <= 1e-5
+              and diffs[2] <= 1e-5 + 5e-6,
+              f"losses: prefetch {runs['prefetch']}, CLI {cli_losses} "
+              f"(final {cli['final_loss']}), plain copies {plain}")
+        print(f"train from the file, {steps} SGD steps at B={TRAIN_BATCH}: "
+              f"plain copies {[round(x, 6) for x in plain]}; through "
+              f"device_prefetch in process |diff| {diffs[0]:.3g}; the CLI "
+              f"(--validate-data --prefetch 2) final loss |diff| "
+              f"{diffs[1]:.3g}, status lines |diff| {diffs[2]:.3g}")
+
+        bad_txt = tmp / "bad.txt"
+        bad_txt.write_text("".join(criteo_text_lines(2000, seed=1)))
+        criteo.process(str(bad_txt), binpath=str(tmp / "bad.bin"))
+        res = _cli(["train", "--config", "kaggle", "--feature-size", "128",
+                    "--table-sizes", sizes, "--data", str(tmp / "bad.bin"),
+                    "--validate-data", "--steps", "1", "--batch-size", "64",
+                    "--device", DEV.type], ok=False)
+        msg = [l for l in res.stderr.splitlines() if "outside [1," in l]
+        check(len(msg) == 1 and "record " in msg[0] and "column " in msg[0],
+              f"--validate-data on a file with vocab 1000: {res.stderr[-800:]}")
+        print(f"--validate-data refused a file with 1000 ids a column: "
+              f"{msg[0].strip()[:160]}")
+
+        _prefetch_times(params, loader, step)
+        del params
+        torch.cuda.empty_cache()
+
+
+def _prefetch_times(params, loader, step, passes: int = 4) -> None:
+    """The SGD step fed from ``loader``, its batches marshalled and copied
+    through `device_prefetch(size=2)` or plainly (pageable copies on the
+    step's stream), in turns (plain, prefetch, prefetch, plain): ms between
+    consecutive loss reads, median over ``passes`` epochs after the first
+    two steps; then a profile of each."""
+    from dlrm_tpu_torch.data.prefetch import device_prefetch
+
+    def feed(indices, prefetch):
+        src = (loader[i] for i in indices)
+        return device_prefetch(src, size=2, device=DEV) if prefetch else src
+
+    def run(indices, prefetch):
+        for b in feed(indices, prefetch):
+            float(step(params, *_to_dev(b)))
+
+    order = list(range(len(loader))) * passes
+    ms = {False: [], True: []}
+    for prefetch in (False, True, True, False):
+        times, t0 = [], time.perf_counter()
+        for b in feed(order, prefetch):
+            float(step(params, *_to_dev(b)))
+            t1 = time.perf_counter()
+            times.append((t1 - t0) * 1e3)
+            t0 = t1
+        ms[prefetch].append(statistics.median(times[2:]))
+    print(f"SGD step at B={TRAIN_BATCH} fed from DACLoader over the file, "
+          f"host to host (loss read every step), in turns: plain copies "
+          f"{ms[False][0]:.3f} / {ms[False][1]:.3f} ms, device_prefetch"
+          f"(size=2) {ms[True][0]:.3f} / {ms[True][1]:.3f} ms")
+    for prefetch in (False, True):
+        _profile_steps(f"SGD steps from the file, "
+                       f"{'device_prefetch' if prefetch else 'plain copies'}",
+                       lambda data: run(list(data), prefetch),
+                       list(range(len(loader))))
 
 
 def _small_config(**kw):
@@ -1119,15 +1463,21 @@ def phase_small_optimizers() -> None:
                   f" dense {dense_diff:.3g}, accumulators {acc_diff:.3g}")
 
 
-def _run_cli(args: list) -> dict:
+def _cli(args: list, ok: bool = True) -> subprocess.CompletedProcess:
+    """``python -m dlrm_tpu_torch *args``; it must exit 0 (``ok``) or not."""
     res = subprocess.run([sys.executable, "-m", "dlrm_tpu_torch", *args],
                          cwd=REPO, capture_output=True, text=True,
                          timeout=600)
-    check(res.returncode == 0,
+    check((res.returncode == 0) == ok,
           f"{args[0]} exited {res.returncode}: {res.stderr[-2000:]}")
-    line = json.loads(res.stdout.strip().splitlines()[-1])
+    return res
+
+
+def _run_cli(args: list, on_device: bool = True) -> dict:
+    line = json.loads(_cli(args).stdout.strip().splitlines()[-1])
     print(f"{args[0]}: {line}")
-    check(line.get("device") == DEV.type, f"{args[0]} ran on {line}")
+    check(not on_device or line.get("device") == DEV.type,
+          f"{args[0]} ran on {line}")
     return line
 
 
@@ -1159,10 +1509,8 @@ def phase_entry_points() -> None:
     tables = ",".join(map(str, TABLES))
     rng = np.random.default_rng(7)
     cuda = DEV
-    build = REPO / "dlrm_tpu_torch" / "_build"
-    build.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build) as tmp:
-        data, pz, out = (str(Path(tmp) / f)
+    with _scratch() as tmp:
+        data, pz, out = (str(tmp / f)
                          for f in ("data.bin", "params.npz", "scores.npy"))
         _write_dac(data, n, rng)
         params = init_params(torch.Generator().manual_seed(11), config)
@@ -1280,6 +1628,8 @@ def main() -> int:
     phase_training()
     phase_evaluation()
     phase_optimizers()
+    phase_int8_serving()
+    phase_data()
     phase_small_inputs()
     phase_small_optimizers()
     phase_entry_points()

@@ -8,7 +8,11 @@ forward, the Criteo loader and ``python -m dlrm_tpu_torch predict`` — and
 single-device training: the loss, compressed embedding gradients, the train
 step and loop, SGD, Adagrad and row-wise Adagrad, gradient clipping,
 coalesced K-step blocks, learning-rate schedules, evaluation (accuracy, AUC,
-loss) and ``python -m dlrm_tpu_torch train`` / ``eval``.
+loss) and ``python -m dlrm_tpu_torch train`` / ``eval``; the Criteo pipeline
+(parsing, vocabulary, a native engine built from ``native/``, batches copied
+to the card ahead of the step), HDF5 interop and the fixture validator, and
+int8 serving (``preprocess``, ``validate``, ``--hdf5``,
+``--quantize-tables int8``).
 """
 
 from dlrm_tpu_torch.config import (

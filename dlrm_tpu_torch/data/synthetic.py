@@ -1,7 +1,7 @@
-"""Random batches from a numpy seed: the batch generators of
-``dlrm_tpu/data/synthetic.py`` (uniform ids, and the Zipf-skewed
-``ClickthroughModel``).  The same seed gives the same batches as the JAX
-package."""
+"""Synthetic data from a numpy seed: the counterpart of
+``dlrm_tpu/data/synthetic.py``.  Criteo-format text lines (with missing
+fields), uniform random batches, and the Zipf-skewed ``ClickthroughModel``.
+The same seed gives the same lines and batches as the JAX package."""
 
 from __future__ import annotations
 
@@ -10,6 +10,30 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from dlrm_tpu_torch.config import DLRMConfig
+from dlrm_tpu_torch.data.criteo import NUM_DENSE, NUM_SPARSE
+
+
+def criteo_text_lines(n: int, seed: int = 0, missing_prob: float = 0.1,
+                      vocab: int = 1000) -> list:
+    """``n`` Criteo-format text lines: a 0/1 label, 13 base-10 ints in
+    [-5, 10000) and 26 base-16 ids in [0, vocab), each field empty with
+    probability ``missing_prob``."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    for _ in range(n):
+        fields = [str(int(rng.integers(0, 2)))]
+        for _ in range(NUM_DENSE):
+            if rng.random() < missing_prob:
+                fields.append("")
+            else:
+                fields.append(str(int(rng.integers(-5, 10000))))
+        for _ in range(NUM_SPARSE):
+            if rng.random() < missing_prob:
+                fields.append("")
+            else:
+                fields.append(format(int(rng.integers(0, vocab)), "x"))
+        lines.append("\t".join(fields) + "\n")
+    return lines
 
 
 def random_batch(rng: np.random.Generator, config: DLRMConfig, batch: int,
@@ -27,12 +51,23 @@ def random_batch(rng: np.random.Generator, config: DLRMConfig, batch: int,
             "labels": labels}
 
 
+def _slice_rows(batch: Dict[str, np.ndarray], rows) -> Dict[str, np.ndarray]:
+    """Rows ``[lo, hi)`` of a batch (``rows=None``: all).  A process that
+    feeds its stripe of a global batch draws the whole batch from the
+    shared seed and keeps its rows, so the stripes make up the global
+    stream exactly."""
+    if rows is None:
+        return batch
+    lo, hi = rows
+    return {k: v[lo:hi] for k, v in batch.items()}
+
+
 def batch_stream(config: DLRMConfig, batch: int, steps: Optional[int] = None,
-                 seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+                 seed: int = 0, rows=None) -> Iterator[Dict[str, np.ndarray]]:
     rng = np.random.default_rng(seed)
     i = 0
     while steps is None or i < steps:
-        yield random_batch(rng, config, batch)
+        yield _slice_rows(random_batch(rng, config, batch), rows)
         i += 1
 
 
@@ -82,10 +117,10 @@ class ClickthroughModel:
                   ).astype(np.float32)
         return {"dense": dense, "sparse": sparse, "labels": labels}
 
-    def stream(self, batch: int, steps: Optional[int] = None, seed: int = 1
-               ) -> Iterator[Dict[str, np.ndarray]]:
+    def stream(self, batch: int, steps: Optional[int] = None, seed: int = 1,
+               rows=None) -> Iterator[Dict[str, np.ndarray]]:
         rng = np.random.default_rng(seed)
         i = 0
         while steps is None or i < steps:
-            yield self.batch(rng, batch)
+            yield _slice_rows(self.batch(rng, batch), rows)
             i += 1

@@ -18,6 +18,10 @@ elementwise ones; each chunk's ``(rows, pack)`` flattened and cut to the
 tables' rows for the row-wise ones), ``count`` the steps taken.  SGD has
 neither accumulator.
 
+``quant_from_numpy`` takes the JAX package's int8 ``QuantEmb`` as numpy
+(lane-packed int8 chunks and ``(rows, pack)`` scales) to this package's
+logical ``QuantEmb``.
+
 Numpy has no bfloat16 of its own: bf16 tensors leave as f32 (exact), and
 arrays arrive in whatever float dtype they have and are cast to the
 config's dtypes.
@@ -25,7 +29,7 @@ config's dtypes.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,25 +68,30 @@ def _check_mlp(layers, sizes, name):
                              f"{want} / {want[1:]}")
 
 
+def dense_from_numpy(np_params: dict, config: DLRMConfig,
+                     device="cpu") -> dict:
+    """The ``bottom`` and ``top`` MLPs of a numpy pytree as tensors on
+    ``device``, in the config's weight dtype; shapes are checked."""
+    _check_mlp(np_params["bottom"], config.bottom_mlp_sizes, "bottom")
+    _check_mlp(np_params["top"], config.full_top_mlp_sizes, "top")
+    return {part: [{k: _to_torch(layer[k], config.weight_dtype, device)
+                    for k in ("w", "b")} for layer in np_params[part]]
+            for part in ("bottom", "top")}
+
+
 def params_from_numpy(np_params: dict, config: DLRMConfig,
                       device="cpu") -> dict:
     """numpy pytree -> parameter dict of tensors on ``device``, in the
     config's dtypes; shapes are checked against the config."""
-    _check_mlp(np_params["bottom"], config.bottom_mlp_sizes, "bottom")
-    _check_mlp(np_params["top"], config.full_top_mlp_sizes, "top")
+    dense = dense_from_numpy(np_params, config, device)
     emb_shape = (config.total_rows, config.feature_size)
     if tuple(np.shape(np_params["emb"])) != emb_shape:
         raise ValueError(f"emb {np.shape(np_params['emb'])}, the config "
                          f"needs the logical stack {emb_shape}")
-
-    def mlp(layers):
-        return [{k: _to_torch(layer[k], config.weight_dtype, device)
-                 for k in ("w", "b")} for layer in layers]
-
-    return {"bottom": mlp(np_params["bottom"]),
+    return {"bottom": dense["bottom"],
             "emb": _to_torch(np_params["emb"], config.embedding_dtype,
                              device),
-            "top": mlp(np_params["top"])}
+            "top": dense["top"]}
 
 
 def params_to_numpy(params: dict) -> dict:
@@ -156,3 +165,35 @@ def load_npz(path: str) -> dict:
                 for i in range(n)]
 
     return {"bottom": mlp("bottom"), "emb": flat["emb"], "top": mlp("top")}
+
+
+def quant_from_numpy(chunks: Sequence[np.ndarray], scales: Sequence[np.ndarray],
+                     config: DLRMConfig,
+                     placement: Sequence[Tuple[int, int]]):
+    """The JAX package's ``QuantEmb`` (as numpy) -> this package's
+    ``QuantEmb`` on the CPU: logical ``(total_rows, D)`` int8 codes and
+    ``(total_rows,)`` f32 scales.
+
+    ``chunks[c]`` is int8 ``(rows, pack * D)``, ``scales[c]`` ``(rows,
+    pack)``: physical row r of a chunk holds logical rows ``r * pack ..
+    r * pack + pack - 1`` of its tables, each with its own scale.
+    ``placement[t] = (chunk, first physical row)`` of table t (the JAX
+    config's ``table_chunk`` and ``chunk_table_offsets``; for plain
+    storage, chunk 0 and the table's row offset); a table's rows are
+    padded to a multiple of ``pack``.
+    """
+    from dlrm_tpu_torch.ops.quant import QuantEmb, check_quant_storage
+
+    d = config.feature_size
+    codes, scl = [], []
+    for n, (c, first) in zip(config.table_sizes, placement):
+        pack = chunks[c].shape[1] // d
+        rows = -(-n // pack)
+        codes.append(np.asarray(chunks[c][first:first + rows]
+                                ).reshape(rows * pack, d)[:n])
+        scl.append(np.asarray(scales[c][first:first + rows], np.float32
+                              ).reshape(rows * pack)[:n])
+    out = QuantEmb(torch.from_numpy(np.concatenate(codes).astype(np.int8)),
+                   torch.from_numpy(np.concatenate(scl)))
+    check_quant_storage(out, config)
+    return out

@@ -26,6 +26,7 @@ from dlrm_tpu_torch.ops.interaction import (dot_interaction,
 from dlrm_tpu_torch.ops.interaction_fused import fused_dot_interaction
 from dlrm_tpu_torch.ops.loss import bce_loss
 from dlrm_tpu_torch.ops.mlp import init_mlp, mlp_apply
+from dlrm_tpu_torch.ops.quant import QuantEmb, check_quant_storage
 
 _INTERACTIONS = {
     "gram": dot_interaction,
@@ -96,9 +97,13 @@ def loss_from_pooled(dense_params: dict, pooled: torch.Tensor,
 
 def forward(params: dict, dense: torch.Tensor, sparse: torch.Tensor,
             config: DLRMConfig) -> torch.Tensor:
-    """Full forward: (dense (B,13), sparse ids (B,T[,H])) -> CTR (B,)."""
+    """Full forward: (dense (B,13), sparse ids (B,T[,H])) -> CTR (B,).
+    ``params["emb"]`` is the ``(total_rows, D)`` stack or its int8
+    ``QuantEmb`` (``ops/quant.py``)."""
     emb = params["emb"]
-    if tuple(emb.shape) != (config.total_rows, config.feature_size):
+    if isinstance(emb, QuantEmb):
+        check_quant_storage(emb, config)
+    elif tuple(emb.shape) != (config.total_rows, config.feature_size):
         raise ValueError(f"params['emb'] has shape {tuple(emb.shape)}, the "
                          f"config needs ({config.total_rows}, "
                          f"{config.feature_size})")

@@ -106,10 +106,14 @@ def mixed_pool(rows: torch.Tensor, config) -> torch.Tensor:
     return pooled.index_copy(1, idx, pool(small_rows).to(pooled.dtype))
 
 
-def mixed_lookup(emb: torch.Tensor, ids: torch.Tensor, config
-                 ) -> torch.Tensor:
+def mixed_lookup(emb, ids: torch.Tensor, config) -> torch.Tensor:
     """Pooled lookup with the results of the JAX package's
-    ``mixed_lookup`` (see :func:`mixed_pool`)."""
+    ``mixed_lookup`` (see :func:`mixed_pool`).  An int8 ``QuantEmb``
+    (``ops/quant.py``) takes the dequantizing lookup."""
+    from dlrm_tpu_torch.ops import quant
+
+    if isinstance(emb, quant.QuantEmb):
+        return quant.quant_mixed_lookup(emb, ids, config)
     return mixed_pool(gather_rows(emb, translate_ids(ids, config.table_offsets)),
                       config)
 

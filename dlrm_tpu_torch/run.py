@@ -1,17 +1,21 @@
 """Command-line entry point: the single-device subset of ``dlrm_tpu/run.py``.
 
-  train     training on one device (synthetic or Criteo data): SGD, Adagrad
-            or row-wise Adagrad, gradient clipping, coalesced K-step blocks,
-            evaluation during and after
-  eval      accuracy / AUC / loss of saved parameters
-  predict   batch CTR scoring of a binarized dataset -> .npy
+  preprocess  Criteo text (.txt or .gz) -> binary records + vocabulary
+  train       training on one device (synthetic or Criteo data): SGD,
+              Adagrad or row-wise Adagrad, gradient clipping, coalesced
+              K-step blocks, evaluation during and after, batches copied to
+              the device ahead of the step (``--prefetch``)
+  eval        accuracy / AUC / loss of saved parameters
+  predict     batch CTR scoring of a binarized dataset -> .npy
+  validate    parity against PyTorch-exported HDF5 fixtures
 
 Run as ``python -m dlrm_tpu_torch <subcommand> ...``.  ``eval`` and
 ``predict`` read parameters from an .npz written by
-``dlrm_tpu_torch.io.convert.save_npz``.
-Every flag of the JAX package's CLI is parsed; one this package does not
-serve yet exits non-zero, naming the ROADMAP.md item that brings it, unless
-it is left at its default.
+``dlrm_tpu_torch.io.convert.save_npz`` (``--params``) or from a
+PyTorch-layout HDF5 model (``--hdf5``), and serve int8 tables with
+``--quantize-tables int8``.  Every flag of the JAX package's CLI is parsed;
+one this package does not serve yet exits non-zero, naming the ROADMAP.md
+item that brings it, unless it is left at its default.
 """
 
 from __future__ import annotations
@@ -27,9 +31,8 @@ import numpy as np
 import torch
 
 _Q = "ROADMAP.md queue 1, "
-_DATA = _Q + "item 1, 'Data, HDF5 interop and validation'"
-_CKPT = _Q + "item 3, 'Checkpoints, telemetry and CLI'"
-_MULTI = _Q + "item 5, 'Multi-GPU'"
+_CKPT = _Q + "item 1, 'Checkpoints, telemetry and CLI'"
+_MULTI = _Q + "item 3, 'Multi-GPU'"
 _TPU_LAYOUT = ("is TPU storage layout, which the port does not carry over "
                "(ROADMAP.md, north star)")
 
@@ -43,16 +46,10 @@ _NOT_YET = {
     "max_to_keep": (3, f"--max-to-keep needs checkpoints ({_CKPT})"),
     "profile_dir": (None, f"--profile-dir needs the telemetry port ({_CKPT}: "
                           "utils/telemetry.py)"),
-    "hdf5": (None, f"--hdf5 needs the HDF5 interop ({_DATA}: io/hdf5.py); "
-                   "pass --params params.npz"),
-    "validate_data": (False, f"--validate-data needs the rest of the data "
-                             f"port ({_DATA})"),
-    "quantize_tables": (None, f"--quantize-tables needs int8 serving ({_Q}"
-                              "item 2, 'Int8 serving': ops/quant.py)"),
     "hbm_budget_gb": (None, f"--hbm-budget-gb needs two-tier tables ({_Q}"
-                            "item 4, 'Two-tier tables')"),
+                            "item 2, 'Two-tier tables')"),
     "host_prefetch": (False, f"--host-prefetch needs two-tier tables ({_Q}"
-                             "item 4, 'Two-tier tables')"),
+                             "item 2, 'Two-tier tables')"),
     "sharded": (None, f"--sharded needs the multi-GPU port ({_MULTI}); this "
                       "package trains on one device"),
     "mesh_shape": (None, f"--mesh-shape needs the multi-GPU port ({_MULTI})"),
@@ -86,6 +83,20 @@ def _refuse_unported(args) -> None:
 
 # -- config plumbing -----------------------------------------------------------
 
+def _interaction(config, args, device: torch.device):
+    """``config`` with ``--interaction``, or on CUDA the feature-size-keyed
+    default, carried over from the JAX package's accelerator-only rule
+    (config.auto_interaction_impl); CPU runs keep the gram path."""
+    from dlrm_tpu_torch import config as cfg
+
+    impl = args.interaction
+    if impl is None and device.type == "cuda":
+        impl = cfg.auto_interaction_impl(config.feature_size)
+    if impl is None or impl == config.interaction_impl:
+        return config
+    return dataclasses.replace(config, interaction_impl=impl)
+
+
 def _build_config(args, device: torch.device):
     from dlrm_tpu_torch import config as cfg
 
@@ -103,15 +114,6 @@ def _build_config(args, device: torch.device):
         kw["feature_size"] = args.feature_size
     c = presets[args.config](**kw)
     over = {}
-    if args.interaction:
-        over["interaction_impl"] = args.interaction
-    elif device.type == "cuda":
-        # feature-size-keyed default, carried over from the JAX package's
-        # accelerator-only rule (config.auto_interaction_impl); CPU runs
-        # keep the gram path
-        auto_impl = cfg.auto_interaction_impl(c.feature_size)
-        if auto_impl != c.interaction_impl:
-            over["interaction_impl"] = auto_impl
     if args.n_hot is not None:
         over["n_hot"] = args.n_hot
     if args.bf16:
@@ -125,7 +127,8 @@ def _build_config(args, device: torch.device):
     if args.table_sizes:
         over["table_sizes"] = tuple(
             int(s) for s in args.table_sizes.split(","))
-    return dataclasses.replace(c, **over) if over else c
+    return _interaction(dataclasses.replace(c, **over) if over else c, args,
+                        device)
 
 
 def _add_config_flags(p: argparse.ArgumentParser) -> None:
@@ -156,7 +159,9 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--chunk-budget-mb", type=int, default=None,
                    help="not served (TPU storage layout)")
     p.add_argument("--validate-data", action="store_true",
-                   help="not served yet")
+                   help="scan every id of --data (and --eval-data) against "
+                   "its table's size before the run, and stop naming the "
+                   "first record and column outside it")
     p.add_argument("--exchange-dtype", default=None, choices=["f32", "bf16"],
                    help="not served yet (multi-GPU)")
     p.add_argument("--platform", default=None,
@@ -229,6 +234,17 @@ def _batch_iter(config, *, data: Optional[str], batch_size: int,
     return synth.batch_stream(config, batch_size, steps, seed)
 
 
+def _check_data(args, config) -> None:
+    """``--validate-data``: every id of ``--data`` (and ``--eval-data``)
+    inside its table, checked before any parameter reaches the device."""
+    from dlrm_tpu_torch.data.criteo import load, validate_ids
+
+    if getattr(args, "validate_data", False):
+        for path in (args.data, getattr(args, "eval_data", None)):
+            if path:
+                validate_ids(load(path), config.table_sizes)
+
+
 def _block_iter(source, k: int):
     """Stack K consecutive batches on the host for a coalesced block step;
     a remainder shorter than K at the end of the stream is stacked as a
@@ -266,23 +282,87 @@ def score_batch(params: dict, batch: dict, config,
         return forward(params, dense, sparse, config).float().cpu().numpy()
 
 
+def _serving_params(args, device: torch.device):
+    """(parameters on ``device``, config) for ``eval`` and ``predict``:
+    from ``--hdf5`` (the file's model; the flags choose only the
+    interaction) or ``--params`` (under the config of the flags), after
+    ``--validate-data``.  With ``--quantize-tables int8`` the tables are
+    quantized on the host, and only the int8 codes, their scales and the
+    dense towers reach the device."""
+    from dlrm_tpu_torch.io.convert import (dense_from_numpy, load_npz,
+                                           params_from_numpy)
+
+    if args.hdf5:
+        from dlrm_tpu_torch.io.hdf5 import load_params
+        np_params, config = load_params(args.hdf5)
+        config = _interaction(config, args, device)
+    elif args.params:
+        config = _build_config(args, device)
+        np_params = load_npz(args.params)
+    else:
+        raise SystemExit(f"{args.cmd} needs --params (an .npz from "
+                         "dlrm_tpu_torch.io.convert.save_npz) or --hdf5")
+    _check_data(args, config)
+    if args.quantize_tables == "int8":
+        from dlrm_tpu_torch.ops.quant import quantize_emb_host
+        qemb = quantize_emb_host(np_params["emb"], config)
+        return {**dense_from_numpy(np_params, config, device),
+                "emb": qemb.to(device)}, config
+    return params_from_numpy(np_params, config, device), config
+
+
 # -- subcommands ---------------------------------------------------------------
+
+def cmd_preprocess(args) -> int:
+    """Criteo text shards -> one binary file (and a vocabulary .npz);
+    prints one JSON line, with ``native``: whether the C++ engine ran."""
+    from dlrm_tpu_torch.data import criteo, native
+
+    t0 = time.time()
+    data = criteo.process(args.inputs, binpath=args.out,
+                          vocab_path=args.vocab)
+    vocab_sizes = None
+    if args.vocab:
+        vocab_sizes = criteo.Vocabulary.load(
+            args.vocab if args.vocab.endswith(".npz")
+            else args.vocab + ".npz").sizes
+    print(json.dumps({"records": int(len(data)), "out": args.out,
+                      "vocab_sizes": vocab_sizes,
+                      "seconds": round(time.time() - t0, 2),
+                      "native": native.available()}))
+    return 0
+
+
+def cmd_validate(args) -> int:
+    """Each fixture through ``validation.validate``: one JSON line each;
+    exits 1 when any fails."""
+    from dlrm_tpu_torch.validation import validate
+
+    device = _device(args)
+    ok = True
+    for path in args.fixtures:
+        try:
+            report = validate(path, learning_rate=args.lr, device=device)
+            worst = max(v["max_abs_err"] for v in report.values())
+            print(json.dumps({"fixture": path, "ok": True,
+                              "checks": len(report), "worst_abs_err": worst,
+                              "device": device.type}))
+        except AssertionError as e:
+            ok = False
+            print(json.dumps({"fixture": path, "ok": False,
+                              "error": str(e), "device": device.type}))
+    return 0 if ok else 1
+
 
 def cmd_predict(args) -> int:
     """Batch serving: write CTR scores for every row of a dataset to a
     .npy, in input order, and print one JSON line."""
-    from dlrm_tpu_torch.io.convert import load_npz, params_from_numpy
-
     _refuse_unported(args)
     if args.data is None:
         raise SystemExit("predict needs --data")
-    if args.params is None:
-        raise SystemExit("predict needs --params (an .npz from "
-                         "dlrm_tpu_torch.io.convert.save_npz)")
     device = _device(args)
-    config = _build_config(args, device)
     t0 = time.time()
-    params = params_from_numpy(load_npz(args.params), config, device)
+    params, config = _serving_params(args, device)
     # one epoch in file order, the ragged tail included: every row scored
     scores = [score_batch(params, batch, config, device)
               for batch in _batch_iter(config, data=args.data,
@@ -381,7 +461,10 @@ def run_training(args, config, params: dict, say=lambda *a: None) -> dict:
     """The loop of ``train`` on ``params`` (in place, on their device):
     steps or blocks over the batch stream, a status line through ``say``
     every ``--log-every`` steps, evaluation every ``--eval-every`` steps
-    and at the end; returns the result line's dict (without ``device``)."""
+    and at the end; returns the result line's dict (without ``device``).
+    Batches (K-step blocks: stacked on the host) reach the device through
+    ``device_prefetch``, ``--prefetch`` of them ahead of the step."""
+    from dlrm_tpu_torch.data.prefetch import device_prefetch
     from dlrm_tpu_torch.train.metrics import evaluate
     from dlrm_tpu_torch.train.train import batch_to_device
 
@@ -412,7 +495,7 @@ def run_training(args, config, params: dict, say=lambda *a: None) -> dict:
         shuffle_rows=args.shuffle_rows, shuffle_window=args.shuffle_window)
     if plan.block > 1:
         source = _block_iter(source, plan.block)
-    for batch in source:
+    for batch in device_prefetch(source, size=args.prefetch, device=device):
         prev = step
         if align is not None:
             align(step)
@@ -450,6 +533,7 @@ def cmd_train(args) -> int:
     _refuse_unported(args)
     device = _device(args)
     config = _build_config(args, device)
+    _check_data(args, config)
     print(f"device: {device} ({config.interaction_impl} interaction)",
           file=sys.stderr)
     params = init_params(torch.Generator(device).manual_seed(config.seed),
@@ -464,16 +548,11 @@ def cmd_eval(args) -> int:
     """Accuracy, AUC and mean loss of saved parameters over ``--data``
     (every row: the ragged tail batch counts), or over 10 synthetic batches
     without it; prints one JSON line."""
-    from dlrm_tpu_torch.io.convert import load_npz, params_from_numpy
     from dlrm_tpu_torch.train.metrics import evaluate
 
     _refuse_unported(args)
-    if args.params is None:
-        raise SystemExit("eval needs --params (an .npz from "
-                         "dlrm_tpu_torch.io.convert.save_npz)")
     device = _device(args)
-    config = _build_config(args, device)
-    params = params_from_numpy(load_npz(args.params), config, device)
+    params, config = _serving_params(args, device)
     eval_steps = args.eval_steps or (None if args.data else 10)
     data = _batch_iter(config, data=args.data, batch_size=args.batch_size,
                        steps=eval_steps, keep_remainder=True)
@@ -482,9 +561,23 @@ def cmd_eval(args) -> int:
     return 0
 
 
+_HDF5_HELP = ("PyTorch-layout HDF5 model (io/hdf5.py), instead of --params; "
+              "the model is the file's, the flags choose only the "
+              "interaction")
+_QUANT_HELP = ("post-training table quantization for serving (symmetric "
+               "per-row int8, quantized on the host: about 4x smaller than "
+               "f32 on the device)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="dlrm_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    pp = sub.add_parser("preprocess", help="Criteo text -> binary + vocab")
+    pp.add_argument("inputs", nargs="+", help="text shards (.txt or .gz)")
+    pp.add_argument("--out", required=True, help="output binary path")
+    pp.add_argument("--vocab", default=None, help="output vocab .npz path")
+    pp.set_defaults(fn=cmd_preprocess)
 
     tr = sub.add_parser("train", help="train a DLRM on one device")
     _add_config_flags(tr)
@@ -517,9 +610,9 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--log-every", type=int, default=100,
                     help="read the loss (a host sync) every N steps")
     tr.add_argument("--prefetch", type=int, default=2,
-                    help="accepted; batches are copied to the device "
-                    "plainly, one at a time, until data/prefetch.py is "
-                    "ported")
+                    help="batches (or K-step blocks) marshalled and copied "
+                    "to the device ahead of the step: on CUDA from pinned "
+                    "host memory on a side stream")
     tr.add_argument("--optimizer", default="sgd",
                     help="sgd | adagrad | rowwise_adagrad (one f32 "
                     "accumulator scalar per embedding row; the dense "
@@ -579,12 +672,12 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--params", default=None,
                     help="parameters .npz (io/convert.save_npz)")
     ev.add_argument("--ckpt-dir", default=None, help="not served yet")
-    ev.add_argument("--hdf5", default=None, help="not served yet")
+    ev.add_argument("--hdf5", default=None, help=_HDF5_HELP)
     ev.add_argument("--batch-size", type=int, default=16384)
     ev.add_argument("--eval-steps", type=int, default=None,
                     help="evaluate on this many batches")
     ev.add_argument("--quantize-tables", default=None, choices=["int8"],
-                    help="not served yet")
+                    help=_QUANT_HELP)
     _add_dist_flags(ev)
     ev.set_defaults(fn=cmd_eval)
 
@@ -594,12 +687,20 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--params", default=None,
                     help="parameters .npz (io/convert.save_npz)")
     pr.add_argument("--ckpt-dir", default=None, help="not served yet")
-    pr.add_argument("--hdf5", default=None, help="not served yet")
+    pr.add_argument("--hdf5", default=None, help=_HDF5_HELP)
     pr.add_argument("--batch-size", type=int, default=16384)
     pr.add_argument("--out", required=True, help="output .npy path")
     pr.add_argument("--quantize-tables", default=None, choices=["int8"],
-                    help="not served yet")
+                    help=_QUANT_HELP)
     pr.set_defaults(fn=cmd_predict)
+
+    va = sub.add_parser("validate", help="PyTorch-fixture parity")
+    va.add_argument("fixtures", nargs="+")
+    va.add_argument("--lr", type=float, default=10.0)
+    va.add_argument("--device", default=None,
+                    help="torch device (default: cuda; without a GPU the "
+                    "command exits unless --device cpu is given)")
+    va.set_defaults(fn=cmd_validate)
     return p
 
 

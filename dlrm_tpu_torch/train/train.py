@@ -29,7 +29,19 @@ import torch
 from dlrm_tpu_torch.config import DLRMConfig
 from dlrm_tpu_torch.models import dlrm as model_lib
 from dlrm_tpu_torch.ops import embedding as emb_ops
+from dlrm_tpu_torch.ops.quant import QuantEmb
 from dlrm_tpu_torch.train import optim
+
+
+def _split_trainable(params: dict):
+    """(dense_params, emb) of parameters that can be trained: int8 tables
+    are post-training serving storage."""
+    if isinstance(params["emb"], QuantEmb):
+        raise TypeError("the embedding tables are int8 (QuantEmb): "
+                        "quantized tables serve (forward, evaluate, "
+                        "predict) and cannot be trained; train the f32 or "
+                        "bf16 tables and quantize afterwards")
+    return model_lib.split_params(params)
 
 
 class TrainState(NamedTuple):
@@ -57,7 +69,7 @@ def train_step(params: dict, dense: torch.Tensor, sparse: torch.Tensor,
     the scatter-add, with the same pooled values (``mixed_pool``) and the
     same per-row sums.
     """
-    dense_params, emb = model_lib.split_params(params)
+    dense_params, emb = _split_trainable(params)
     value_and_grad = emb_ops.sparse_value_and_grad(
         functools.partial(_loss, config=config),
         pool_fn=functools.partial(emb_ops.mixed_pool, config=config))
@@ -107,7 +119,7 @@ def init_opt_state(params: dict, *, config: DLRMConfig, optimizer: str
     dense parameter, in the parameter tree's shape), ``emb`` (None, or the
     accumulator of ``optim.init_emb_state``) and ``count``, the number of
     steps taken (an int; a schedule is read at it)."""
-    dense_params, emb = model_lib.split_params(params)
+    dense_params, emb = _split_trainable(params)
     return {"dense": optim.init_dense_state(optimizer, dense_params),
             "emb": optim.init_emb_state(config, optimizer, emb),
             "count": 0}
@@ -124,7 +136,7 @@ def _micro_step(params: dict, opt_state: Optional[dict], dense, sparse,
     The clip's norm counts what the JAX package's counts: dense gradients,
     big-table rows once per hit, and small-table rows with a row's hits
     summed first."""
-    dense_params, emb = model_lib.split_params(params)
+    dense_params, emb = _split_trainable(params)
     value_and_grad = emb_ops.sparse_value_and_grad(
         functools.partial(_loss, config=config),
         pool_fn=functools.partial(emb_ops.mixed_pool, config=config))

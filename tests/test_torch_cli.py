@@ -174,16 +174,42 @@ def test_eval_params_matches_evaluate_in_process(tmp_path, rng, capsys):
 
 
 @pytest.mark.parametrize("flag,value,msg", [
-    ("--ckpt-dir", "x", "item 3, 'Checkpoints"),
-    ("--hdf5", "x.h5", "item 1, 'Data, HDF5 interop"),
-    ("--quantize-tables", "int8", "item 2, 'Int8 serving"),
-    ("--distributed", None, "item 5, 'Multi-GPU'"),
+    ("--ckpt-dir", "x", "item 1, 'Checkpoints"),
+    ("--distributed", None, "item 3, 'Multi-GPU'"),
     ("--platform", "cpu", "pass --device"),
 ])
 def test_eval_flags_not_served_yet(flag, value, msg):
     with pytest.raises(SystemExit, match=msg):
         main(["eval", "--config", "tiny", "--device", "cpu", "--params", "p",
               flag] + ([value] if value else []))
+
+
+@pytest.mark.parametrize("flag", ["--hdf5", "--quantize-tables",
+                                  "--validate-data"])
+def test_eval_flags_now_served(flag, tmp_path, rng, capsys):
+    """--hdf5, --quantize-tables int8 and --validate-data: the metrics of
+    evaluate on the same parameters (int8: its quantization)."""
+    from dlrm_tpu_torch.io import hdf5
+    from dlrm_tpu_torch.ops.quant import quantize_params
+
+    cfg = _cfg()
+    params = _init(cfg)
+    data, pz, h5 = (str(tmp_path / n) for n in ("d.bin", "p.npz", "m.h5"))
+    _write_dac(data, 90, rng)
+    convert.save_npz(pz, convert.params_to_numpy(params))
+    hdf5.save_params(h5, convert.params_to_numpy(params), cfg)
+    extra = {"--hdf5": ["--hdf5", h5, "--device", "cpu"],
+             "--quantize-tables": TINY26 + ["--params", pz,
+                                            "--quantize-tables", "int8"],
+             "--validate-data": TINY26 + ["--params", pz,
+                                          "--validate-data"]}[flag]
+    line = _line(capsys, ["eval", "--data", data, *extra, "--batch-size",
+                          "32"])
+    if flag == "--quantize-tables":
+        params = quantize_params(params, cfg)
+    want = evaluate(params, DACLoader(load(data), 32, drop_remainder=False),
+                    cfg)
+    assert line == {**want, "device": "cpu"} and line["examples"] == 90
 
 
 def test_eval_needs_params():

@@ -157,14 +157,46 @@ def test_predict_line_reports_the_device(device, tmp_path, rng, capsys):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--ckpt-dir", "x", "item 3, 'Checkpoints"),
-    ("--hdf5", "x.h5", "item 1, 'Data, HDF5 interop"),
-    ("--quantize-tables", "int8", "item 2, 'Int8 serving"),
+    ("--ckpt-dir", "x", "item 1, 'Checkpoints"),
 ])
 def test_predict_flags_not_served_yet(flag, value, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
         main(["predict", "--data", "d", "--params", "p", "--out", "o",
               flag, value])
+
+
+@pytest.mark.parametrize("flag", ["--hdf5", "--quantize-tables",
+                                  "--validate-data"])
+def test_predict_flags_now_served(flag, tmp_path, rng, capsys):
+    """--hdf5 (a model written by io/hdf5.save_params; the file's config),
+    --quantize-tables int8 (quantized on the host from --params) and
+    --validate-data: the scores of score_batch on the same parameters."""
+    from dlrm_tpu_torch.io import hdf5
+    from dlrm_tpu_torch.ops.quant import quantize_params
+    from dlrm_tpu_torch.run import score_batch
+
+    tcfg = _tiny26()
+    params = _init(tcfg)
+    data, pz, out, h5 = (str(tmp_path / n)
+                         for n in ("d.bin", "p.npz", "s.npy", "m.h5"))
+    _write_dac(data, 70, rng)
+    convert.save_npz(pz, convert.params_to_numpy(params))
+    hdf5.save_params(h5, convert.params_to_numpy(params), tcfg)
+    model = ["--params", pz, "--config", "tiny", "--table-sizes",
+             ",".join(map(str, TABLES))]
+    extra = {"--hdf5": ["--hdf5", h5],
+             "--quantize-tables": model + ["--quantize-tables", "int8"],
+             "--validate-data": model + ["--validate-data"]}[flag]
+    main(["predict", "--data", data, "--out", out, "--batch-size", "32",
+          "--device", "cpu", *extra])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["examples"] == 70
+    if flag == "--quantize-tables":
+        params = quantize_params(params, tcfg)
+    batch = tcriteo.DACLoader(tcriteo.load(data), 70)[0]
+    np.testing.assert_array_equal(np.load(out),
+                                  score_batch(params, batch, tcfg,
+                                              torch.device("cpu")))
 
 
 def test_predict_rejects_pallas_name():
@@ -240,8 +272,8 @@ def test_import_pulls_in_no_jax():
             "    if not m.name.endswith('__main__'):\n"
             "        importlib.import_module(m.name)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'jaxlib')) or m == 'dlrm_tpu' or "
-            "m.startswith('dlrm_tpu.')]\n"
+            "m.startswith(('jax.', 'jaxlib', 'h5py')) or m == 'dlrm_tpu' "
+            "or m.startswith('dlrm_tpu.')]\n"
             "print(bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

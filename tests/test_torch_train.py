@@ -28,7 +28,9 @@ from dlrm_tpu.ops import embedding as jemb
 from dlrm_tpu.train.optim import make_schedule as jax_make_schedule
 import dlrm_tpu_torch
 from dlrm_tpu_torch import config as tc
+from dlrm_tpu_torch.data import criteo as tcriteo
 from dlrm_tpu_torch.data.synthetic import ClickthroughModel, random_batch
+from dlrm_tpu_torch.io import convert
 from dlrm_tpu_torch.io.convert import params_from_numpy
 from dlrm_tpu_torch.models import dlrm as tmodel
 from dlrm_tpu_torch.ops import embedding as temb
@@ -432,25 +434,24 @@ def test_cli_train_rejects_bad_plans(argv, msg):
 
 
 _REFUSED = [
-    ("--ckpt-dir", "x", "item 3, 'Checkpoints"),
-    ("--save-interval", "5", "item 3, 'Checkpoints"),
-    ("--max-to-keep", "1", "item 3, 'Checkpoints"),
-    ("--profile-dir", "x", "item 3, 'Checkpoints"),
-    ("--hbm-budget-gb", "8", "item 4, 'Two-tier tables'"),
-    ("--host-prefetch", None, "item 4, 'Two-tier tables'"),
-    ("--sharded", "true", "item 5, 'Multi-GPU'"),
-    ("--sharded", "false", "item 5, 'Multi-GPU'"),
-    ("--mesh-shape", "2x4", "item 5, 'Multi-GPU'"),
-    ("--paranoid", "10", "item 5, 'Multi-GPU'"),
-    ("--max-rows-per-shard", "100", "item 5, 'Multi-GPU'"),
-    ("--col-sharded-tables", "1", "item 5, 'Multi-GPU'"),
-    ("--host-tables", "1", "item 5, 'Multi-GPU'"),
-    ("--exchange-dtype", "bf16", "item 5, 'Multi-GPU'"),
-    ("--distributed", None, "item 5, 'Multi-GPU'"),
-    ("--coordinator", "localhost:1234", "item 5, 'Multi-GPU'"),
-    ("--num-processes", "2", "item 5, 'Multi-GPU'"),
-    ("--process-id", "1", "item 5, 'Multi-GPU'"),
-    ("--validate-data", None, "item 1, 'Data, HDF5 interop and validation'"),
+    ("--ckpt-dir", "x", "item 1, 'Checkpoints"),
+    ("--save-interval", "5", "item 1, 'Checkpoints"),
+    ("--max-to-keep", "1", "item 1, 'Checkpoints"),
+    ("--profile-dir", "x", "item 1, 'Checkpoints"),
+    ("--hbm-budget-gb", "8", "item 2, 'Two-tier tables'"),
+    ("--host-prefetch", None, "item 2, 'Two-tier tables'"),
+    ("--sharded", "true", "item 3, 'Multi-GPU'"),
+    ("--sharded", "false", "item 3, 'Multi-GPU'"),
+    ("--mesh-shape", "2x4", "item 3, 'Multi-GPU'"),
+    ("--paranoid", "10", "item 3, 'Multi-GPU'"),
+    ("--max-rows-per-shard", "100", "item 3, 'Multi-GPU'"),
+    ("--col-sharded-tables", "1", "item 3, 'Multi-GPU'"),
+    ("--host-tables", "1", "item 3, 'Multi-GPU'"),
+    ("--exchange-dtype", "bf16", "item 3, 'Multi-GPU'"),
+    ("--distributed", None, "item 3, 'Multi-GPU'"),
+    ("--coordinator", "localhost:1234", "item 3, 'Multi-GPU'"),
+    ("--num-processes", "2", "item 3, 'Multi-GPU'"),
+    ("--process-id", "1", "item 3, 'Multi-GPU'"),
 ]
 
 
@@ -460,6 +461,35 @@ def test_cli_train_refuses_unported_flags(flag, value, item):
             flag] + ([value] if value is not None else [])
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
         main(argv)
+
+
+@pytest.mark.parametrize("cmd", ["train", "eval", "predict"])
+def test_cli_validate_data(cmd, tmp_path, rng, capsys):
+    """--validate-data: a file whose ids fit the tables runs (train: the
+    same loss as without the flag); one with an id past its table stops
+    before any parameter is built, naming the record and the column."""
+    good, bad = str(tmp_path / "good.bin"), str(tmp_path / "bad.bin")
+    _write_dac(good, 100, rng)
+    _write_dac(bad, 100, rng)
+    recs = np.fromfile(bad, dtype=tcriteo.DAC_DTYPE)
+    recs["cat"][57, 4] = TABLES[4] + 1  # 1-based in the file
+    recs.tofile(bad)
+    pz = str(tmp_path / "p.npz")
+    cfg = dataclasses.replace(tc.tiny_config(), table_sizes=TABLES)
+    convert.save_npz(pz, convert.params_to_numpy(
+        dlrm_tpu_torch.init_params(torch.Generator().manual_seed(1), cfg)))
+    argv = {"train": ["train", *_TINY26, "--steps", "2"],
+            "eval": ["eval", *_TINY26, "--params", pz],
+            "predict": ["predict", *_TINY26, "--params", pz, "--out",
+                        str(tmp_path / "s.npy")]}[cmd]
+    lines = [_cli_line(capsys, argv + ["--data", good] + flag)
+             for flag in (["--validate-data"], [])]
+    for line in lines:
+        line.pop("seconds", None)
+    assert lines[0] == lines[1]
+    with pytest.raises(ValueError, match="record 57, column 4: id 4 "
+                       r"outside \[1, 4\)"):
+        main(argv + ["--data", bad, "--validate-data"])
 
 
 @pytest.mark.parametrize("flag,value,msg", [
@@ -493,8 +523,8 @@ def test_refusal_table_covers_the_jax_train_flags():
               "epochs", "seed", "log_every", "prefetch", "optimizer",
               "grad_clip_norm", "adagrad_impl", "update_interval",
               "block_scan", "eval_data", "eval_after", "eval_every",
-              "eval_steps"}
-    assert ours - served == set(_NOT_YET) - {"hdf5", "quantize_tables"}
+              "eval_steps", "validate_data"}
+    assert ours - served == set(_NOT_YET)
 
 
 def test_module_entry_point_trains_on_cpu():
