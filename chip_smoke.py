@@ -34,7 +34,18 @@ result):
      the step times of the three optimizers at K=1 and K=4 in turns, a
      `torch.profiler` breakdown of the Adagrad step and the time of an
      `evaluate` batch;
-  7. int8 serving at full width: the serving phase's tables (the same
+  7. checkpoints at full width: row-wise Adagrad at B=32768, 2 steps, a
+     save through `CheckpointManager`, 2 more steps, a restore (the page
+     cache dropped where the kernel shows it dropped) into the same tensors,
+     which must give back the whole saved state, and the same 2 steps
+     again, all under deterministic sums: the same loss bits and the same
+     bits of every tensor; bytes, seconds, GB/s and the host's peak
+     resident set of the save and of the restore;
+  8. telemetry at full width: the instrumented SGD step against
+     `train_step` from the same state (1e-5), the ms of every phase beside
+     the unprofiled step, and the CUDA time under each phase scope of a
+     profiled step;
+  9. int8 serving at full width: the serving phase's tables (the same
      seed) quantized on the card, codes and scales held bit for bit to the
      host quantizer on the first and last 4096 rows of every table, the
      footprint read; 8 batches of 16384 through `score_batch` on the int8
@@ -42,7 +53,7 @@ result):
      within 5e-3; int8 against f32 serving times in turns, a
      `torch.profiler` breakdown of an int8 batch, and `predict
      --quantize-tables int8` in a subprocess against the port in process;
-  8. data: Criteo text written from a seed at the full Kaggle table sizes,
+ 10. data: Criteo text written from a seed at the full Kaggle table sizes,
      `python -m dlrm_tpu_torch preprocess` (the native engine) against the
      numpy path byte for byte, `train --data --validate-data --prefetch 2`
      at full width in a subprocess against the same steps in process with
@@ -51,12 +62,18 @@ result):
      the tables, then the SGD step fed from `DACLoader` through
      `device_prefetch` and through plain copies, in turns, and a profile of
      each (host-to-device copy time, its stream, idle share);
-  9. small inputs: the forward, and 3 training steps, on the card against
+ 11. small inputs: the forward, and 3 training steps, on the card against
      the same on the CPU for every interaction, f32, bf16 and multi-hot;
      3 steps and a K=3 block of every optimizer likewise;
- 10. the entry points: `python -m dlrm_tpu_torch predict`, `train` and
-     `eval` in subprocesses on the card, held against the port in process;
- 11. a `{"kernels": [...]}` line, then the result line.
+ 12. the entry points: `python -m dlrm_tpu_torch predict`, `train` and
+     `eval` in subprocesses on the card, held against the port in
+     process; `train --ckpt-dir` and its resume, `eval --ckpt-dir`,
+     `export --quantize int8` with `predict --ckpt-dir` on the artifact
+     likewise, at the tiny config's widths (scheduled SGD) and at full
+     width (Kaggle fs=128, row-wise Adagrad, B=32768), each full-width
+     process's peak resident set read and bounded far below the tables'
+     bytes; `instrument`, `train --profile-dir` and `bench` at full width;
+ 13. a `{"kernels": [...]}` line, then the result line.
 It needs a CUDA device and the repository around it; without either it
 fails.
 """
@@ -67,10 +84,13 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -470,6 +490,10 @@ def _fused_vs_gram_steps(fused_params, gram_params, batches, config,
           f" vs gram {TRAIN_BATCH / gram * 1e3:.0f} examples/s")
 
 
+# the phase scopes (record_function) of the forward and the training
+# gather; the profiler lists each also as a CUDA annotation spanning its
+# kernels, which is not a kernel of its own
+_SCOPES = ("lookup", "bottom_mlp", "interaction", "top_mlp")
 # (group, substrings of a CUDA activity's name); the first match wins
 _PROFILE_GROUPS = (
     ("dedup: sort, unique, scan (cub and thrust kernels)",
@@ -515,7 +539,8 @@ def _profile_steps(what: str, run, batches, steps: int = 5,
     groups = {name: 0.0 for name, _ in table}
     other = {}
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if evt.device_type != torch.autograd.DeviceType.CUDA \
+                or evt.key in _SCOPES:
             continue
         us = evt.self_device_time_total
         for name, keys in table:
@@ -1008,6 +1033,309 @@ def phase_optimizers() -> None:
     torch.cuda.empty_cache()
 
 
+def _rss() -> int:
+    """Bytes of the host's resident set (VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+class _PeakRss:
+    """The host's peak resident set over the body, from VmRSS read every
+    2 ms by a thread (the card's machine keeps no VmHWM)."""
+
+    def __enter__(self):
+        self.peak, self._stop = _rss(), threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.002):
+                self.peak = max(self.peak, _rss())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+        check(not self._thread.is_alive(), "RSS sampler did not stop")
+        self.peak = max(self.peak, _rss())
+
+
+def _cached() -> int:
+    """Bytes of the page cache (``Cached`` of /proc/meminfo)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("Cached:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no Cached in /proc/meminfo")
+
+
+def _evict(path: Path) -> str:
+    """Asks the kernel to drop the file ``path``, or the files under it,
+    from the page cache (they are on disk: the save fsyncs them), so that
+    a read goes to the disk; returns what a read of them then measures, as
+    a label: the page cache dropped only where ``Cached`` fell by at least
+    90% of their bytes."""
+    files = [path] if path.is_file() else [f for f in path.rglob("*")
+                                           if f.is_file()]
+    nbytes, before = 0, _cached()
+    for f in files:
+        nbytes += f.stat().st_size
+        fd = os.open(f, os.O_RDONLY)
+        try:
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+    fell = before - _cached()
+    state = "page cache dropped" if fell >= 0.9 * nbytes else \
+        "page cache state unknown"
+    return f"{state}: Cached fell by {fell} B for {nbytes} B of files"
+
+
+def phase_checkpoint() -> None:
+    """Kaggle fs=128 at full width, f32, fused, B=32768, row-wise Adagrad:
+    2 steps, a save through `CheckpointManager`, 2 more steps; a restore
+    into the same tensors, which must give back every saved tensor, and the
+    same 2 steps again, every step under `_deterministic()`: equal bits of
+    the losses and of every tensor.  Bytes, seconds, GB/s and the host's
+    peak resident set of the save and of the restore (after `_evict`)."""
+    from dlrm_tpu_torch import init_params, kaggle_config
+    from dlrm_tpu_torch.data.synthetic import batch_stream
+    from dlrm_tpu_torch.io.checkpoint import BUFFER_BYTES, CheckpointManager
+    from dlrm_tpu_torch.train.train import init_opt_state, make_train_step_opt
+
+    config = kaggle_config(feature_size=128, interaction_impl="fused")
+    torch.cuda.reset_peak_memory_stats(DEV)
+    params = init_params(torch.Generator(DEV).manual_seed(config.seed),
+                         config, DEV)
+    state = {"params": params, "opt": init_opt_state(
+        params, config=config, optimizer="rowwise_adagrad")}
+    tensors = _tensors(state)
+    step = make_train_step_opt(config, optimizer="rowwise_adagrad", lr=0.001)
+    batches = list(batch_stream(config, TRAIN_BATCH, 4, seed=41))
+    nbytes = _tensor_bytes(state)
+
+    def run(data):
+        with _deterministic():
+            return [float(step(params, state["opt"], *_to_dev(b)))
+                    for b in data]
+
+    with _scratch() as tmp:
+        free = shutil.disk_usage(tmp).free
+        check(free > nbytes + (1 << 30), f"checkpoint phase: {free} B free "
+              f"under {tmp}, the checkpoint needs {nbytes} B (and 1 GiB to "
+              f"spare)")
+        with counted("checkpoint and resume", 6, 6):
+            first = run(batches[:2])
+            # the whole state as saved, on the card beside it
+            saved = [t.clone() for t in tensors]
+            mgr = CheckpointManager(tmp / "ck", save_interval=2,
+                                    max_to_keep=1)
+            rss0 = _rss()
+            torch.cuda.synchronize()
+            with _PeakRss() as save_rss:
+                t0 = time.perf_counter()
+                check(mgr.maybe_save(2, state), "maybe_save(2) did not save")
+                save_s = time.perf_counter() - t0
+            written = sum(f.stat().st_size for f in (tmp / "ck").rglob("*")
+                          if f.is_file())
+            want = run(batches[2:])
+            after = [t.clone() for t in tensors]
+            cache = _evict(tmp / "ck")
+            with _PeakRss() as restore_rss:
+                t0 = time.perf_counter()
+                restored, at = mgr.restore_latest(out=state)
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+            state["opt"]["count"] = restored["opt"]["count"]
+            check(at == 2 and restored["params"]["emb"] is params["emb"]
+                  and state["opt"]["count"] == 2,
+                  f"restored step {at}, count {state['opt']['count']}")
+            back = [i for i, (t, s) in enumerate(zip(tensors, saved))
+                    if not torch.equal(t, s)]
+            check(not back, f"restored tensors {back} of {len(tensors)} "
+                  f"differ from the saved ones")
+            del saved
+            got = run(batches[2:])
+            mgr.close()
+        disk = _io_rates(tmp)
+    again = [i for i, (t, a) in enumerate(zip(tensors, after))
+             if not torch.equal(t, a)]
+    check(got == want and not again, f"resume: losses {got} vs {want}, "
+          f"tensors {again} of {len(tensors)} differ")
+    print(f"checkpoint: Kaggle fs=128, f32, row-wise Adagrad at B="
+          f"{TRAIN_BATCH} under deterministic sums; losses {first + want}; "
+          f"the restore gave back every saved tensor bit for bit (the "
+          f"{config.total_rows} rows of the tables and of their "
+          f"accumulator, the dense state), and resumed at step 2 the 2 "
+          f"steps give the same loss bits and the same bits of every "
+          f"tensor; interaction_fwd and interaction_bwd launched 6 times "
+          f"each")
+    print(f"checkpoint save: {written} B in {save_s:.2f} s = "
+          f"{written / save_s / 1e9:.3f} GB/s (fsynced; {free} B were free); "
+          f"restore ({cache}) into the same tensors "
+          f"{restore_s:.2f} s = {written / restore_s / 1e9:.3f} GB/s; host "
+          f"buffer {BUFFER_BYTES} B; host resident set before "
+          f"{rss0 / 1e9:.3f} GB, peak during the save "
+          f"{save_rss.peak / 1e9:.3f} GB, during the restore "
+          f"{restore_rss.peak / 1e9:.3f} GB; peak device memory "
+          f"{torch.cuda.max_memory_allocated(DEV) / 1e9:.2f} GB")
+    print(f"the same disk alone, {disk['bytes']} B through one "
+          f"{BUFFER_BYTES} B host buffer: write and fsync "
+          f"{disk['write']:.3f} GB/s, read ({disk['cache']}) "
+          f"{disk['read']:.3f} GB/s; the buffer pinned, copies from the card "
+          f"{disk['d2h']:.2f} GB/s, to the card {disk['h2d']:.2f} GB/s; the "
+          f"save ran at {written / save_s / 1e9 / disk['write']:.0%} of the "
+          f"disk's write rate, the restore at "
+          f"{written / restore_s / 1e9 / disk['read']:.0%} of its read rate")
+    grew = max(save_rss.peak, restore_rss.peak) - rss0
+    check(grew < 1 << 30, f"the host resident set grew by {grew} B during "
+          f"the save or the restore")
+    del params, state, tensors, after
+    torch.cuda.empty_cache()
+
+
+def _io_rates(tmp: Path, chunks: int = 64) -> dict:
+    """GB/s of what a checkpoint rides on, without it: ``chunks`` writes
+    of one ``BUFFER_BYTES`` host buffer to a file under ``tmp`` and an
+    fsync, the file read back after `_evict` (``cache``: its label), and
+    as many copies between the card and the buffer pinned."""
+    from dlrm_tpu_torch.io.checkpoint import BUFFER_BYTES
+
+    host = torch.randint(0, 255, (BUFFER_BYTES,), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(0))
+    mv = memoryview(host.numpy())
+    path = tmp / "io_rates.bin"
+    nbytes = chunks * BUFFER_BYTES
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        for _ in range(chunks):
+            f.write(mv)
+        f.flush()
+        os.fsync(f.fileno())
+    write_s = time.perf_counter() - t0
+    cache = _evict(path)
+    t0 = time.perf_counter()
+    with open(path, "rb", buffering=0) as f:
+        for _ in range(chunks):
+            view = mv
+            while len(view):
+                view = view[f.readinto(view):]
+    read_s = time.perf_counter() - t0
+    path.unlink()
+    pinned = host.pin_memory()
+    card = torch.empty_like(pinned, device=DEV)
+    out = {"bytes": nbytes, "write": nbytes / write_s / 1e9,
+           "read": nbytes / read_s / 1e9, "cache": cache}
+    for name, copy in (("d2h", lambda: pinned.copy_(card)),
+                       ("h2d", lambda: card.copy_(pinned))):
+        copy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(chunks):
+            copy()
+        torch.cuda.synchronize()
+        out[name] = nbytes / (time.perf_counter() - t0) / 1e9
+    return out
+
+
+def _tensors(tree) -> list:
+    """Every tensor of a payload, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _tensors(x)]
+    return []
+
+
+def _tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a payload."""
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def _scope_ms(run, batches, steps: int = 5) -> dict:
+    """CUDA ms a step under each phase scope (``record_function``) of a
+    `torch.profiler` run of ``steps`` steps after 3."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run(batches[:3])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(batches[i % len(batches)] for i in range(steps))
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if evt.key in _SCOPES \
+                and evt.device_type == torch.autograd.DeviceType.CPU:
+            out[evt.key] = evt.device_time_total / 1e3 / steps
+    return out
+
+
+def phase_telemetry() -> None:
+    """Kaggle fs=128 at full width, SGD at B=32768, fused: the instrumented
+    step against `train_step` from the same state (within 1e-5), the mean
+    ms of every phase beside the unprofiled step, and the CUDA time under
+    each phase scope of the profiled step."""
+    from dlrm_tpu_torch import init_params, kaggle_config
+    from dlrm_tpu_torch.data.synthetic import batch_stream
+    from dlrm_tpu_torch.train.train import make_train_step
+    from dlrm_tpu_torch.utils.telemetry import (InstrumentedTrainer,
+                                                Recorder, donothing)
+
+    config = kaggle_config(feature_size=128, interaction_impl="fused")
+    params = init_params(torch.Generator(DEV).manual_seed(config.seed),
+                         config, DEV)
+    batches = list(batch_stream(config, TRAIN_BATCH, 6, seed=51))
+    trainer = InstrumentedTrainer(config, 0.1)
+    step = make_train_step(config, 0.1)
+    snap = _Snapshot(params, None, _all_ids(batches[:1], config))
+    with counted("instrumented step", 1, 1):
+        got_loss = trainer.step(params, batches[0])
+    got = snap.read()
+    snap.restore()
+    want_loss = float(step(params, *_to_dev(batches[0])))
+    diff = max(_max_diff(got, snap.read()), abs(got_loss - want_loss))
+    check(diff <= 1e-5, f"instrumented step vs train_step: {diff}")
+    rec = Recorder()
+    with counted("instrumented steps", 5, 5):
+        for i, b in enumerate(batches[1:]):
+            trainer.step(params, b, rec if i else donothing)
+    plain = []
+    for b in batches[1:] * 2:
+        dev_b = _to_dev(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(step(params, *dev_b))
+        plain.append((time.perf_counter() - t0) * 1e3)
+    phases = rec.summary()
+    print(f"instrumented SGD step at B={TRAIN_BATCH} vs train_step from the "
+          f"same state: loss, touched rows and dense parameters within "
+          f"{diff:.3g}; phase ms (mean of 4 steps after 1): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+          + f"; sum {sum(phases.values()):.3f} ms against the unprofiled "
+          f"train_step's median {statistics.median(plain[2:]):.3f} ms (batch "
+          f"on the card, loss read back)")
+
+    def sgd(data):
+        for b in data:
+            float(step(params, *_to_dev(b)))
+
+    scopes = _scope_ms(sgd, batches)
+    check(set(scopes) == set(_SCOPES),
+          f"profiled SGD step: phase scopes {sorted(scopes)}")
+    print("profiled SGD step, CUDA ms a step under each phase scope "
+          "(forward kernels; the backward runs outside them): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in scopes.items()))
+    del params, snap
+    torch.cuda.empty_cache()
+
+
 INT8_BYTES = 4_456_660_164    # Kaggle fs=128: 33,762,577 rows x (128 + 4) B
 INT8_BOUND = 5e-3             # the JAX package's bound (tests/test_quant.py)
 
@@ -1463,31 +1791,77 @@ def phase_small_optimizers() -> None:
                   f" dense {dense_diff:.3g}, accumulators {acc_diff:.3g}")
 
 
+_RSS_KEYS = ("VmRSS", "RssAnon", "RssFile")
+
+
+def _status(pid: int) -> dict:
+    """Bytes of ``_RSS_KEYS`` in /proc/<pid>/status (those it has)."""
+    out = {}
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            key = line.split(":", 1)[0]
+            if key in _RSS_KEYS:
+                out[key] = int(line.split()[1]) * 1024
+    return out
+
+
 def _cli(args: list, ok: bool = True) -> subprocess.CompletedProcess:
-    """``python -m dlrm_tpu_torch *args``; it must exit 0 (``ok``) or not."""
-    res = subprocess.run([sys.executable, "-m", "dlrm_tpu_torch", *args],
-                         cwd=REPO, capture_output=True, text=True,
-                         timeout=600)
+    """``python -m dlrm_tpu_torch *args``; it must exit 0 (``ok``) or not.
+    ``.peak_rss``: the process's peak of each of ``_RSS_KEYS`` that its
+    /proc status shows, sampled every 2 ms; ``.seconds``: its wall time."""
+    proc = subprocess.Popen([sys.executable, "-m", "dlrm_tpu_torch", *args],
+                            cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    peak, stop = {}, threading.Event()
+
+    def sample():
+        while not stop.wait(0.002):
+            try:
+                now = _status(proc.pid)
+            except OSError:
+                return
+            for k, v in now.items():
+                peak[k] = max(peak.get(k, 0), v)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+        proc.wait()
+        stop.set()
+        sampler.join(timeout=10)
+    res = subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+    res.peak_rss, res.seconds = peak, time.perf_counter() - t0
     check((res.returncode == 0) == ok,
           f"{args[0]} exited {res.returncode}: {res.stderr[-2000:]}")
     return res
 
 
-def _run_cli(args: list, on_device: bool = True) -> dict:
-    line = json.loads(_cli(args).stdout.strip().splitlines()[-1])
+def _line(args: list, res: subprocess.CompletedProcess,
+          on_device: bool = True) -> dict:
+    """The JSON line a subcommand printed last (``args[0]`` run on the card
+    unless ``on_device`` is false)."""
+    line = json.loads(res.stdout.strip().splitlines()[-1])
     print(f"{args[0]}: {line}")
     check(not on_device or line.get("device") == DEV.type,
           f"{args[0]} ran on {line}")
     return line
 
 
-def _write_dac(path: str, n: int, rng) -> None:
+def _run_cli(args: list, on_device: bool = True) -> dict:
+    return _line(args, _cli(args), on_device)
+
+
+def _write_dac(path: str, n: int, rng, sizes=TABLES) -> None:
     from dlrm_tpu_torch.data.criteo import DAC_DTYPE
 
     rec = np.zeros(n, dtype=DAC_DTYPE)
     rec["label"] = rng.integers(0, 2, size=n)
     rec["dense"] = np.log1p(rng.integers(0, 1000, size=(n, 13)))
-    rec["cat"] = np.stack([rng.integers(1, s + 1, size=n) for s in TABLES],
+    rec["cat"] = np.stack([rng.integers(1, s + 1, size=n) for s in sizes],
                           axis=1)
     rec.tofile(path)
 
@@ -1606,6 +1980,264 @@ def phase_entry_points() -> None:
         print(f"eval --params: CLI vs in process over {n} rows (ragged tail "
               f"of {n % 256}): loss, AUC, accuracy |diff| "
               f"{[f'{d:.3g}' for d in diffs]}")
+        _ckpt_entry_points(tmp, config, data, tables)
+    _full_width_entry_points()
+
+
+def _ckpt_entry_points(tmp: Path, config, data: str, tables: str) -> None:
+    """At the tiny config's widths, scheduled SGD: `train --ckpt-dir` and
+    its resume, `eval --ckpt-dir`, `export --quantize int8` with `predict
+    --ckpt-dir` on the artifact, in subprocesses on the card, held against
+    the port in process."""
+    from dlrm_tpu_torch import init_params
+    from dlrm_tpu_torch.data.criteo import DACLoader, load
+    from dlrm_tpu_torch.data.synthetic import ClickthroughModel
+    from dlrm_tpu_torch.io.checkpoint import all_steps, restore_checkpoint
+    from dlrm_tpu_torch.ops.quant import quantize_params
+    from dlrm_tpu_torch.run import score_batch
+    from dlrm_tpu_torch.train.metrics import evaluate
+    from dlrm_tpu_torch.train.optim import make_schedule
+    from dlrm_tpu_torch.train.train import make_train_step
+
+    model = ["--config", "tiny", "--table-sizes", tables, "--interaction",
+             "fused", "--device", DEV.type]
+    d, q = str(tmp / "ck"), str(tmp / "q")
+    sched = ["--lr-schedule", "warmup_poly_decay", "--warmup-steps", "2",
+             "--decay-start", "3", "--decay-steps", "4"]
+    train = ["train", *model, "--synthetic", "skewed", "--batch-size", "128",
+             "--save-interval", "2", "--ckpt-dir", d, *sched]
+    first = _run_cli(train + ["--steps", "4"])
+    second = _run_cli(train + ["--steps", "6"])
+    check(first["steps"] == 4 and second["steps"] == 2
+          and all_steps(d) == [2, 4, 6], f"train --ckpt-dir: {first}, "
+          f"{second}, checkpoints {all_steps(d)}")
+    # in process: the same init, 4 steps of the stream, then (the resumed
+    # run restarts the stream from --seed) its first 2 batches again, the
+    # schedule read at steps 4 and 5
+    p = init_params(torch.Generator(DEV).manual_seed(config.seed), config,
+                    DEV)
+    step = make_train_step(config, make_schedule(
+        0.1, schedule="warmup_poly_decay", warmup_steps=2, decay_start=3,
+        decay_steps=4))
+    stream = list(ClickthroughModel(config, seed=12345).stream(128, 4,
+                                                                 seed=1))
+    for b in stream + stream[:2]:
+        loss = float(step(p, *_to_dev(b)))
+    saved, at = restore_checkpoint(d, device=DEV)
+    diffs = [abs(loss - second["final_loss"]),
+             (saved["emb"] - p["emb"]).abs().max().item(),
+             _max_dense_diff(saved, p)]
+    # duplicate ids are summed by atomics in another order a run
+    check(at == 6 and max(diffs) <= 1e-5, f"train --ckpt-dir resume vs in "
+          f"process: final loss, tables, dense {diffs}")
+    print(f"train --ckpt-dir, 4 scheduled SGD steps then a resume to 6: "
+          f"checkpoints {all_steps(d)}; vs in process: final loss, tables, "
+          f"dense parameters |diff| {[f'{x:.3g}' for x in diffs]}")
+
+    line = _run_cli(["eval", *model, "--data", data, "--ckpt-dir", d,
+                     "--batch-size", "256"])
+    want = evaluate(saved, DACLoader(load(data), 256, drop_remainder=False),
+                    config)
+    ediff = [abs(line[k] - want[k]) for k in ("loss", "auc", "accuracy")]
+    check(line["examples"] == want["examples"] and max(ediff) <= 1e-6,
+          f"eval --ckpt-dir: {line} vs in process {want}")
+    line = _run_cli(["export", *model[:4], "--ckpt-dir", d, "--out", q,
+                     "--quantize", "int8"], on_device=False)
+    check(line["quantized"] == "int8", f"export line {line}")
+    out = str(tmp / "q.npy")
+    _run_cli(["predict", *model, "--data", data, "--ckpt-dir", q, "--out",
+              out])
+    n = len(load(data))
+    qwant = score_batch(quantize_params(saved, config),
+                        DACLoader(load(data), n)[0], config, DEV)
+    qdiff = float(np.abs(np.load(out) - qwant).max())
+    check(qdiff <= 1e-6, f"predict on the int8 artifact vs in process: "
+          f"{qdiff}")
+    print(f"eval --ckpt-dir vs in process: loss, AUC, accuracy |diff| "
+          f"{[f'{x:.3g}' for x in ediff]}; export --quantize int8 "
+          f"({line['table_bytes']} B of tables), then predict --ckpt-dir "
+          f"on the artifact vs the card's quantizer in process: {qdiff:.3g}")
+
+
+# row-wise Adagrad's lr in the full-width CLI run: at 0.01 its first step
+# from zero accumulators (lr * sign(g) on every dense weight) sent the loss
+# to 22.5 and magnified the atomics' last bits to 8e-4 in the weights
+FULL_LR = 0.001
+GIB = 1 << 30
+
+
+def _chunked_max_diff(a: torch.Tensor, b: torch.Tensor,
+                      rows: int = 1 << 20) -> float:
+    """max |a - b| over ``rows`` rows at a time (no full-size temporary)."""
+    return max(((a[i:i + rows].float() - b[i:i + rows].float()).abs().max()
+                .item() for i in range(0, a.shape[0], rows)), default=0.0)
+
+
+def _full_width_entry_points() -> None:
+    """Kaggle fs=128 at full width (f32, fused, B=32768) through the CLI on
+    the card: `train --ckpt-dir` with row-wise Adagrad, 2 steps and a
+    resume to 4, held to the same 4 steps in process; `eval --ckpt-dir`
+    held to `evaluate` of the checkpoint; `export --quantize int8`, then
+    `predict --ckpt-dir` on the artifact held to the card's quantizer in
+    process; each process's peak resident set, which must stay far below
+    the tables' bytes; then `instrument` held to the instrumented step in
+    process, `train --profile-dir` and `bench`."""
+    from dlrm_tpu_torch import init_params, kaggle_config
+    from dlrm_tpu_torch.data.criteo import DACLoader, load
+    from dlrm_tpu_torch.data.synthetic import batch_stream, random_batch
+    from dlrm_tpu_torch.io.checkpoint import all_steps, restore_checkpoint
+    from dlrm_tpu_torch.ops.quant import quantize_params
+    from dlrm_tpu_torch.run import score_batch
+    from dlrm_tpu_torch.train.metrics import evaluate
+    from dlrm_tpu_torch.train.train import init_opt_state, make_train_step_opt
+    from dlrm_tpu_torch.utils.telemetry import InstrumentedTrainer, donothing
+
+    config = kaggle_config(feature_size=128, interaction_impl="fused")
+    model = ["--config", "kaggle", "--feature-size", "128", "--interaction",
+             "fused", "--device", DEV.type]
+    bsz = str(TRAIN_BATCH)
+    n = 2 * TRAIN_BATCH + 4464          # two batches and a ragged tail
+    table_bytes = config.total_rows * config.feature_size * 4
+    rss = {}
+    with _scratch() as tmp:
+        d, q, data, out = (str(tmp / f) for f in ("ck", "q", "data.bin",
+                                                   "scores.npy"))
+        # two checkpoints while the older is retired, and the artifact
+        need = 2 * (table_bytes + config.total_rows * 4) + INT8_BYTES + GIB
+        free = shutil.disk_usage(tmp).free
+        check(free > need, f"full-width CLI: {free} B free under {tmp}, "
+              f"the run needs {need} B")
+        _write_dac(data, n, np.random.default_rng(9), config.table_sizes)
+        train = ["train", *model, "--batch-size", bsz, "--optimizer",
+                 "rowwise_adagrad", "--lr", str(FULL_LR), "--ckpt-dir", d,
+                 "--save-interval", "2", "--max-to-keep", "1"]
+        lines = []
+        for steps in (2, 4):
+            res = _cli(train + ["--steps", str(steps)])
+            lines.append(_line(train, res))
+            rss[f"train --steps {steps}"] = res
+        check(lines[0]["steps"] == 2 and lines[1]["steps"] == 2
+              and "resumed from step 2" in res.stderr
+              and all_steps(d) == [4], f"train --ckpt-dir at full width: "
+              f"{lines}, checkpoints {all_steps(d)}")
+        # in process: the same init and 2 steps, then (the resumed run
+        # restarts the stream from --seed) the same 2 batches again
+        p = init_params(torch.Generator(DEV).manual_seed(config.seed),
+                        config, DEV)
+        state = init_opt_state(p, config=config, optimizer="rowwise_adagrad")
+        step = make_train_step_opt(config, optimizer="rowwise_adagrad",
+                                   lr=FULL_LR)
+        stream = list(batch_stream(config, TRAIN_BATCH, 2, seed=0))
+        for b in stream + stream:
+            loss = float(step(p, state, *_to_dev(b)))
+        saved, at = restore_checkpoint(d, device=DEV)
+        diffs = {"loss": abs(loss - lines[1]["final_loss"]),
+                 "tables": _chunked_max_diff(saved["params"]["emb"],
+                                             p["emb"]),
+                 "dense": _max_dense_diff(saved["params"], p),
+                 "accumulators": _max_diff(_tensors(saved["opt"]),
+                                           _tensors(state))}
+        # duplicate ids are summed by atomics in another order a run, and
+        # Adagrad from a zero accumulator magnifies that in the weights
+        # (ROADMAP.md section 3: 1e-3 from zero)
+        check(at == 4 and saved["opt"]["count"] == 4
+              and diffs["loss"] <= 1e-5 and diffs["accumulators"] <= 1e-6
+              and max(diffs["tables"], diffs["dense"]) <= 1e-3,
+              f"train --ckpt-dir at full width vs in process: step {at}, "
+              f"count {saved['opt']['count']}, {diffs}")
+        print(f"train --ckpt-dir at full width (Kaggle fs=128, row-wise "
+              f"Adagrad, lr {FULL_LR}, B={TRAIN_BATCH}), 2 steps then a "
+              f"resume to 4: checkpoints {all_steps(d)}; vs in process |diff| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items()))
+        saved = saved["params"]
+        del p, state
+        torch.cuda.empty_cache()
+
+        args = ["eval", *model, "--data", data, "--ckpt-dir", d,
+                "--batch-size", bsz]
+        res = _cli(args)
+        line, rss["eval --ckpt-dir"] = _line(args, res), res
+        want = evaluate(saved, DACLoader(load(data), TRAIN_BATCH,
+                                         drop_remainder=False), config)
+        ediff = [abs(line[k] - want[k]) for k in ("loss", "auc", "accuracy")]
+        check(line["examples"] == n and max(ediff) <= 1e-6,
+              f"eval --ckpt-dir at full width: {line} vs in process {want}")
+        args = ["export", *model[:4], "--ckpt-dir", d, "--out", q,
+                "--quantize", "int8"]
+        res = _cli(args)
+        line = _line(args, res, on_device=False)
+        rss["export --quantize int8"] = res
+        check(line["quantized"] == "int8" and line["table_bytes"] ==
+              INT8_BYTES and line["total_rows"] == config.total_rows,
+              f"export line {line}")
+        args = ["predict", *model, "--data", data, "--ckpt-dir", q, "--out",
+                out, "--batch-size", bsz]
+        res = _cli(args)
+        line, rss["predict --ckpt-dir (int8)"] = _line(args, res), res
+        qp = quantize_params(saved, config)
+        want = np.concatenate([
+            score_batch(qp, b, config, DEV) for b in DACLoader(
+                load(data), TRAIN_BATCH, drop_remainder=False)])
+        qdiff = float(np.abs(np.load(out) - want).max())
+        check(line["examples"] == n and qdiff <= 1e-6,
+              f"predict on the full-width int8 artifact vs in process: "
+              f"{qdiff}")
+        print(f"at full width: eval --ckpt-dir vs in process over {n} rows "
+              f"(ragged tail of {n % TRAIN_BATCH}): loss, AUC, accuracy "
+              f"|diff| {[f'{x:.3g}' for x in ediff]}; export --quantize "
+              f"int8 ({line['examples']} rows scored; {INT8_BYTES} B of "
+              f"int8 tables), then predict --ckpt-dir on the artifact vs "
+              f"the card's quantizer in process: {qdiff:.3g}")
+        del saved, qp
+        torch.cuda.empty_cache()
+    print(f"full-width CLI, each process's wall time and peak resident set "
+          f"(GB; sampled every 2 ms from /proc/<pid>/status), the f32 "
+          f"tables being {table_bytes / 1e9:.2f} GB and the int8 ones "
+          f"{INT8_BYTES / 1e9:.2f} GB: " + "; ".join(
+              f"{k} {r.seconds:.2f} s, " + ", ".join(
+                  f"{m} {v / 1e9:.3f}" for m, v in r.peak_rss.items())
+              for k, r in rss.items()))
+    for k, r in rss.items():
+        # the export holds the int8 codes and scales on the host
+        bound = (INT8_BYTES if k.startswith("export") else 0) + 8 * GIB
+        check(0 < r.peak_rss.get("VmRSS", 0) < bound, f"{k}: peak resident "
+              f"set {r.peak_rss}, more than {bound} B")
+
+    args = ["instrument", *model, "--batch-size", bsz, "--steps", "3"]
+    line = _run_cli(args)
+    p = init_params(torch.Generator(DEV).manual_seed(config.seed), config,
+                    DEV)
+    rng = np.random.default_rng(0)
+    trainer = InstrumentedTrainer(config, 0.1)
+    for _ in range(3):
+        loss = trainer.step(p, random_batch(rng, config, TRAIN_BATCH),
+                            donothing)
+    del p
+    torch.cuda.empty_cache()
+    check(len(line["phase_ms"]) == 14 and abs(line["loss"] - loss) <= 1e-5,
+          f"instrument: {line} vs in process loss {loss}")
+    with _scratch() as tmp:
+        prof = tmp / "prof"
+        res = _cli(["train", *model, "--steps", "8", "--batch-size", bsz,
+                    "--profile-dir", str(prof)])
+        (trace,) = prof.glob("*.json")
+        size = trace.stat().st_size
+        names = {e.get("name") for e in json.loads(trace.read_text())[
+            "traceEvents"]}
+    kernels = {k for k in ("interaction_fwd_kernel", "interaction_bwd_kernel")
+               if any(k in m for m in names if m)}
+    check(set(_SCOPES) <= names and len(kernels) == 2
+          and "profile written" in res.stderr,
+          f"train --profile-dir: scopes {set(_SCOPES) & names}, kernels "
+          f"{kernels}")
+    print(f"at full width: instrument vs in process: loss |diff| "
+          f"{abs(line['loss'] - loss):.3g}; train --profile-dir wrote "
+          f"{size} B of trace naming the four phase scopes "
+          f"and {sorted(kernels)}")
+    line = _run_cli(["bench", "--config", "kaggle", "--feature-size", "128",
+                     "--batch-size", bsz, "--device", DEV.type])
+    check(line["step_ms"] > 0 and line["examples_per_s"] > 0,
+          f"bench line {line}")
 
 
 def _two_epochs(loader):
@@ -1628,6 +2260,8 @@ def main() -> int:
     phase_training()
     phase_evaluation()
     phase_optimizers()
+    phase_checkpoint()
+    phase_telemetry()
     phase_int8_serving()
     phase_data()
     phase_small_inputs()

@@ -12,7 +12,13 @@ loss) and ``python -m dlrm_tpu_torch train`` / ``eval``; the Criteo pipeline
 (parsing, vocabulary, a native engine built from ``native/``, batches copied
 to the card ahead of the step), HDF5 interop and the fixture validator, and
 int8 serving (``preprocess``, ``validate``, ``--hdf5``,
-``--quantize-tables int8``).
+``--quantize-tables int8``); checkpoints and resume in plain files
+(``io/checkpoint.py``: ``train --ckpt-dir --save-interval --max-to-keep``,
+``eval`` / ``predict`` / ``export --ckpt-dir``), ``export`` to HDF5 or to a
+ready-to-serve int8 checkpoint, and telemetry (``utils/telemetry.py``: the
+phase scopes of the forward and the training step, ``Recorder``,
+``InstrumentedTrainer``, ``trace``; ``instrument``, ``bench``, ``train
+--profile-dir``).
 """
 
 from dlrm_tpu_torch.config import (

@@ -56,24 +56,31 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _check_mlp(layers, sizes, name):
+    """Layer count and shapes of an MLP's leaves (arrays, tensors or
+    checkpoint leaves: anything with a ``shape``) against the config."""
     if len(layers) != len(sizes) - 1:
         raise ValueError(f"{name}: {len(layers)} layers, the config has "
                          f"{len(sizes) - 1}")
     for i, layer in enumerate(layers):
         want = (sizes[i], sizes[i + 1])
-        if tuple(np.shape(layer["w"])) != want or \
-                tuple(np.shape(layer["b"])) != want[1:]:
-            raise ValueError(f"{name}[{i}]: w {np.shape(layer['w'])} / b "
-                             f"{np.shape(layer['b'])}, the config needs "
+        w, b = tuple(layer["w"].shape), tuple(layer["b"].shape)
+        if w != want or b != want[1:]:
+            raise ValueError(f"{name}[{i}]: w {w} / b {b}, the config needs "
                              f"{want} / {want[1:]}")
+
+
+def check_dense(params, config: DLRMConfig) -> None:
+    """Shapes of the ``bottom`` and ``top`` MLPs of a parameter tree
+    against the config."""
+    _check_mlp(params["bottom"], config.bottom_mlp_sizes, "bottom")
+    _check_mlp(params["top"], config.full_top_mlp_sizes, "top")
 
 
 def dense_from_numpy(np_params: dict, config: DLRMConfig,
                      device="cpu") -> dict:
     """The ``bottom`` and ``top`` MLPs of a numpy pytree as tensors on
     ``device``, in the config's weight dtype; shapes are checked."""
-    _check_mlp(np_params["bottom"], config.bottom_mlp_sizes, "bottom")
-    _check_mlp(np_params["top"], config.full_top_mlp_sizes, "top")
+    check_dense(np_params, config)
     return {part: [{k: _to_torch(layer[k], config.weight_dtype, device)
                     for k in ("w", "b")} for layer in np_params[part]]
             for part in ("bottom", "top")}

@@ -127,13 +127,13 @@ def save_params(path: str, np_params: dict, config: DLRMConfig) -> None:
     package's ``save_params`` for the same parameters)."""
     import h5py
 
-    emb = np.asarray(np_params["emb"])
+    emb = np_params["emb"]  # read a table at a time
     with h5py.File(path, "w") as f:
         # the datasets alone do not say the lookups are multi-hot
         f.attrs["n_hot"] = config.n_hot
         for i, (off, n) in enumerate(zip(config.table_offsets,
                                          config.table_sizes)):
-            f[f"emb_{i}"] = emb[off:off + n].astype(np.float32)
+            f[f"emb_{i}"] = np.asarray(emb[off:off + n], dtype=np.float32)
         for prefix, layers in (("bot_l", np_params["bottom"]),
                                ("top_l", np_params["top"])):
             for j, layer in enumerate(layers):

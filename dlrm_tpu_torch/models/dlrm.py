@@ -27,6 +27,7 @@ from dlrm_tpu_torch.ops.interaction_fused import fused_dot_interaction
 from dlrm_tpu_torch.ops.loss import bce_loss
 from dlrm_tpu_torch.ops.mlp import init_mlp, mlp_apply
 from dlrm_tpu_torch.ops.quant import QuantEmb, check_quant_storage
+from dlrm_tpu_torch.utils.telemetry import phase_scope
 
 _INTERACTIONS = {
     "gram": dot_interaction,
@@ -68,15 +69,20 @@ def init_params(generator: torch.Generator, config: DLRMConfig,
 def forward_from_pooled(dense_params: dict, pooled: torch.Tensor,
                         dense: torch.Tensor, config: DLRMConfig
                         ) -> torch.Tensor:
-    """Forward pass given already-pooled embedding vectors (B, T, D)."""
+    """Forward pass given already-pooled embedding vectors (B, T, D).  The
+    stages run under the phase scopes ``bottom_mlp``, ``interaction`` and
+    ``top_mlp`` (``utils/telemetry.phase_scope``)."""
     cd = config.compute_dtype
     cd = None if cd == dense_params["bottom"][0]["w"].dtype else cd
-    x = mlp_apply(dense_params["bottom"], dense, final="relu",
-                  compute_dtype=cd)
-    z = _INTERACTIONS[config.interaction_impl](
-        x, pooled.to(x.dtype), pad_to=config.interaction_pad_to)
-    out = mlp_apply(dense_params["top"], z, final="sigmoid",
-                    compute_dtype=cd)
+    with phase_scope("bottom_mlp"):
+        x = mlp_apply(dense_params["bottom"], dense, final="relu",
+                      compute_dtype=cd)
+    with phase_scope("interaction"):
+        z = _INTERACTIONS[config.interaction_impl](
+            x, pooled.to(x.dtype), pad_to=config.interaction_pad_to)
+    with phase_scope("top_mlp"):
+        out = mlp_apply(dense_params["top"], z, final="sigmoid",
+                        compute_dtype=cd)
     return out[:, 0]
 
 
@@ -99,7 +105,8 @@ def forward(params: dict, dense: torch.Tensor, sparse: torch.Tensor,
             config: DLRMConfig) -> torch.Tensor:
     """Full forward: (dense (B,13), sparse ids (B,T[,H])) -> CTR (B,).
     ``params["emb"]`` is the ``(total_rows, D)`` stack or its int8
-    ``QuantEmb`` (``ops/quant.py``)."""
+    ``QuantEmb`` (``ops/quant.py``).  The lookup runs under the phase
+    scope ``lookup``."""
     emb = params["emb"]
     if isinstance(emb, QuantEmb):
         check_quant_storage(emb, config)
@@ -107,7 +114,8 @@ def forward(params: dict, dense: torch.Tensor, sparse: torch.Tensor,
         raise ValueError(f"params['emb'] has shape {tuple(emb.shape)}, the "
                          f"config needs ({config.total_rows}, "
                          f"{config.feature_size})")
-    pooled = emb_ops.mixed_lookup(emb, sparse, config)
+    with phase_scope("lookup"):
+        pooled = emb_ops.mixed_lookup(emb, sparse, config)
     dense_params, _ = split_params(params)
     return forward_from_pooled(dense_params, pooled, dense, config)
 

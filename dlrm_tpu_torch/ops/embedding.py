@@ -22,6 +22,8 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from dlrm_tpu_torch.utils.telemetry import phase_scope
+
 
 class SparseGrad(NamedTuple):
     """Compressed embedding gradient: ``rows[i]`` is the gradient with
@@ -146,15 +148,18 @@ def sparse_value_and_grad(loss_fn: Callable, *,
     of shape (B, T[, H], D), returned flat with the stacked-table ids.
     ``dense_grads`` mirrors ``dense_params``; nothing is accumulated in
     ``.grad``.  ``pool_fn(rows)`` replaces the plain sum-pool (training
-    passes :func:`mixed_pool`).  ``value`` is detached.
+    passes :func:`mixed_pool`).  ``value`` is detached.  The gather and
+    the pool run under the phase scope ``lookup``.
     """
     pool_fn = pool if pool_fn is None else pool_fn
 
     def wrapped(dense_params, emb, ids, offsets, *args):
-        flat = translate_ids(ids, offsets)
-        rows = gather_rows(emb, flat).detach().requires_grad_()
+        with phase_scope("lookup"):
+            flat = translate_ids(ids, offsets)
+            rows = gather_rows(emb, flat).detach().requires_grad_()
+            pooled = pool_fn(rows)
         live = tree_map(lambda p: p.detach().requires_grad_(), dense_params)
-        loss = loss_fn(live, pool_fn(rows), *args)
+        loss = loss_fn(live, pooled, *args)
         leaves = tree_leaves(live)
         grads = torch.autograd.grad(loss, leaves + [rows])
         it = iter(grads)

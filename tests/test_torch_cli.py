@@ -2,6 +2,12 @@
 evaluation, and ``eval``: each run's line against the same run made in
 process through the library (the same seeds give the same numbers on the
 CPU), the step each flag combination selects, and the flags still refused.
+
+Checkpoints, ``export``, ``instrument``, ``bench`` and ``--profile-dir``
+against the JAX package's CLI: both resume from a step-0 checkpoint that
+holds the same JAX-initialised parameters (and warm accumulators), so the
+two runs start from one state; weights and losses within 1e-5,
+accumulators within 1e-6.
 """
 
 import dataclasses
@@ -174,7 +180,7 @@ def test_eval_params_matches_evaluate_in_process(tmp_path, rng, capsys):
 
 
 @pytest.mark.parametrize("flag,value,msg", [
-    ("--ckpt-dir", "x", "item 1, 'Checkpoints"),
+    ("--exchange-dtype", "bf16", "item 3, 'Multi-GPU'"),
     ("--distributed", None, "item 3, 'Multi-GPU'"),
     ("--platform", "cpu", "pass --device"),
 ])
@@ -213,7 +219,7 @@ def test_eval_flags_now_served(flag, tmp_path, rng, capsys):
 
 
 def test_eval_needs_params():
-    with pytest.raises(SystemExit, match="eval needs --params"):
+    with pytest.raises(SystemExit, match="eval needs --params .*--ckpt-dir"):
         main(["eval", "--config", "tiny", "--device", "cpu"])
 
 
@@ -227,6 +233,23 @@ def test_eval_parser_covers_the_jax_eval_flags():
         return {a.dest for a in sub.choices["eval"]._actions} - {"help"}
 
     assert flags(jax_parser()) <= flags(build_parser())
+
+
+@pytest.mark.parametrize("cmd", ["export", "instrument", "bench"])
+def test_parser_covers_the_jax_flags_of_the_new_subcommands(cmd):
+    from dlrm_tpu.run import build_parser as jax_parser
+
+    def flags(parser):
+        sub = next(a for a in parser._actions
+                   if hasattr(a, "choices") and a.choices
+                   and cmd in a.choices)
+        return {a.dest: a.default for a in sub.choices[cmd]._actions
+                if a.dest != "help"}
+
+    theirs, ours = flags(jax_parser()), flags(build_parser())
+    assert set(theirs) <= set(ours), set(theirs) - set(ours)
+    # the same defaults (batch size, lr, steps, seed)
+    assert {k: ours[k] for k in theirs} == theirs
 
 
 def test_block_iter_stacks_and_keeps_the_remainder():
@@ -277,3 +300,255 @@ def test_module_entry_point_trains_with_the_full_recipe_on_cpu():
     assert line["final_loss"] == float(losses[-1])
     assert line["eval"] == evaluate(params, batch_stream(cfg, 16, 10, 10_000),
                                     cfg)
+
+
+# -- checkpoints, export, instrument, bench, --profile-dir --------------------
+
+MODEL26 = TINY26[:4]  # the model flags: config and table sizes
+TRAIN26 = ["train", "--config", "tiny", "--table-sizes",
+           ",".join(map(str, TABLES)), "--batch-size", "32",
+           "--save-interval", "2"]
+
+
+def _jax_line(capsys, argv):
+    from dlrm_tpu import run as jrun
+
+    assert jrun.main(argv) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def _plant_start(flags, optimizer, jdir, tdir):
+    """The same step-0 checkpoint for both CLIs: JAX-initialised parameters
+    and, for Adagrad, accumulators warmed to 0.01 (``ROADMAP.md`` §3);
+    returns the JAX config of the flags."""
+    import jax
+    import jax.numpy as jnp
+    import dlrm_tpu
+    from dlrm_tpu import run as jrun
+    from dlrm_tpu.io import checkpoint as jck
+    from dlrm_tpu.train.train import init_opt_state as jinit_opt
+    from dlrm_tpu_torch.io import checkpoint as ck
+    from test_torch_model import jax_params_to_numpy
+    from test_torch_optim import jax_opt_to_numpy
+
+    jcfg = jrun._build_config(jrun.build_parser().parse_args(flags))
+    cfg = _cfg()
+    jparams = dlrm_tpu.init_params(jax.random.key(jcfg.seed), jcfg)
+    params = convert.params_from_numpy(jax_params_to_numpy(jparams, jcfg),
+                                       cfg)
+    if optimizer == "sgd":
+        jpay, tpay = jparams, params
+    else:
+        jopt = jax.tree.map(
+            lambda a: (jnp.full_like(a, 0.01)
+                       if jnp.issubdtype(a.dtype, jnp.floating) else a),
+            jinit_opt(jparams, config=jcfg, optimizer=optimizer, lr=0.1))
+        opt = convert.opt_state_from_numpy(
+            jax_opt_to_numpy(jopt, jcfg, optimizer), cfg, optimizer)
+        jpay = {"params": jparams, "opt": jopt}
+        tpay = {"params": params, "opt": opt}
+    with jck.CheckpointManager(jdir) as mgr:
+        mgr.save(0, jpay)
+    ck.save_checkpoint(tdir, 0, tpay)
+    return jcfg
+
+
+def _jax_ckpt_to_numpy(jdir, jcfg, optimizer):
+    """The newest JAX checkpoint as (logical numpy params, numpy optimizer
+    state or None, step)."""
+    from types import SimpleNamespace
+
+    from dlrm_tpu.io import checkpoint as jck
+    from test_torch_model import jax_params_to_numpy
+    from test_torch_optim import jax_opt_to_numpy
+
+    payload, step = jck.restore_checkpoint(jdir)
+    if optimizer == "sgd":
+        return jax_params_to_numpy(payload, jcfg), None, step
+    # a template-less restore gives the optax states as plain dicts
+    o = payload["opt"]
+    jopt = {"dense": [SimpleNamespace(**o["dense"][0])],
+            "emb": SimpleNamespace(**o["emb"]), "count": o["count"]}
+    return (jax_params_to_numpy(payload["params"], jcfg),
+            jax_opt_to_numpy(jopt, jcfg, optimizer), step)
+
+
+def _max_param_diff(tparams, np_params):
+    return max([float(np.abs(tparams["emb"].numpy() - np_params["emb"]).max())]
+               + [float(np.abs(layer[k].numpy() - jl[k]).max())
+                  for part in ("bottom", "top")
+                  for layer, jl in zip(tparams[part], np_params[part])
+                  for k in ("w", "b")])
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "rowwise_adagrad"])
+def test_train_ckpt_resume_matches_the_jax_cli(optimizer, tmp_path, capsys):
+    """``train --ckpt-dir --steps 4 --save-interval 2``, then the same with
+    ``--steps 6`` (a resume: 2 more steps over the stream restarted from
+    --seed), through both CLIs; ``--sharded false`` to JAX only (it shards
+    over the 8 CPU devices else)."""
+    from dlrm_tpu_torch.io import checkpoint as ck
+
+    flags = [*TRAIN26, "--optimizer", optimizer]
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jcfg = _plant_start(flags, optimizer, jdir, tdir)
+    for steps, done in (("4", 4), ("6", 2)):
+        jline = _jax_line(capsys, [*flags, "--steps", steps, "--ckpt-dir",
+                                   jdir, "--sharded", "false"])
+        line = _line(capsys, [*flags, "--steps", steps, "--ckpt-dir", tdir,
+                              "--device", "cpu"])
+        assert jline["steps"] == line["steps"] == done
+        assert abs(jline["final_loss"] - line["final_loss"]) <= 1e-5
+    assert ck.all_steps(tdir) == [2, 4, 6]
+    want, want_opt, jstep = _jax_ckpt_to_numpy(jdir, jcfg, optimizer)
+    got, step = ck.restore_checkpoint(tdir)
+    assert step == jstep == 6
+    if optimizer != "sgd":
+        opt = convert.opt_state_to_numpy(got["opt"])
+        assert opt["count"] == want_opt["count"] == 6
+        assert np.abs(opt["emb"] - want_opt["emb"]).max() <= 1e-6
+        assert max(np.abs(l[k] - jl[k]).max()
+                   for part in ("bottom", "top")
+                   for l, jl in zip(opt["dense"][part],
+                                    want_opt["dense"][part])
+                   for k in ("w", "b")) <= 1e-6
+        got = got["params"]
+    assert _max_param_diff(got, want) <= 1e-5
+    metas = [json.loads(Path(d, "run_meta.json").read_text())
+             for d in (jdir, tdir)]
+    shared = set(metas[0]) & set(metas[1])
+    assert shared == set(metas[1]) and len(shared) == 7
+    assert {k: metas[0][k] for k in shared} == metas[1]
+
+
+@pytest.mark.parametrize("optimizer", ["adagrad", "sgd"])
+def test_eval_ckpt_dir_equals_the_runs_eval_after(optimizer, tmp_path, rng,
+                                                  capsys):
+    data, d = str(tmp_path / "d.bin"), str(tmp_path / "ck")
+    _write_dac(data, 150, rng)
+    line = _line(capsys, ["train", *TINY26, "--data", data, "--eval-after",
+                          "--optimizer", optimizer, "--ckpt-dir", d])
+    got = _line(capsys, ["eval", *TINY26, "--data", data, "--ckpt-dir", d])
+    assert got == {**line["eval"], "device": "cpu"}
+    assert got["examples"] == 150
+
+
+def test_serving_from_ckpt_dir_takes_the_runs_metadata(tmp_path, capsys):
+    """bf16 tables come from run_meta.json; table sizes that differ from
+    the run's, and a two-tier or sharded run's checkpoint, are refused."""
+    from dlrm_tpu_torch.io import checkpoint as ck
+
+    d = str(tmp_path / "ck")
+    _line(capsys, ["train", *TINY26, "--steps", "2", "--bf16-tables",
+                   "--ckpt-dir", d])
+    got = _line(capsys, ["eval", *TINY26, "--ckpt-dir", d])
+    params, _ = ck.restore_checkpoint(d)
+    cfg = _cfg(embedding_dtype=torch.bfloat16)
+    assert params["emb"].dtype == torch.bfloat16
+    assert got == {**evaluate(params, batch_stream(cfg, 32, 10, 0), cfg),
+                   "device": "cpu"}
+    with pytest.raises(SystemExit, match="trained with table sizes"):
+        main(["eval", "--config", "tiny", "--device", "cpu", "--ckpt-dir",
+              d])
+    meta_path = Path(d, "run_meta.json")
+    meta = json.loads(meta_path.read_text())
+    for key, item in (("two_tier", "item 2, 'Two-tier"),
+                      ("sharded", "item 3, 'Multi-GPU'")):
+        meta_path.write_text(json.dumps({**meta, key: True}))
+        with pytest.raises(SystemExit, match=item):
+            main(["eval", *TINY26, "--ckpt-dir", d])
+
+
+def test_export_hdf5_loads_through_the_jax_package(tmp_path, capsys):
+    from dlrm_tpu.io import hdf5 as jhdf5
+    from dlrm_tpu_torch.io import checkpoint as ck
+    from test_torch_model import jax_params_to_numpy
+
+    d, out = str(tmp_path / "ck"), str(tmp_path / "m.h5")
+    _line(capsys, ["train", *TINY26, "--steps", "3", "--optimizer",
+                   "rowwise_adagrad", "--ckpt-dir", d])
+    line = _line(capsys, ["export", *MODEL26, "--ckpt-dir", d, "--out", out])
+    assert line == {"out": out, "tables": 26, "total_rows": sum(TABLES),
+                    "bytes": os.path.getsize(out)}
+    jparams, jcfg = jhdf5.load_params(out)
+    assert jcfg.table_sizes == TABLES
+    want = convert.params_to_numpy(ck.restore_checkpoint(d)[0]["params"])
+    got = jax_params_to_numpy(jparams, jcfg)
+    np.testing.assert_array_equal(got["emb"], want["emb"])
+    for part in ("bottom", "top"):
+        for a, b in zip(got[part], want[part]):
+            for k in ("w", "b"):
+                np.testing.assert_array_equal(a[k], b[k])
+    # the port reads its own export back: the same bits
+    line = _line(capsys, ["export", "--hdf5", out, "--out",
+                          str(tmp_path / "again.h5")])
+    assert Path(out).read_bytes() == (tmp_path / "again.h5").read_bytes()
+
+
+def test_export_int8_artifact_serves_as_quantize_tables(tmp_path, rng,
+                                                        capsys):
+    """``export --quantize int8`` then ``predict --ckpt-dir`` of the
+    artifact gives the bits of ``predict --ckpt-dir --quantize-tables
+    int8`` on the training checkpoint; so does ``eval``."""
+    from dlrm_tpu_torch.io import checkpoint as ck
+    from dlrm_tpu_torch.ops.quant import quantize_emb_host, table_bytes
+
+    data, d, q = (str(tmp_path / n) for n in ("d.bin", "ck", "q"))
+    _write_dac(data, 90, rng)
+    _line(capsys, ["train", *TINY26, "--steps", "3", "--ckpt-dir", d])
+    line = _line(capsys, ["export", *MODEL26, "--ckpt-dir", d, "--out", q,
+                          "--quantize", "int8"])
+    cfg = _cfg()
+    params, _ = ck.restore_checkpoint(d)
+    qemb = quantize_emb_host(params["emb"].numpy(), cfg)
+    assert line == {"out": q, "tables": 26, "total_rows": sum(TABLES),
+                    "table_bytes": table_bytes(qemb), "quantized": "int8"}
+    art, _ = ck.restore_checkpoint(q)
+    assert torch.equal(art["emb_q"]["codes"], qemb.codes)
+    assert torch.equal(art["emb_q"]["scales"], qemb.scales)
+    assert json.loads(Path(q, "run_meta.json").read_text())["quantized"] \
+        == "int8"
+    scores = []
+    for src in (["--ckpt-dir", q], ["--ckpt-dir", d, "--quantize-tables",
+                                    "int8"]):
+        out = str(tmp_path / f"s{len(scores)}.npy")
+        _line(capsys, ["predict", *TINY26, "--data", data, "--out", out,
+                       *src])
+        scores.append(np.load(out))
+    np.testing.assert_array_equal(scores[0], scores[1])
+    evals = [_line(capsys, ["eval", *TINY26, "--data", data, *src])
+             for src in (["--ckpt-dir", q],
+                         ["--ckpt-dir", d, "--quantize-tables", "int8"])]
+    assert evals[0] == evals[1]
+    with pytest.raises(SystemExit, match="already an int8"):
+        main(["export", *MODEL26, "--ckpt-dir", q, "--out",
+              str(tmp_path / "x.h5")])
+
+
+def test_instrument_and_bench_print_the_jax_keys(capsys):
+    small = ["--config", "tiny", "--batch-size", "64", "--steps", "2"]
+    for cmd in ("instrument", "bench"):
+        want = _jax_line(capsys, [cmd, *small])
+        got = _line(capsys, [cmd, *small, "--device", "cpu"])
+        assert set(got) == set(want) | {"device"} and got["device"] == "cpu"
+        if cmd == "instrument":
+            assert set(got["phase_ms"]) == set(want["phase_ms"])
+            assert np.isfinite(got["loss"])
+        else:
+            assert got["step_ms"] > 0 and got["examples_per_s"] > 0
+
+
+def test_train_profile_dir_writes_a_trace_of_the_phase_scopes(tmp_path):
+    prof = tmp_path / "prof"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run(
+        [sys.executable, "-m", "dlrm_tpu_torch", "train", "--config", "tiny",
+         "--steps", "8", "--batch-size", "16", "--device", "cpu",
+         "--profile-dir", str(prof)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "profile written" in res.stderr
+    (trace,) = prof.glob("*.json")
+    names = {e.get("name") for e in json.loads(trace.read_text())[
+        "traceEvents"]}
+    assert {"lookup", "bottom_mlp", "interaction", "top_mlp"} <= names

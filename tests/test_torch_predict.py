@@ -157,12 +157,40 @@ def test_predict_line_reports_the_device(device, tmp_path, rng, capsys):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--ckpt-dir", "x", "item 1, 'Checkpoints"),
+    ("--exchange-dtype", "bf16", "item 3, 'Multi-GPU'"),
 ])
 def test_predict_flags_not_served_yet(flag, value, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
         main(["predict", "--data", "d", "--params", "p", "--out", "o",
               flag, value])
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad"])
+def test_predict_ckpt_dir_scores_the_trained_parameters(optimizer, tmp_path,
+                                                        rng, capsys):
+    """``predict --ckpt-dir``: the scores of score_batch on the newest
+    checkpoint's parameters (an optimizer run's ``{"params", "opt"}``
+    unwrapped), every row in order."""
+    from dlrm_tpu_torch.io import checkpoint as ck
+    from dlrm_tpu_torch.run import score_batch
+
+    tcfg = _tiny26()
+    data, d, out = (str(tmp_path / n) for n in ("d.bin", "ck", "s.npy"))
+    _write_dac(data, 70, rng)
+    model = ["--config", "tiny", "--table-sizes", ",".join(map(str, TABLES)),
+             "--device", "cpu"]
+    main(["train", *model, "--steps", "3", "--batch-size", "32",
+          "--optimizer", optimizer, "--ckpt-dir", d])
+    main(["predict", *model, "--data", data, "--out", out, "--batch-size",
+          "32", "--ckpt-dir", d])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["examples"] == 70 and line["device"] == "cpu"
+    payload, step = ck.restore_checkpoint(d)
+    assert step == 3
+    params = payload if optimizer == "sgd" else payload["params"]
+    batch = tcriteo.DACLoader(tcriteo.load(data), 70)[0]
+    np.testing.assert_array_equal(
+        np.load(out), score_batch(params, batch, tcfg, torch.device("cpu")))
 
 
 @pytest.mark.parametrize("flag", ["--hdf5", "--quantize-tables",

@@ -434,14 +434,9 @@ def test_cli_train_rejects_bad_plans(argv, msg):
 
 
 _REFUSED = [
-    ("--ckpt-dir", "x", "item 1, 'Checkpoints"),
-    ("--save-interval", "5", "item 1, 'Checkpoints"),
-    ("--max-to-keep", "1", "item 1, 'Checkpoints"),
-    ("--profile-dir", "x", "item 1, 'Checkpoints"),
     ("--hbm-budget-gb", "8", "item 2, 'Two-tier tables'"),
     ("--host-prefetch", None, "item 2, 'Two-tier tables'"),
     ("--sharded", "true", "item 3, 'Multi-GPU'"),
-    ("--sharded", "false", "item 3, 'Multi-GPU'"),
     ("--mesh-shape", "2x4", "item 3, 'Multi-GPU'"),
     ("--paranoid", "10", "item 3, 'Multi-GPU'"),
     ("--max-rows-per-shard", "100", "item 3, 'Multi-GPU'"),
@@ -461,6 +456,36 @@ def test_cli_train_refuses_unported_flags(flag, value, item):
             flag] + ([value] if value is not None else [])
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
         main(argv)
+
+
+@pytest.mark.parametrize("flag", ["--ckpt-dir", "--save-interval",
+                                  "--max-to-keep", "--profile-dir",
+                                  "--sharded"])
+def test_cli_train_flags_now_served(flag, tmp_path, capsys):
+    """Each flag once refused as 'not served yet' runs: 5 steps write the
+    checkpoints its values ask for (or a trace), and the losses are those
+    of the same run without it."""
+    from dlrm_tpu_torch.io import checkpoint as ck
+
+    d = str(tmp_path / "ck")
+    extra = {"--ckpt-dir": ["--ckpt-dir", d],
+             "--save-interval": ["--ckpt-dir", d, "--save-interval", "2"],
+             "--max-to-keep": ["--ckpt-dir", d, "--save-interval", "1",
+                               "--max-to-keep", "2"],
+             "--profile-dir": ["--profile-dir", str(tmp_path / "prof")],
+             "--sharded": ["--sharded", "false"]}[flag]
+    base = ["train", *_TINY26, "--steps", "5", "--log-every", "1"]
+    want = _cli_line(capsys, base)
+    got = _cli_line(capsys, base + extra)
+    assert got["final_loss"] == want["final_loss"] and got["steps"] == 5
+    steps = {"--ckpt-dir": [5], "--save-interval": [2, 4, 5],
+             "--max-to-keep": [4, 5]}.get(flag)
+    if steps:
+        assert ck.all_steps(d) == steps
+        assert json.loads(Path(d, "run_meta.json").read_text())[
+            "optimizer"] == "sgd"
+    if flag == "--profile-dir":
+        assert len(list((tmp_path / "prof").glob("*.json"))) == 1
 
 
 @pytest.mark.parametrize("cmd", ["train", "eval", "predict"])
@@ -523,7 +548,8 @@ def test_refusal_table_covers_the_jax_train_flags():
               "epochs", "seed", "log_every", "prefetch", "optimizer",
               "grad_clip_norm", "adagrad_impl", "update_interval",
               "block_scan", "eval_data", "eval_after", "eval_every",
-              "eval_steps", "validate_data"}
+              "eval_steps", "validate_data", "ckpt_dir", "save_interval",
+              "max_to_keep", "profile_dir", "sharded"}
     assert ours - served == set(_NOT_YET)
 
 
