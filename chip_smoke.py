@@ -62,10 +62,25 @@ result):
      the tables, then the SGD step fed from `DACLoader` through
      `device_prefetch` and through plain copies, in turns, and a profile of
      each (host-to-device copy time, its stream, idle share);
- 11. small inputs: the forward, and 3 training steps, on the card against
+ 11. two-tier tables at full width (Kaggle fs=128 f32 under
+     `--hbm-budget-gb 4`: tables 2, 11 and 20, 13.07 GB, in pinned host
+     memory, the budget checked against MemAvailable): the host-tier
+     kernels against their plain versions bit for bit (the gather into the
+     pooled columns of a training batch, int64 ids, edge rows, bf16, width
+     1; the update on distinct rows, edge rows, bf16, width 1), timed with
+     their bounds at the pinned copy rates; 8 two-tier SGD steps, 4 Adagrad
+     and 4 row-wise Adagrad from warm accumulators, each against the
+     all-device steps from one state (1e-5); K=4 two-tier blocks against 4
+     steps; pipelined against inline under deterministic sums (equal
+     bits); the device peaks of both steps, step times in turns, a profile
+     (the host-tier kernels named, no cat, no pooled-size copy); `train
+     --hbm-budget-gb 4` (row-wise Adagrad, a resume), `eval --ckpt-dir` on
+     its checkpoint and `train --hbm-budget-gb 4 --host-prefetch` in
+     subprocesses against the same work in process, with peak VmRSS;
+ 12. small inputs: the forward, and 3 training steps, on the card against
      the same on the CPU for every interaction, f32, bf16 and multi-hot;
      3 steps and a K=3 block of every optimizer likewise;
- 12. the entry points: `python -m dlrm_tpu_torch predict`, `train` and
+ 13. the entry points: `python -m dlrm_tpu_torch predict`, `train` and
      `eval` in subprocesses on the card, held against the port in
      process; `train --ckpt-dir` and its resume, `eval --ckpt-dir`,
      `export --quantize int8` with `predict --ckpt-dir` on the artifact
@@ -73,7 +88,8 @@ result):
      width (Kaggle fs=128, row-wise Adagrad, B=32768), each full-width
      process's peak resident set read and bounded far below the tables'
      bytes; `instrument`, `train --profile-dir` and `bench` at full width;
- 13. a `{"kernels": [...]}` line, then the result line.
+ 14. a `{"kernels": [...]}` line (the two interaction kernels and the two
+     host-tier kernels), then the result line.
 It needs a CUDA device and the repository around it; without either it
 fails.
 """
@@ -113,8 +129,12 @@ KEYS = ("dense", "sparse", "labels")
 # tensor cores (both kernels multiply in f32 FMAs)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-# launches of [interaction_fwd, interaction_bwd] summed over the main paths
-LAUNCHES = [0, 0]
+# the card's host link, PCIe Gen5 x16: 128 GB/s both ways together on the
+# H100 data sheet, so 64 GB/s each way; it bounds the host-tier kernels
+PCIE_BYTES_PER_S = 64e9
+# launches of [interaction_fwd, interaction_bwd, host_gather,
+# host_update_rows] summed over the main paths
+LAUNCHES = [0, 0, 0, 0]
 
 
 def check(cond, msg: str) -> None:
@@ -164,10 +184,14 @@ def phase_card():
     t0 = time.perf_counter()
     cuda_build.load_kernels()
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s")
-    for stem in ("interaction_fwd", "interaction_bwd"):
+    for stem in ("interaction_fwd", "interaction_bwd", "host_tier"):
         for line in cuda_build.build_log(stem).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {stem}:", line.strip())
+    from dlrm_tpu_torch.parallel.host_tier import device_attrs
+    print(f"the card and host memory: {device_attrs(DEV)} (no native "
+          f"atomics to host memory: the host-tier update takes distinct "
+          f"rows)")
 
 
 def _bound(kname: str, inputs: list, outputs: list, b: int, f: int,
@@ -298,25 +322,37 @@ def phase_kernels() -> dict:
     return main
 
 
-@contextlib.contextmanager
-def counted(what: str, fwd: int, bwd: int):
-    """A main path: both kernels' counts are set to 0 before it and read
-    after it; it must have launched them ``fwd`` and ``bwd`` times, every
-    forward on the bulk-copy path.  The counts are added to LAUNCHES."""
+def _wrappers() -> list:
+    """The four kernels' wrappers, in LAUNCHES order."""
     from dlrm_tpu_torch.ops import interaction_fused as F
+    from dlrm_tpu_torch.parallel import host_tier as H
 
-    F.interaction_fwd.launches = 0
-    F.interaction_fwd.bulk_launches = 0
-    F.interaction_bwd.launches = 0
+    return [F.interaction_fwd, F.interaction_bwd, H.host_gather,
+            H.host_update_rows]
+
+
+@contextlib.contextmanager
+def counted(what: str, fwd: int, bwd: int, gather: int = 0,
+            update: int = 0):
+    """A main path: every kernel's count is set to 0 before it and read
+    after it; it must have launched interaction_fwd, interaction_bwd,
+    host_gather and host_update_rows ``fwd``, ``bwd``, ``gather`` and
+    ``update`` times, every forward on the bulk-copy path.  The counts are
+    added to LAUNCHES."""
+    wrappers = _wrappers()
+    for w in wrappers:
+        w.launches = 0
+    wrappers[0].bulk_launches = 0
     yield
-    got = (F.interaction_fwd.launches, F.interaction_bwd.launches)
-    check(got == (fwd, bwd), f"{what} launched interaction_fwd {got[0]} and "
-          f"interaction_bwd {got[1]} times, not {fwd} and {bwd}")
-    check(F.interaction_fwd.bulk_launches == fwd,
-          f"{what}: {fwd - F.interaction_fwd.bulk_launches} of {fwd} "
+    want = (fwd, bwd, gather, update)
+    got = tuple(w.launches for w in wrappers)
+    check(got == want, f"{what} launched interaction_fwd, interaction_bwd, "
+          f"host_gather, host_update_rows {got} times, not {want}")
+    check(wrappers[0].bulk_launches == fwd,
+          f"{what}: {fwd - wrappers[0].bulk_launches} of {fwd} "
           f"interaction_fwd launches did not take the bulk-copy path")
-    LAUNCHES[0] += fwd
-    LAUNCHES[1] += bwd
+    for i, n in enumerate(want):
+        LAUNCHES[i] += n
 
 
 def phase_serving() -> None:
@@ -491,9 +527,12 @@ def _fused_vs_gram_steps(fused_params, gram_params, batches, config,
 
 
 # the phase scopes (record_function) of the forward and the training
-# gather; the profiler lists each also as a CUDA annotation spanning its
-# kernels, which is not a kernel of its own
+# gather, and of the two-tier steps' host-tier work; the profiler lists each
+# also as a CUDA annotation spanning its kernels, which is not a kernel of
+# its own
 _SCOPES = ("lookup", "bottom_mlp", "interaction", "top_mlp")
+_TIER_SCOPES = ("lookup_host_tier", "host_tier_update",
+                "host_tier_prefetch_next")
 # (group, substrings of a CUDA activity's name); the first match wins
 _PROFILE_GROUPS = (
     ("dedup: sort, unique, scan (cub and thrust kernels)",
@@ -515,8 +554,9 @@ def _profile_steps(what: str, run, batches, steps: int = 5,
                    pooled_bytes: int = 0, groups=()) -> None:
     """`torch.profiler` over ``steps`` steps (or served batches) after 3
     warm-up ones: device time a step by group, and the device's idle share
-    of the host-to-host window.  ``run(data)`` takes one step a batch of
-    ``data``, reading each result back.
+    of the host-to-host window; returns the groups' device microseconds
+    (None when the profiler saw no device time).  ``run(data)`` takes one
+    step a batch of ``data``, reading each result back.
 
     With ``pooled_bytes`` (the size of the pooled embeddings, or of their
     gradient) the fused path is held to what it promises: no `torch.cat`
@@ -540,7 +580,7 @@ def _profile_steps(what: str, run, batches, steps: int = 5,
     other = {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA \
-                or evt.key in _SCOPES:
+                or evt.key in _SCOPES + _TIER_SCOPES:
             continue
         us = evt.self_device_time_total
         for name, keys in table:
@@ -554,7 +594,7 @@ def _profile_steps(what: str, run, batches, steps: int = 5,
     if busy_ms == 0:
         print(f"profile, {what}: the profiler recorded no device time (not "
               f"measured)")
-        return
+        return None
     print(f"profile, {steps} {what} after 3: {busy_ms / steps:.3f} ms of "
           f"device time a step, {wall_ms / steps:.3f} ms host to host a "
           f"step, device idle {100 * (1 - busy_ms / wall_ms):.1f}%")
@@ -592,6 +632,7 @@ def _profile_steps(what: str, run, batches, steps: int = 5,
               f"{len(copies)} copy kernels {longest:.1f} us, below the "
               f"{full_copy_us:.1f} us a copy of the {pooled_bytes / 1e6:.1f} "
               f"MB of pooled rows takes at the HBM rate")
+    return groups
 
 
 def _to_dev(batch: dict) -> list:
@@ -1334,6 +1375,774 @@ def phase_telemetry() -> None:
           + ", ".join(f"{k} {v:.3f}" for k, v in scopes.items()))
     del params, snap
     torch.cuda.empty_cache()
+
+
+# -- two-tier tables ---------------------------------------------------------
+
+TIER_BUDGET_GB = 4        # Kaggle fs=128 f32: tables 2, 11 and 20 spill
+TIER_HOST_ROWS = 25_529_367
+TIER_STEPS = 8
+
+
+def _meminfo() -> dict:
+    """Bytes of every /proc/meminfo entry."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            out[key] = int(value.split()[0]) * 1024
+    return out
+
+
+def _pinned_rates(nbytes: int = 1 << 30) -> dict:
+    """GB/s of one copy of ``nbytes`` between the card and a pinned host
+    buffer, each way (CUDA events, median of 5 after 1): what the link
+    gives a copy engine, printed beside the host-tier kernels' rates."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(nbytes, dtype=torch.uint8, device=DEV)
+    out = {}
+    for name, fn in (("h2d", lambda: card.copy_(host, non_blocking=True)),
+                     ("d2h", lambda: host.copy_(card, non_blocking=True))):
+        ms = statistics.median(time_ms(fn, warmup=1, reps=5, inner=1))
+        out[name] = nbytes / ms / 1e6
+    return out
+
+
+def _release_pinned() -> None:
+    """Hand the pinned host blocks that PyTorch caches back to the
+    system."""
+    torch.cuda.synchronize()
+    torch._C._host_emptyCache()
+
+
+class _TierMap:
+    """Rows of the logical stack -> rows of the two tiers' stacks."""
+
+    def __init__(self, plan, config):
+        offs, is_host = [0] * config.num_tables, [False] * config.num_tables
+        for tables, offsets, host in ((plan.device_tables,
+                                       plan.device_offsets, False),
+                                      (plan.host_tables, plan.host_offsets,
+                                       True)):
+            for t, lo in zip(tables, offsets):
+                offs[t], is_host[t] = lo, host
+        self.starts = torch.tensor(config.table_offsets, device=DEV)
+        self.offs = torch.tensor(offs, device=DEV)
+        self.is_host = torch.tensor(is_host, device=DEV)
+
+    def split(self, rows: torch.Tensor):
+        """(whether each row is a host-tier row, its row in its tier)."""
+        t = torch.searchsorted(self.starts, rows, right=True) - 1
+        return self.is_host[t], rows - self.starts[t] + self.offs[t]
+
+
+def _stack_rows(dev, host, tmap, rows) -> torch.Tensor:
+    """Logical rows ``rows`` of a two-tier stack (tables or an
+    accumulator) read from both tiers, on the card."""
+    h, local = tmap.split(rows)
+    out = torch.empty((rows.numel(), *dev.shape[1:]), dtype=dev.dtype,
+                      device=DEV)
+    out[~h] = dev[local[~h]]
+    torch.cuda.synchronize()
+    out[h] = host[local[h].cpu()].to(DEV)
+    return out
+
+
+class _TieredSnapshot:
+    """The logical rows ``ids`` of both tiers (and of their accumulators),
+    the dense parameters and their accumulators, and the step count: to
+    read again and put back, so that two runs start from one state."""
+
+    def __init__(self, params, opt_state, tmap, ids):
+        self.params, self.opt = params, opt_state
+        h, local = tmap.split(ids)
+        self.dev_rows, self.host_rows = local[~h], local[h].cpu()
+        self.saved = self.read()
+        self.count = opt_state["count"] if opt_state else None
+
+    def _tensors(self):
+        from dlrm_tpu_torch.ops.embedding import tree_leaves
+
+        emb = self.params["emb"]
+        pairs = [(emb.dev, emb.host)]
+        whole = tree_leaves({"bottom": self.params["bottom"],
+                             "top": self.params["top"]})
+        if self.opt and self.opt["dev_acc"] is not None:
+            pairs.append((self.opt["dev_acc"], self.opt["host_acc"]))
+            whole += tree_leaves(self.opt["dense"])
+        return pairs, whole
+
+    def read(self) -> list:
+        torch.cuda.synchronize()
+        pairs, whole = self._tensors()
+        out = []
+        for dev, host in pairs:
+            out += [dev.index_select(0, self.dev_rows),
+                    host.index_select(0, self.host_rows).to(DEV)]
+        return out + [t.clone() for t in whole]
+
+    def restore(self) -> None:
+        torch.cuda.synchronize()
+        pairs, whole = self._tensors()
+        for i, (dev, host) in enumerate(pairs):
+            dev.index_copy_(0, self.dev_rows, self.saved[2 * i])
+            host.index_copy_(0, self.host_rows, self.saved[2 * i + 1].cpu())
+        for t, old in zip(whole, self.saved[2 * len(pairs):]):
+            t.copy_(old)
+        if self.opt:
+            self.opt["count"] = self.count
+
+
+def _retier(tiered: dict, params: dict, config) -> None:
+    """Copy all-device parameters into two-tier ones, table by table."""
+    from dlrm_tpu_torch.ops.embedding import tree_leaves
+
+    emb = tiered["emb"]
+    plan = emb.plan
+    for tables, offsets, stack in ((plan.device_tables, plan.device_offsets,
+                                    emb.dev),
+                                   (plan.host_tables, plan.host_offsets,
+                                    emb.host)):
+        for t, lo in zip(tables, offsets):
+            n, go = config.table_sizes[t], config.table_offsets[t]
+            stack[lo:lo + n].copy_(params["emb"][go:go + n])
+    for a, b in zip(tree_leaves({"bottom": tiered["bottom"],
+                                 "top": tiered["top"]}),
+                    tree_leaves({"bottom": params["bottom"],
+                                 "top": params["top"]})):
+        a.copy_(b)
+
+
+def _check_drawn_tiers(tiered: dict, params: dict, config) -> None:
+    """Two-tier parameters drawn into their tiers hold the bits of the
+    all-device ones drawn from the same seed: the dense towers and every
+    table (host tables compared on the card a draw chunk at a time)."""
+    from dlrm_tpu_torch.models.dlrm import INIT_CHUNK_ROWS
+
+    emb = tiered["emb"]
+    plan = emb.plan
+    same = _max_dense_diff(tiered, params) == 0
+    for tables, offsets, stack in ((plan.device_tables, plan.device_offsets,
+                                    emb.dev),
+                                   (plan.host_tables, plan.host_offsets,
+                                    emb.host)):
+        for t, lo in zip(tables, offsets):
+            n, go = config.table_sizes[t], config.table_offsets[t]
+            for a in range(0, n, INIT_CHUNK_ROWS):
+                c = min(INIT_CHUNK_ROWS, n - a)
+                same &= torch.equal(stack[lo + a:lo + a + c].to(DEV),
+                                    params["emb"][go + a:go + a + c])
+    check(same, "two-tier parameters drawn into their tiers differ from "
+          "the all-device init of the same seed")
+
+
+def _host_ids(plan, sparse: torch.Tensor) -> torch.Tensor:
+    """The host tier's rows of a batch's ids (B, T): (B, T_host) int32."""
+    offs = torch.tensor(plan.host_offsets, dtype=sparse.dtype, device=DEV)
+    return sparse[:, list(plan.host_tables)] + offs
+
+
+def _host_kernel_checks(emb, config, batch, rates) -> dict:
+    """host_gather and host_update_rows against their plain versions at the
+    main path's shapes (one training batch's host rows, f32), on the
+    table's first and last rows, in bf16 and on a width-1 stack; then
+    kernel, plain and PyTorch-call times in turns, and each kernel's bound
+    (PCIe bytes at the link's published rate each way, HBM bytes at the HBM
+    rate).  Every row the update checks touch is put back."""
+    from dlrm_tpu_torch.parallel import host_tier as H
+
+    plan, host, d = emb.plan, emb.host, config.feature_size
+    rb = d * host.element_size()
+    g = torch.Generator(DEV).manual_seed(71)
+    ids = _host_ids(plan, torch.from_numpy(batch["sparse"]).to(DEV))
+    b, t = ids.shape[0], config.num_tables
+    pooled = torch.zeros((b, t, d), device=DEV)
+    ref = torch.zeros_like(pooled)
+    errs = {"host_gather": [], "host_update_rows": []}
+
+    def gather_pair(name, got, want) -> None:
+        errs["host_gather"].append((got.float() - want.float()).abs().max()
+                                   .item())
+        check(torch.equal(got, want),
+              f"host_gather ({name}) differs from its plain version")
+
+    H.host_gather(host, ids, out=pooled, cols=plan.host_tables)
+    H.host_gather_reference(host, ids, ref, plan.host_tables)
+    torch.cuda.synchronize()
+    gather_pair("into the pooled columns", pooled, ref)
+    edges = torch.cat([torch.arange(lo + a, lo + a + 4096)
+                       for tab, lo in zip(plan.host_tables, plan.host_offsets)
+                       for a in (0, config.table_sizes[tab] - 4096)]).to(DEV)
+    for name, i in (("int64 ids, contiguous out", ids.long().reshape(-1)),
+                    ("edge rows", edges)):
+        gather_pair(name, H.host_gather(host, i),
+                    H.host_gather_reference(host, i))
+
+    def update_pair(table, rows, upd) -> None:
+        """The kernel's update and the plain one from the same rows: equal
+        bits, and (f32) equal to the f32 sum; the rows put back."""
+        torch.cuda.synchronize()
+        cpu_rows = rows.cpu()
+        before = table.index_select(0, cpu_rows)
+        H.host_update_rows(table, rows, upd)
+        torch.cuda.synchronize()
+        got = table.index_select(0, cpu_rows)
+        table.index_copy_(0, cpu_rows, before)
+        H.host_update_rows_reference(table, rows, upd)
+        want = table.index_select(0, cpu_rows)
+        table.index_copy_(0, cpu_rows, before)
+        errs["host_update_rows"].append((got.float() - want.float()).abs()
+                                        .max().item())
+        check(torch.equal(got, want), f"host_update_rows ({table.dtype}, "
+              f"{tuple(table.shape)}) differs from its plain version")
+        if table.dtype == torch.float32:
+            check(torch.equal(got, before + upd.cpu().reshape(got.shape)),
+                  "host_update_rows is not the f32 sum")
+
+    uniq = torch.unique(ids.long())
+    upd = torch.randn((uniq.numel(), d), generator=g, device=DEV)
+    update_pair(host, uniq, upd)
+    update_pair(host, edges, torch.randn((edges.numel(), d), generator=g,
+                                         device=DEV))
+    small = torch.empty((1 << 21, d), dtype=torch.bfloat16, pin_memory=True)
+    small.copy_(torch.randn((1 << 21, d), generator=g, device=DEV))
+    rows = torch.randint(0, 1 << 21, (b,), generator=g, device=DEV)
+    gather_pair("bf16", H.host_gather(small, rows),
+                H.host_gather_reference(small, rows))
+    rows = torch.unique(rows)
+    update_pair(small, rows, torch.randn((rows.numel(), d), generator=g,
+                                         device=DEV))
+    scalars = torch.zeros((plan.host_rows, 1), pin_memory=True)
+    update_pair(scalars, uniq, torch.rand((uniq.numel(), 1), generator=g,
+                                          device=DEV))
+    gather_pair("width 1", H.host_gather(scalars, edges),
+                H.host_gather_reference(scalars, edges))
+    print(f"host-tier kernels vs plain: host_gather bit for bit into the "
+          f"pooled columns of ({b}, {t}, {d}) from {ids.numel()} host ids, "
+          f"contiguous with int64 ids, on the {edges.numel()} first and "
+          f"last rows of the host tables, in bf16 and at width 1; "
+          f"host_update_rows bit for bit on {uniq.numel()} distinct rows "
+          f"(the f32 sum), on the edge rows, in bf16 and at width 1")
+
+    zeros = torch.zeros_like(upd)   # adding 0 keeps the tables' bits
+    zeros_host, uniq_host = zeros.cpu(), uniq.cpu()
+    ids_host = ids.reshape(-1).cpu()
+    library = {"host_gather": lambda: host.index_select(0, ids_host),
+               "host_update_rows": lambda: host.index_add_(0, uniq_host,
+                                                           zeros_host)}
+    timings = {
+        "host_gather": (
+            lambda: H.host_gather(host, ids, out=pooled,
+                                  cols=plan.host_tables),
+            lambda: H.host_gather_reference(host, ids, ref,
+                                            plan.host_tables)),
+        "host_update_rows": (
+            lambda: H.host_update_rows(host, uniq, zeros),
+            lambda: H.host_update_rows_reference(host, uniq, zeros)),
+    }
+    out = {}
+    for name, (kern, plain) in timings.items():
+        p = time_ms(plain, warmup=1, reps=3, inner=3)
+        k = time_ms(kern, warmup=2, reps=5, inner=10)
+        k += time_ms(kern, warmup=0, reps=5, inner=10)
+        p += time_ms(plain, warmup=0, reps=3, inner=3)
+        ms, plain_ms = statistics.median(k), statistics.median(p)
+        # the gather reads its rows over PCIe and writes them to HBM with
+        # the ids; the update reads and writes its rows over PCIe (each way
+        # at the link's rate) and reads the ids and f32 updates from HBM
+        n = ids.numel() if name == "host_gather" else uniq.numel()
+        pcie_s = n * rb / PCIE_BYTES_PER_S
+        hbm = n * (ids.element_size() + rb) if name == "host_gather" \
+            else n * (uniq.element_size() + d * 4)
+        bound_ms = max(pcie_s, hbm / HBM_BYTES_PER_S) * 1e3
+        lib = []   # one PyTorch call on the host, its inputs already there
+        for _ in range(5):
+            t0 = time.perf_counter()
+            library[name]()
+            lib.append((time.perf_counter() - t0) * 1e3)
+        library_ms = statistics.median(lib)
+        out[name] = {"max_abs_err": max(errs[name]), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "library_ms": library_ms}
+        call = "index_select" if name == "host_gather" else "index_add_"
+        print(f"  {name}: {n} rows of {rb} B, kernel {ms:.4f} ms "
+              f"({n * rb / ms / 1e6:.2f} GB/s of rows; pinned copies "
+              f"{rates['h2d']:.2f} / {rates['d2h']:.2f} GB/s to / from the "
+              f"card), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms at "
+              f"{PCIE_BYTES_PER_S / 1e9:.0f} GB/s each way "
+              f"({bound_ms / ms:.0%} of it reached); {call} on the host "
+              f"{library_ms:.4f} ms")
+    del small, scalars
+    return out
+
+
+def _tier_fns(tiered, state, config, optimizer: str, lr: float):
+    """(step(dense, sparse, labels) -> loss, block(...) -> losses) of the
+    two-tier path the CLI selects for ``optimizer``."""
+    from dlrm_tpu_torch.parallel import host_tier as H
+
+    if optimizer == "sgd":
+        return ((lambda *b: H.tiered_train_step(tiered, *b, config=config,
+                                                lr=lr)),
+                (lambda *b: H.tiered_train_block(tiered, *b, config=config,
+                                                 lr=lr)))
+    kw = {"config": config, "optimizer": optimizer, "lr": lr}
+    return ((lambda *b: H.tiered_train_step_opt(tiered, state, *b, **kw)),
+            (lambda *b: H.tiered_train_block_opt(tiered, state, *b, **kw)))
+
+
+def _tier_calls(optimizer: str) -> tuple:
+    """(host_gather, host_update_rows) launches of one two-tier step or
+    block: the rows' gather and one update; Adagrad adds the accumulator's
+    gather and update."""
+    return (1, 1) if optimizer == "sgd" else (2, 2)
+
+
+def _check_tier_block(tiered, state, tmap, config, optimizer, lr) -> None:
+    """A K=4 two-tier block at B=32768 against 4 two-tier steps from the
+    same state, on batches in which no big-table id occurs in two of
+    them."""
+    rng = np.random.default_rng(63)
+    batches = _batches_without_repeats(config, BLOCK, TRAIN_BATCH, rng,
+                                       within=False)
+    step, block = _tier_fns(tiered, state, config, optimizer, lr)
+    snap = _TieredSnapshot(tiered, state, tmap, _all_ids(batches, config))
+    stacked = _to_dev(_stack(batches))
+    with counted(f"two-tier {optimizer} block", BLOCK, BLOCK,
+                 *_tier_calls(optimizer)):
+        blk_losses = block(*stacked).tolist()
+    del stacked
+    got = snap.read()
+    snap.restore()
+    seq_losses = [float(step(*_to_dev(b))) for b in batches]
+    want = snap.read()
+    loss_diff = float(np.abs(np.subtract(blk_losses, seq_losses)).max())
+    diff = _max_diff(got, want)
+    moved = _max_diff(got[:2], snap.saved[:2])
+    check(loss_diff <= 1e-5 and diff <= 1e-5 and moved > 0,
+          f"two-tier {optimizer} K={BLOCK} block vs {BLOCK} steps: losses "
+          f"{loss_diff}, state {diff}, moved {moved}")
+    print(f"two-tier block: {optimizer} K={BLOCK} at B={TRAIN_BATCH} vs "
+          f"{BLOCK} two-tier steps from the same state: losses "
+          f"{loss_diff:.3g}, {snap.dev_rows.numel()} device-tier and "
+          f"{snap.host_rows.numel()} host-tier touched rows, dense "
+          f"parameters and accumulators {diff:.3g} (moved by up to "
+          f"{moved:.3g})")
+
+
+def _check_tier_pipeline(tiered, tmap, config, batches) -> None:
+    """4 pipelined two-tier SGD steps against 4 inline ones from the same
+    state, under deterministic sums: equal bits of the losses and of every
+    touched row and dense parameter."""
+    from dlrm_tpu_torch.parallel import host_tier as H
+
+    data = batches[:4]
+    snap = _TieredSnapshot(tiered, None, tmap, _all_ids(data, config))
+    with _deterministic():
+        inline = [float(H.tiered_train_step(tiered, *_to_dev(b),
+                                            config=config, lr=0.1))
+                  for b in data]
+        want = snap.read()
+        snap.restore()
+        sparse = [_to_dev(b)[1] for b in data]
+        with counted("pipelined two-tier SGD steps", len(data), len(data),
+                     len(data) + 1, len(data)):
+            rows = H.prime_host_prefetch(tiered["emb"], sparse[0])
+            piped = []
+            for b, nxt in zip(data, sparse[1:] + sparse[-1:]):
+                rows, loss = H.tiered_train_step_pipelined(
+                    tiered, rows, *_to_dev(b), nxt, config=config, lr=0.1)
+                piped.append(float(loss))
+        got = snap.read()
+    same = piped == inline and all(torch.equal(a, b)
+                                   for a, b in zip(got, want))
+    check(same, f"pipelined vs inline two-tier steps: losses {piped} vs "
+          f"{inline}, state diff {_max_diff(got, want)}")
+    print(f"pipelined (--host-prefetch) vs inline two-tier SGD, {len(data)} "
+          f"steps under deterministic sums: the same loss bits and the same "
+          f"bits of {snap.dev_rows.numel() + snap.host_rows.numel()} touched "
+          f"rows and the dense parameters")
+
+
+def _tier_times(params, tiered, state_all, state_t, config, optimizer: str,
+                lr: float, batches) -> dict:
+    """Host-to-host ms a step, all-device against two-tier, in turns (all,
+    tiered, tiered, all) within this call, at K=1 and in K=4 blocks (and
+    for SGD the pipelined two-tier step too): the batch (or stacked block)
+    copied in, the last loss read back; median of 10 steps (K=4: 5 blocks,
+    over 4) after 3 (2)."""
+    from dlrm_tpu_torch.parallel import host_tier as H
+
+    blocks = [_stack(batches[:BLOCK]), _stack(batches[BLOCK:2 * BLOCK])]
+    fns = {"all-device": _step_fns(config, optimizer, lr, params, state_all),
+           "two-tier": _tier_fns(tiered, state_t, config, optimizer, lr)}
+    out = {}
+    for k in (1, BLOCK):
+        ms = {name: [] for name in fns}
+        for name in ("all-device", "two-tier", "two-tier", "all-device"):
+            step, block = fns[name]
+            n, warm = (13, 3) if k == 1 else (7, 2)
+            times = []
+            for i in range(n):
+                t0 = time.perf_counter()
+                if k == 1:
+                    float(step(*_to_dev(batches[i % len(batches)])))
+                else:
+                    float(block(*_to_dev(blocks[i % 2]))[-1])
+                times.append((time.perf_counter() - t0) * 1e3 / k)
+            ms[name].append(statistics.median(times[warm:]))
+        out[k] = ms
+    if optimizer == "sgd":
+        # each timed step copies one batch in: the pipelined one, the next
+        # batch (whose ids it gathers ahead)
+        step = fns["two-tier"][0]
+        ms = {"inline": [], "pipelined": []}
+        for name in ("inline", "pipelined", "pipelined", "inline"):
+            times, rows, cur = [], None, _to_dev(batches[0])
+            for i in range(13):
+                t0 = time.perf_counter()
+                if name == "inline":
+                    float(step(*_to_dev(batches[i % len(batches)])))
+                else:
+                    nxt = _to_dev(batches[(i + 1) % len(batches)])
+                    if rows is None:
+                        rows = H.prime_host_prefetch(tiered["emb"], cur[1])
+                    rows, loss = H.tiered_train_step_pipelined(
+                        tiered, rows, *cur, nxt[1], config=config, lr=lr)
+                    float(loss)
+                    cur = nxt
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[name].append(statistics.median(times[3:]))
+        out["prefetch"] = ms
+    for k, ms in out.items():
+        what = f"K={k}" if k != "prefetch" else "two-tier K=1"
+        print(f"step times, {optimizer}, {what}, in turns (ms a step host to "
+              f"host): " + "; ".join(
+                  f"{name} {v[0]:.3f} / {v[1]:.3f} = "
+                  f"{TRAIN_BATCH / statistics.mean(v) * 1e3:.0f} examples/s"
+                  for name, v in ms.items()))
+    return out
+
+
+def _tiered_vs_all(tiered, state_t, params, state_all, tmap, config,
+                   optimizer: str, lr: float, batches) -> None:
+    """``len(batches)`` two-tier steps against as many all-device ones from
+    the same state: losses, dense parameters and touched rows within 1e-5;
+    the touched rows' accumulators within 1e-5 of their largest entry."""
+    from dlrm_tpu_torch.parallel import host_tier as H
+
+    n = len(batches)
+    touched = _all_ids(batches, config)
+    emb = tiered["emb"]
+    before = _stack_rows(emb.dev, emb.host, tmap, touched)
+    step_t = _tier_fns(tiered, state_t, config, optimizer, lr)[0]
+    step_a = _step_fns(config, optimizer, lr, params, state_all)[0]
+    gather, update = _tier_calls(optimizer)
+    with counted(f"two-tier {optimizer} steps", n, n, gather * n,
+                 update * n):
+        tiered_losses = [float(step_t(*_to_dev(b))) for b in batches]
+    with counted(f"all-device {optimizer} steps", n, n):
+        all_losses = [float(step_a(*_to_dev(b))) for b in batches]
+    rows = _stack_rows(emb.dev, emb.host, tmap, touched)
+    diffs = {"losses": float(np.abs(np.subtract(tiered_losses,
+                                                all_losses)).max()),
+             "touched rows": (rows - params["emb"][touched]).abs().max()
+             .item(),
+             "dense": _max_dense_diff(tiered, params)}
+    if optimizer != "sgd":
+        acc = _stack_rows(state_t["dev_acc"], state_t["host_acc"], tmap,
+                          touched)
+        want = state_all["emb"][touched]
+        diffs["accumulators (relative)"] = ((acc - want).abs().max()
+                                            / want.max()).item()
+    moved = (rows - before).abs().max().item()
+    check(max(diffs.values()) <= 1e-5 and moved > 1e-5,
+          f"two-tier vs all-device {optimizer}: {diffs}, moved {moved}")
+    print(f"two-tier vs all-device {optimizer}, {n} steps at B="
+          f"{TRAIN_BATCH}, lr {lr}: losses "
+          f"{[round(x, 6) for x in tiered_losses]}; "
+          + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+          + f" ({touched.numel()} touched rows, moved by up to {moved:.3g})")
+
+
+def phase_two_tier() -> dict:
+    """Kaggle fs=128 at full width, f32, fused, B=32768, two-tier under
+    ``--hbm-budget-gb 4``: the host-tier kernels against their plain
+    versions; SGD, Adagrad and row-wise Adagrad two-tier steps against
+    all-device ones from one state; K=4 blocks against steps; pipelined
+    against inline; device peaks, step times and a profile; then `train
+    --hbm-budget-gb` (with a resume and `--host-prefetch`) and `eval
+    --ckpt-dir` on its checkpoint in subprocesses.  Returns the kernels'
+    numbers."""
+    from dlrm_tpu_torch import init_params, kaggle_config
+    from dlrm_tpu_torch.data.synthetic import batch_stream
+    from dlrm_tpu_torch.parallel import host_tier as H
+    from dlrm_tpu_torch.train.train import init_opt_state
+
+    config = kaggle_config(feature_size=128, interaction_impl="fused")
+    plan = H.plan_tiers(config, int(TIER_BUDGET_GB * H.GIB))
+    host_bytes = plan.host_rows * config.feature_size * 4
+    check(plan.host_tables == (2, 11, 20)
+          and plan.host_rows == TIER_HOST_ROWS, f"tier plan {plan}")
+    # the host tier and an Adagrad accumulator of its size, each pinned in
+    # a block rounded up to a power of two, and 8 GiB to spare
+    pinned = 1 << (host_bytes - 1).bit_length()
+    mem = _meminfo()
+    check(mem["MemAvailable"] > 2 * pinned + 8 * GIB, f"two-tier phase: "
+          f"{mem['MemAvailable']} B of host memory available, it pins up to "
+          f"{2 * pinned} B")
+    print(f"two-tier, Kaggle fs=128 f32 under --hbm-budget-gb "
+          f"{TIER_BUDGET_GB}: host tier tables {list(plan.host_tables)}, "
+          f"{plan.host_rows} rows = {host_bytes} B pinned; "
+          f"{len(plan.device_tables)} tables, {plan.device_rows} rows on "
+          f"the card; host MemTotal {mem['MemTotal']} B, MemAvailable "
+          f"{mem['MemAvailable']} B")
+    rates = _pinned_rates()
+    print(f"pinned copies of 1 GiB: to the card {rates['h2d']:.2f} GB/s, "
+          f"from it {rates['d2h']:.2f} GB/s")
+    params = init_params(torch.Generator(DEV).manual_seed(config.seed),
+                         config, DEV)
+    rss0 = _rss()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    resident = torch.cuda.memory_allocated(DEV)
+    t0 = time.perf_counter()
+    tiered = H.draw_tiered_params(
+        torch.Generator(DEV).manual_seed(config.seed), plan, config, DEV)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    draw_peak = torch.cuda.max_memory_allocated(DEV) - resident
+    emb = tiered["emb"]
+    _check_drawn_tiers(tiered, params, config)
+    print(f"drawn straight into the tiers (pinning the host tier included) "
+          f"in {draw_s:.2f} s, device peak {draw_peak / 1e9:.3f} GB (the "
+          f"device tier {emb.dev.numel() * 4 / 1e9:.3f} GB and one staging "
+          f"chunk of the draws); the same bits, table by table, as the "
+          f"all-device init from the same seed; host resident set "
+          f"{rss0 / 1e9:.3f} -> {_rss() / 1e9:.3f} GB; MemAvailable "
+          f"{_meminfo()['MemAvailable']} B")
+    tmap = _TierMap(plan, config)
+    batches = list(batch_stream(config, TRAIN_BATCH, TIER_STEPS, seed=61))
+    kern = _host_kernel_checks(emb, config, batches[0], rates)
+
+    all_bytes = params["emb"].numel() * 4
+    dev_bytes = emb.dev.numel() * 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    step = H.tiered_train_step
+    for b in batches[:2]:
+        float(step(tiered, *_to_dev(b), config=config, lr=0.1))
+    peak_t = torch.cuda.max_memory_allocated(DEV) - all_bytes
+    _retier(tiered, params, config)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    _tiered_vs_all(tiered, None, params, None, tmap, config, "sgd", 0.1,
+                   batches)
+    peak_both = torch.cuda.max_memory_allocated(DEV)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    sgd = _step_fns(config, "sgd", 0.1, params, None)[0]
+    for b in batches[:2]:
+        float(sgd(*_to_dev(b)))
+    peak_a = torch.cuda.max_memory_allocated(DEV) - dev_bytes
+    print(f"device peak memory of an SGD step at B={TRAIN_BATCH}: two-tier "
+          f"{peak_t / 1e9:.2f} GB, all-device {peak_a / 1e9:.2f} GB (each "
+          f"net of the other's tables, resident beside it: "
+          f"{all_bytes / 1e9:.2f} and {dev_bytes / 1e9:.2f} GB; "
+          f"{peak_both / 1e9:.2f} GB with both)")
+    _check_tier_block(tiered, None, tmap, config, "sgd", 0.1)
+    _check_tier_pipeline(tiered, tmap, config, batches)
+    _tier_times(params, tiered, None, None, config, "sgd", 0.1, batches)
+    host_groups = (("host_gather kernel (host tier, over PCIe)",
+                    ("host_gather_kernel",)),
+                   ("host_update_rows kernel (host tier, over PCIe)",
+                    ("host_update_rows_kernel",)))
+    groups = _profile_steps("two-tier SGD steps", lambda data: [
+        float(step(tiered, *_to_dev(b), config=config, lr=0.1))
+        for b in data], batches,
+        pooled_bytes=TRAIN_BATCH * config.num_tables * config.feature_size
+        * 4, groups=host_groups)
+    check(groups is None or all(groups[name] > 0 for name, _ in host_groups),
+          f"the two-tier step's profile lacks a host-tier kernel: {groups}")
+
+    for opt in ("rowwise_adagrad", "adagrad"):
+        _retier(tiered, params, config)
+        state_all = init_opt_state(params, config=config, optimizer=opt)
+        state_t = H.init_tiered_opt_state(tiered, config=config,
+                                          optimizer=opt)
+        _warm(state_all)
+        for a in (state_t["dev_acc"], state_t["host_acc"]):
+            a.fill_(1e-6)
+        for a, w in zip(_tensors(state_t["dense"]),
+                        _tensors(state_all["dense"])):
+            a.copy_(w)
+        lr = 0.001
+        _tiered_vs_all(tiered, state_t, params, state_all, tmap, config,
+                       opt, lr, batches[:OPT_STEPS])
+        _check_tier_block(tiered, state_t, tmap, config, opt, lr)
+        _tier_times(params, tiered, state_all, state_t, config, opt, lr,
+                    batches)
+        del state_all, state_t
+        torch.cuda.empty_cache()
+    del params, tiered, emb
+    torch.cuda.empty_cache()
+    _release_pinned()
+    _tier_entry_points(config, plan, tmap)
+    _release_pinned()
+    return kern
+
+
+def _tier_entry_points(config, plan, tmap) -> None:
+    """At full width through the CLI on the card: `train --hbm-budget-gb 4
+    --optimizer rowwise_adagrad --ckpt-dir`, 2 steps and a resume to 4,
+    held to the same 4 two-tier steps in process (loss 1e-5, touched
+    accumulator rows 1e-6, touched table rows and dense parameters 1e-3:
+    Adagrad from zero, ROADMAP.md §3); `eval --ckpt-dir` on the two-tier
+    checkpoint held to `evaluate` of it placed in process (1e-6); `train
+    --hbm-budget-gb 4 --host-prefetch` held to inline two-tier steps in
+    process; each process's peak resident set, which holds the pinned host
+    tier."""
+    from dlrm_tpu_torch.data.criteo import DACLoader, load
+    from dlrm_tpu_torch.data.synthetic import batch_stream
+    from dlrm_tpu_torch.io.checkpoint import (all_steps, open_checkpoint,
+                                              read_tree)
+    from dlrm_tpu_torch.parallel import host_tier as H
+    from dlrm_tpu_torch.train.metrics import evaluate
+
+    model = ["--config", "kaggle", "--feature-size", "128", "--interaction",
+             "fused", "--device", DEV.type, "--hbm-budget-gb",
+             str(TIER_BUDGET_GB)]
+    bsz = str(TRAIN_BATCH)
+    n = TRAIN_BATCH + 4464
+    table_bytes = config.total_rows * config.feature_size * 4
+    rss = {}
+
+    def tiered_start():
+        return H.draw_tiered_params(
+            torch.Generator(DEV).manual_seed(config.seed), plan, config, DEV)
+
+    with _scratch() as tmp:
+        d, data = str(tmp / "ck"), str(tmp / "data.bin")
+        need = 2 * (table_bytes + config.total_rows * 4) + GIB
+        free = shutil.disk_usage(tmp).free
+        check(free > need, f"two-tier CLI: {free} B free under {tmp}, the "
+              f"run needs {need} B")
+        _write_dac(data, n, np.random.default_rng(19), config.table_sizes)
+        train = ["train", *model, "--batch-size", bsz, "--optimizer",
+                 "rowwise_adagrad", "--lr", str(FULL_LR), "--ckpt-dir", d,
+                 "--save-interval", "2", "--max-to-keep", "1"]
+        lines = []
+        for steps in (2, 4):
+            res = _cli(train + ["--steps", str(steps)])
+            lines.append(_line(train, res))
+            rss[f"train --hbm-budget-gb --steps {steps}"] = res
+        check(lines[0]["steps"] == 2 and lines[1]["steps"] == 2
+              and "resumed from step 2" in res.stderr
+              and f"host-tier tables: [2, 11, 20] ({TIER_HOST_ROWS:,} rows)"
+              in res.stderr and all_steps(d) == [4],
+              f"train --hbm-budget-gb --ckpt-dir: {lines}, checkpoints "
+              f"{all_steps(d)}, {res.stderr[-600:]}")
+        tiered = tiered_start()
+        state = H.init_tiered_opt_state(tiered, config=config,
+                                        optimizer="rowwise_adagrad")
+        stream = list(batch_stream(config, TRAIN_BATCH, 2, seed=0))
+        for b in stream + stream:
+            loss = float(H.tiered_train_step_opt(
+                tiered, state, *_to_dev(b), config=config,
+                optimizer="rowwise_adagrad", lr=FULL_LR))
+        tree, at = open_checkpoint(d)
+        touched = _all_ids(stream, config)
+        h, local = tmap.split(touched)
+        order_d = np.sort(local[~h].cpu().numpy())
+        order_h = np.sort(local[h].cpu().numpy())
+        on_card_d = torch.from_numpy(order_d).to(DEV)
+        on_host_h = torch.from_numpy(order_h)
+
+        def saved(leaf, order) -> torch.Tensor:
+            return torch.from_numpy(leaf.array()[order])
+
+        emb, p = tiered["emb"], tree["params"]
+        torch.cuda.synchronize()
+        dense = read_tree({"bottom": p["bottom"], "top": p["top"]}, DEV)
+        diffs = {
+            "loss": abs(loss - lines[1]["final_loss"]),
+            "tables": max(
+                (saved(p["emb_dev"], order_d) - emb.dev[on_card_d].cpu())
+                .abs().max().item(),
+                (saved(p["emb_host"], order_h) - emb.host[on_host_h]).abs()
+                .max().item()),
+            "dense": _max_dense_diff(dense, tiered),
+            "accumulators": max(
+                (saved(tree["opt"]["dev_acc"], order_d)
+                 - state["dev_acc"][on_card_d].cpu()).abs().max().item(),
+                (saved(tree["opt"]["host_acc"], order_h)
+                 - state["host_acc"][on_host_h]).abs().max().item())}
+        check(at == 4 and tree["opt"]["count"] == 4
+              and diffs["loss"] <= 1e-5 and diffs["accumulators"] <= 1e-6
+              and max(diffs["tables"], diffs["dense"]) <= 1e-3,
+              f"train --hbm-budget-gb at full width vs in process: step {at}, "
+              f"{diffs}")
+        print(f"train --hbm-budget-gb {TIER_BUDGET_GB} --ckpt-dir at full "
+              f"width (row-wise Adagrad, lr {FULL_LR}), 2 steps then a resume "
+              f"to 4: checkpoints {all_steps(d)}; vs in process over "
+              f"{touched.numel()} touched rows |diff| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items()))
+        del tiered, state
+        torch.cuda.empty_cache()
+
+        args = ["eval", *model[:-2], "--data", data, "--ckpt-dir", d,
+                "--batch-size", bsz]
+        res = _cli(args)
+        line, rss["eval --ckpt-dir (two-tier)"] = _line(args, res), res
+        placed = H.place_tiered(tree["params"], plan, config, DEV)
+        batches = -(-n // TRAIN_BATCH)
+        with counted("two-tier evaluation", batches, 0, batches, 0):
+            want = evaluate(placed, DACLoader(load(data), TRAIN_BATCH,
+                                              drop_remainder=False), config)
+        ediff = [abs(line[k] - want[k]) for k in ("loss", "auc", "accuracy")]
+        check(line["examples"] == n and max(ediff) <= 1e-6,
+              f"eval --ckpt-dir (two-tier) vs in process: {line}, {want}")
+        print(f"eval --ckpt-dir on the two-tier checkpoint (device tier to "
+              f"the card, host tier into pinned memory) vs evaluate of it in "
+              f"process over {n} rows: loss, AUC, accuracy |diff| "
+              f"{[f'{x:.3g}' for x in ediff]}")
+        del placed
+        torch.cuda.empty_cache()
+
+        args = ["train", *model, "--host-prefetch", "--steps", "3",
+                "--batch-size", bsz, "--log-every", "1"]
+        res = _cli(args)
+        line = _line(args, res)
+        rss["train --hbm-budget-gb --host-prefetch"] = res
+        cli_losses = _loss_lines(res.stderr)
+        tiered = tiered_start()
+        losses = [float(H.tiered_train_step(tiered, *_to_dev(b),
+                                            config=config, lr=0.1))
+                  for b in batch_stream(config, TRAIN_BATCH, 3, seed=0)]
+        diff = float(np.abs(np.subtract(cli_losses, losses)).max())
+        # atomics sum duplicate ids in another order a run; the status lines
+        # print 5 decimals
+        check(line["steps"] == 3 and len(cli_losses) == 3
+              and abs(line["final_loss"] - losses[-1]) <= 1e-5
+              and diff <= 1e-5 + 5e-6,
+              f"train --host-prefetch: {cli_losses} (final "
+              f"{line['final_loss']}) vs inline in process {losses}")
+        print(f"train --hbm-budget-gb {TIER_BUDGET_GB} --host-prefetch, 3 SGD "
+              f"steps at full width vs inline two-tier steps in process: "
+              f"final "
+              f"loss |diff| {abs(line['final_loss'] - losses[-1]):.3g}, "
+              f"status lines {diff:.3g}")
+        del tiered
+        torch.cuda.empty_cache()
+    print("two-tier CLI, each process's wall time and peak resident set (GB;"
+          " sampled every 2 ms), the pinned host tier being "
+          f"{TIER_HOST_ROWS * 512 / 1e9:.2f} GB: " + "; ".join(
+              f"{k} {r.seconds:.2f} s, " + ", ".join(
+                  f"{m} {v / 1e9:.3f}" for m, v in r.peak_rss.items())
+              for k, r in rss.items()))
+    for k, r in rss.items():
+        # the pinned host tier is resident, rounded up to a power of two
+        bound = 2 * TIER_HOST_ROWS * 512 + 8 * GIB
+        check(0 < r.peak_rss.get("VmRSS", 0) < bound, f"{k}: peak resident "
+              f"set {r.peak_rss}, more than {bound} B")
 
 
 INT8_BYTES = 4_456_660_164    # Kaggle fs=128: 33,762,577 rows x (128 + 4) B
@@ -2254,25 +3063,27 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_card()
-    kern = phase_kernels()
-    phase_serving()
-    phase_training()
-    phase_evaluation()
-    phase_optimizers()
-    phase_checkpoint()
-    phase_telemetry()
-    phase_int8_serving()
-    phase_data()
-    phase_small_inputs()
-    phase_small_optimizers()
-    phase_entry_points()
+    kern = {}
+    for phase in (phase_card, phase_kernels, phase_serving, phase_training,
+                  phase_evaluation, phase_optimizers, phase_checkpoint,
+                  phase_telemetry, phase_int8_serving, phase_data,
+                  phase_two_tier, phase_small_inputs, phase_small_optimizers,
+                  phase_entry_points):
+        t0 = time.perf_counter()
+        kern.update(phase() or {})
+        print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
     rows = []
-    for (name, line), n in zip((("interaction_fwd", 47),
-                                ("interaction_bwd", 67)), LAUNCHES):
+    for (name, source, replaces), n in zip((
+            ("interaction_fwd", "interaction_fwd.cu",
+             "ops/interaction_pallas.py:47"),
+            ("interaction_bwd", "interaction_bwd.cu",
+             "ops/interaction_pallas.py:67"),
+            ("host_gather", "host_tier.cu", "parallel/host_tier.py:279"),
+            ("host_update_rows", "host_tier.cu",
+             "parallel/host_tier.py:297")), LAUNCHES):
         rows.append({"name": name, "route": "cuda",
-                     "source": f"dlrm_tpu_torch/csrc/{name}.cu",
-                     "replaces": f"dlrm_tpu/ops/interaction_pallas.py:{line}",
+                     "source": f"dlrm_tpu_torch/csrc/{source}",
+                     "replaces": f"dlrm_tpu/{replaces}",
                      "launches": n, **kern[name]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,11 @@ int8 serving (``preprocess``, ``validate``, ``--hdf5``,
 ready-to-serve int8 checkpoint, and telemetry (``utils/telemetry.py``: the
 phase scopes of the forward and the training step, ``Recorder``,
 ``InstrumentedTrainer``, ``trace``; ``instrument``, ``bench``, ``train
---profile-dir``).
+--profile-dir``); and two-tier tables (``parallel/host_tier.py``: the
+smallest tables on the card within a byte budget, the rest in pinned host
+memory that two hand-written CUDA kernels read and update in place; every
+step, block and optimizer of training, the pipelined step, serving and
+checkpoints of both tiers; ``train --hbm-budget-gb --host-prefetch``).
 """
 
 from dlrm_tpu_torch.config import (

@@ -21,7 +21,10 @@ of ``train.init_opt_state``.
   in place, so a restore needs no second copy of the tables on the device;
   for host-side consumers a leaf reads a slice of rows at a time
   (``Leaf.array``: the int8 export quantizes chunk by chunk from it).
-* **Synchronous.**  ``save`` returns once the files are on disk.
+* **Synchronous.**  ``save`` returns once the files are on disk.  A save
+  and a restore wait for the card first, so host tensors that its kernels
+  write (a two-tier host stack in pinned memory) are read and filled in
+  place, with no temporary copy.
 
 Reading a checkpoint that the JAX package wrote needs orbax; parameters
 cross between the two packages through HDF5 (``io/hdf5.py``) instead.
@@ -194,9 +197,18 @@ def _encode(node, path: Tuple[str, ...], stage: str, buf: _Buffer):
                     "None, dicts, lists and tuples")
 
 
+def _sync() -> None:
+    """Wait for the card: its kernels read and write pinned host tensors
+    (a two-tier host stack) asynchronously, and a checkpoint reads or
+    fills them on the host."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
 def save_checkpoint(ckpt_dir, step: int, payload: Any) -> str:
     """Write one checkpoint at ``ckpt_dir/<step>``; returns its path.  A
     checkpoint already at that step is replaced."""
+    _sync()
     root = os.path.abspath(ckpt_dir)
     os.makedirs(root, exist_ok=True)
     stage = tempfile.mkdtemp(prefix=f".tmp-{int(step)}-", dir=root)
@@ -319,6 +331,7 @@ def read_tree(tree, device="cpu", out=None):
     optimizer's state, a missing tensor) raises."""
     buf = _Buffer()
     device = torch.device(device)
+    _sync()
 
     def mismatch(path, what):
         return ValueError(f"checkpoint does not match the state to fill at "

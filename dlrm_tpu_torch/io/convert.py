@@ -18,6 +18,10 @@ elementwise ones; each chunk's ``(rows, pack)`` flattened and cut to the
 tables' rows for the row-wise ones), ``count`` the steps taken.  SGD has
 neither accumulator.
 
+``tiered_params_from_numpy`` and ``tiered_opt_state_from_numpy`` take the
+JAX package's two-tier parameters and optimizer state (device tier as its
+logical stack, flat host stacks) to this package's two tiers.
+
 ``quant_from_numpy`` takes the JAX package's int8 ``QuantEmb`` as numpy
 (lane-packed int8 chunks and ``(rows, pack)`` scales) to this package's
 logical ``QuantEmb``.
@@ -111,6 +115,16 @@ def params_to_numpy(params: dict) -> dict:
             "top": mlp(params["top"])}
 
 
+def _dense_acc_from_numpy(np_dense: dict, config: DLRMConfig,
+                          device) -> dict:
+    for part, sizes in (("bottom", config.bottom_mlp_sizes),
+                        ("top", config.full_top_mlp_sizes)):
+        _check_mlp(np_dense[part], sizes, f"dense.{part}")
+    return {part: [{k: _to_torch(layer[k], config.weight_dtype, device)
+                    for k in ("w", "b")} for layer in np_dense[part]]
+            for part in ("bottom", "top")}
+
+
 def opt_state_from_numpy(np_opt: dict, config: DLRMConfig, optimizer: str,
                          device="cpu") -> dict:
     """numpy optimizer state -> the state ``train.init_opt_state`` makes
@@ -118,13 +132,7 @@ def opt_state_from_numpy(np_opt: dict, config: DLRMConfig, optimizer: str,
     against the config)."""
     dense = emb = None
     if optimizer != "sgd":
-        for part, sizes in (("bottom", config.bottom_mlp_sizes),
-                            ("top", config.full_top_mlp_sizes)):
-            _check_mlp(np_opt["dense"][part], sizes, f"dense.{part}")
-        dense = {part: [{k: _to_torch(layer[k], config.weight_dtype, device)
-                         for k in ("w", "b")}
-                        for layer in np_opt["dense"][part]]
-                 for part in ("bottom", "top")}
+        dense = _dense_acc_from_numpy(np_opt["dense"], config, device)
         want = ((config.total_rows, config.feature_size)
                 if optimizer == "adagrad" else (config.total_rows,))
         if tuple(np.shape(np_opt["emb"])) != want:
@@ -144,6 +152,63 @@ def opt_state_to_numpy(opt_state: dict) -> dict:
                 for part in ("bottom", "top")},
             "emb": None if emb is None else _to_numpy(emb),
             "count": int(opt_state["count"])}
+
+
+def _host_tier(a, shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """A host-tier tensor (pinned for a CUDA ``device``) holding ``a``
+    reshaped to ``shape``."""
+    from dlrm_tpu_torch.parallel.host_tier import _host_empty
+
+    a = np.reshape(a, shape)
+    out = _host_empty(a.shape, dtype, device)
+    out.copy_(_to_torch(a, dtype, "cpu"))
+    return out
+
+
+def tiered_params_from_numpy(np_tiered: dict, plan, config: DLRMConfig,
+                             device="cpu") -> dict:
+    """The JAX package's two-tier parameters as numpy -> this package's
+    ``{"bottom", "top", "emb": TieredEmb}``: the device tier on ``device``
+    and the host tier in host memory (pinned for a CUDA device).
+
+    ``np_tiered``: ``{"bottom", "top", "emb_dev", "emb_host"}`` with
+    ``emb_dev`` the device tier as its logical ``(R_dev, D)`` stack (the
+    JAX package's ``unpack_tables`` of its engine chunks under the device
+    sub-config) and ``emb_host`` the host stack, flat or ``(R_host, D)``;
+    ``plan`` the ``parallel.host_tier.TierPlan`` of both."""
+    from dlrm_tpu_torch.parallel.host_tier import (TieredEmb,
+                                                   check_tiered_storage)
+
+    d, dtype = config.feature_size, config.embedding_dtype
+    dev = _to_torch(np.reshape(np_tiered["emb_dev"], (-1, d)), dtype, device)
+    host = _host_tier(np_tiered["emb_host"], (-1, d), dtype, device)
+    emb = TieredEmb(dev, host, plan)
+    check_tiered_storage(emb, config)
+    return {**dense_from_numpy(np_tiered, config, device), "emb": emb}
+
+
+def tiered_opt_state_from_numpy(np_opt: dict, plan, config: DLRMConfig,
+                                optimizer: str, device="cpu") -> dict:
+    """The JAX package's two-tier optimizer state as numpy -> the state
+    ``parallel.host_tier.init_tiered_opt_state`` makes: ``dense`` and
+    ``count`` as in :func:`opt_state_from_numpy`, ``dev_acc`` the device
+    tier's logical accumulator (``(R_dev, D)``, or ``(R_dev,)`` row-wise:
+    the view ``opt_state_from_numpy`` takes, under the device sub-config)
+    on ``device``, ``host_acc`` the JAX package's flat host accumulator
+    in host memory (pinned for a CUDA device)."""
+    state = {"dense": None, "count": int(np_opt["count"]), "dev_acc": None,
+             "host_acc": None}
+    if optimizer != "sgd":
+        tail = (config.feature_size,) if optimizer == "adagrad" else ()
+        state["dense"] = _dense_acc_from_numpy(np_opt["dense"], config,
+                                               device)
+        state["dev_acc"] = _to_torch(np.reshape(
+            np_opt["dev_acc"], (plan.device_rows, *tail)), torch.float32,
+            device)
+        state["host_acc"] = _host_tier(np_opt["host_acc"],
+                                       (plan.host_rows, *tail),
+                                       torch.float32, device)
+    return state
 
 
 def save_npz(path: str, np_params: dict) -> None:

@@ -36,34 +36,68 @@ _INTERACTIONS = {
 }
 
 
+INIT_CHUNK_ROWS = 1 << 20
+
+
+def init_dense(generator: torch.Generator, config: DLRMConfig,
+               device: torch.device) -> dict:
+    """The bottom and top MLPs (Glorot normal, zero bias), drawn in this
+    order before the tables."""
+    return {"bottom": init_mlp(generator, config.bottom_mlp_sizes,
+                               config.weight_dtype, device),
+            "top": init_mlp(generator, config.full_top_mlp_sizes,
+                            config.weight_dtype, device)}
+
+
+def init_tables(generator: torch.Generator, config: DLRMConfig,
+                tables: list, emb_init: str = "scaled_uniform") -> None:
+    """Fill ``tables[t]``, table ``t``'s (rows, D) destination, in place.
+
+    ``scaled_uniform``: U(-1/sqrt(rows), 1/sqrt(rows)), drawn as U(-1, 1)
+    in the storage dtype and then scaled.  The draws go table by table in
+    global order, in chunks of ``INIT_CHUNK_ROWS`` rows, so the bits do not
+    depend on where each table lives: a destination on the generator's
+    device is drawn in place, any other (a pinned host tier) through one
+    chunk-sized staging buffer on that device.  No full-size temporary is
+    made on either side (Kaggle fs=128 is 17.3 GB in f32)."""
+    if emb_init not in ("scaled_uniform", "zeros"):
+        raise ValueError(emb_init)
+    staging = None
+    for t, dst in enumerate(tables):
+        if emb_init == "zeros":
+            dst.zero_()
+            continue
+        scale = config.table_sizes[t] ** -0.5
+        for lo in range(0, dst.shape[0], INIT_CHUNK_ROWS):
+            part = dst[lo:lo + INIT_CHUNK_ROWS]
+            buf = part
+            if part.device.type != generator.device.type:
+                if staging is None:
+                    staging = torch.empty(
+                        (INIT_CHUNK_ROWS, *dst.shape[1:]), dtype=dst.dtype,
+                        device=generator.device)
+                buf = staging[:part.shape[0]]
+            buf.uniform_(-1.0, 1.0, generator=generator).mul_(scale)
+            if buf is not part:  # stream-ordered before the next draw
+                part.copy_(buf, non_blocking=True)
+    if staging is not None and staging.is_cuda:
+        torch.cuda.synchronize(staging.device)
+
+
 def init_params(generator: torch.Generator, config: DLRMConfig,
                 device: Optional[torch.device] = None,
                 emb_init: str = "scaled_uniform") -> dict:
     """Initialize the parameter dict on ``device`` (default: the
-    generator's device).
-
-    MLP weights: Glorot normal, zero bias.  Embeddings (``scaled_uniform``):
-    U(-1/sqrt(rows), 1/sqrt(rows)) per table.  The stack is drawn in place
-    on the device, in its storage dtype, as U(-1, 1) and then scaled table
-    by table, so no host copy and no full-size f32 temporary is made (Kaggle
-    fs=128 is 17.3 GB in f32).
-    """
+    generator's device): :func:`init_dense`, then the stacked tables
+    through :func:`init_tables`."""
     device = generator.device if device is None else torch.device(device)
-    bottom = init_mlp(generator, config.bottom_mlp_sizes,
-                      config.weight_dtype, device)
-    top = init_mlp(generator, config.full_top_mlp_sizes, config.weight_dtype,
-                   device)
-    shape = (config.total_rows, config.feature_size)
-    if emb_init == "scaled_uniform":
-        emb = torch.empty(shape, dtype=config.embedding_dtype, device=device)
-        emb.uniform_(-1.0, 1.0, generator=generator)
-        for t, n in enumerate(config.table_sizes):
-            emb_ops.get_logical_table(emb, config, t).mul_(n ** -0.5)
-    elif emb_init == "zeros":
-        emb = torch.zeros(shape, dtype=config.embedding_dtype, device=device)
-    else:
-        raise ValueError(emb_init)
-    return {"bottom": bottom, "emb": emb, "top": top}
+    params = init_dense(generator, config, device)
+    emb = torch.empty((config.total_rows, config.feature_size),
+                      dtype=config.embedding_dtype, device=device)
+    init_tables(generator, config,
+                [emb_ops.get_logical_table(emb, config, t)
+                 for t in range(config.num_tables)], emb_init)
+    return {"bottom": params["bottom"], "emb": emb, "top": params["top"]}
 
 
 def forward_from_pooled(dense_params: dict, pooled: torch.Tensor,
@@ -104,12 +138,18 @@ def loss_from_pooled(dense_params: dict, pooled: torch.Tensor,
 def forward(params: dict, dense: torch.Tensor, sparse: torch.Tensor,
             config: DLRMConfig) -> torch.Tensor:
     """Full forward: (dense (B,13), sparse ids (B,T[,H])) -> CTR (B,).
-    ``params["emb"]`` is the ``(total_rows, D)`` stack or its int8
-    ``QuantEmb`` (``ops/quant.py``).  The lookup runs under the phase
-    scope ``lookup``."""
+    ``params["emb"]`` is the ``(total_rows, D)`` stack, its int8
+    ``QuantEmb`` (``ops/quant.py``) or its two tiers (``TieredEmb``,
+    ``parallel/host_tier.py``).  The lookup runs under the phase scope
+    ``lookup``."""
+    from dlrm_tpu_torch.parallel.host_tier import (TieredEmb,
+                                                   check_tiered_storage)
+
     emb = params["emb"]
     if isinstance(emb, QuantEmb):
         check_quant_storage(emb, config)
+    elif isinstance(emb, TieredEmb):
+        check_tiered_storage(emb, config)
     elif tuple(emb.shape) != (config.total_rows, config.feature_size):
         raise ValueError(f"params['emb'] has shape {tuple(emb.shape)}, the "
                          f"config needs ({config.total_rows}, "

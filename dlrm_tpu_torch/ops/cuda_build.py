@@ -17,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -70,6 +70,16 @@ def load_kernels() -> Dict[str, ctypes.CDLL]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return {src.stem: ctypes.CDLL(str(_lib_path(src))) for src in sources}
+
+
+@functools.lru_cache(maxsize=None)
+def kernel(stem: str, argtypes: tuple, name: Optional[str] = None):
+    """The C entry point ``name`` (default: ``stem``) of ``csrc/<stem>.cu``
+    (built at first use), returning a C ``int`` (a CUDA error code)."""
+    fn = getattr(load_kernels()[stem], name or stem)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def build_log(stem: str) -> str:

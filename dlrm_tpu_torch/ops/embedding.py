@@ -85,7 +85,7 @@ def get_logical_table(emb: torch.Tensor, config, t: int) -> torch.Tensor:
     return emb[off:off + config.table_sizes[t]]
 
 
-def mixed_pool(rows: torch.Tensor, config) -> torch.Tensor:
+def mixed_pool(rows: torch.Tensor, config, small=None) -> torch.Tensor:
     """Pool gathered rows (B, T[, H], D) of every table with the results
     of the JAX package's ``mixed_lookup``.
 
@@ -96,9 +96,12 @@ def mixed_pool(rows: torch.Tensor, config) -> torch.Tensor:
     tables the gathered rows take the same rounding and f32 pooling.  Where
     the compute dtype holds the table dtype exactly (f32, or the table
     dtype itself) that is the plain pool.  Differentiable in ``rows``.
+    ``small``: the columns that take that rounding (default: the config's
+    small tables).
     """
-    small, _ = partition_tables(config.table_sizes,
-                                config.small_table_threshold)
+    if small is None:
+        small, _ = partition_tables(config.table_sizes,
+                                    config.small_table_threshold)
     cd = config.compute_dtype
     if not small or cd in (torch.float32, rows.dtype):
         return pool(rows)
@@ -111,11 +114,15 @@ def mixed_pool(rows: torch.Tensor, config) -> torch.Tensor:
 def mixed_lookup(emb, ids: torch.Tensor, config) -> torch.Tensor:
     """Pooled lookup with the results of the JAX package's
     ``mixed_lookup`` (see :func:`mixed_pool`).  An int8 ``QuantEmb``
-    (``ops/quant.py``) takes the dequantizing lookup."""
+    (``ops/quant.py``) takes the dequantizing lookup, two-tier tables
+    (``parallel/host_tier.TieredEmb``) the lookup across both tiers."""
     from dlrm_tpu_torch.ops import quant
+    from dlrm_tpu_torch.parallel import host_tier
 
     if isinstance(emb, quant.QuantEmb):
         return quant.quant_mixed_lookup(emb, ids, config)
+    if isinstance(emb, host_tier.TieredEmb):
+        return host_tier.tiered_lookup(emb, ids, config)
     return mixed_pool(gather_rows(emb, translate_ids(ids, config.table_offsets)),
                       config)
 

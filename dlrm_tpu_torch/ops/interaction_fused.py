@@ -192,15 +192,9 @@ def _bwd_launch_geometry(b: int, f: int, d: int, esize: int):
     return samples, (d * esize) % 16 == 0, d % 4 == 0
 
 
-@functools.lru_cache(maxsize=None)
 def _kernel(stem: str, argtypes: tuple, name: Optional[str] = None):
-    """The C entry point ``name`` (default: ``stem``) of ``csrc/<stem>.cu``
-    (built at first use)."""
-    from dlrm_tpu_torch.ops.cuda_build import load_kernels
-    fn = getattr(load_kernels()[stem], name or stem)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
+    from dlrm_tpu_torch.ops.cuda_build import kernel
+    return kernel(stem, argtypes, name)
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

@@ -6,7 +6,8 @@
               K-step blocks, evaluation during and after, batches copied to
               the device ahead of the step (``--prefetch``), checkpoints
               and resume (``--ckpt-dir``), a profiler trace of three steps
-              (``--profile-dir``)
+              (``--profile-dir``), two-tier tables with the biggest in
+              pinned host memory (``--hbm-budget-gb``, ``--host-prefetch``)
   eval        accuracy / AUC / loss of saved parameters
   predict     batch CTR scoring of a binarized dataset -> .npy
   export      saved parameters -> PyTorch-layout HDF5, or a ready-to-serve
@@ -40,7 +41,6 @@ import numpy as np
 import torch
 
 _Q = "ROADMAP.md queue 1, "
-_TWO_TIER = _Q + "item 2, 'Two-tier tables'"
 _MULTI = _Q + "item 3, 'Multi-GPU'"
 _TPU_LAYOUT = ("is TPU storage layout, which the port does not carry over "
                "(ROADMAP.md, north star)")
@@ -48,10 +48,6 @@ _TPU_LAYOUT = ("is TPU storage layout, which the port does not carry over "
 # Flags of the JAX package's CLI that this package does not serve yet:
 # flag -> (default, why).  A flag at its default passes.
 _NOT_YET = {
-    "hbm_budget_gb": (None, f"--hbm-budget-gb needs two-tier tables "
-                            f"({_TWO_TIER})"),
-    "host_prefetch": (False, f"--host-prefetch needs two-tier tables "
-                             f"({_TWO_TIER})"),
     "mesh_shape": (None, f"--mesh-shape needs the multi-GPU port ({_MULTI})"),
     "paranoid": (None, f"--paranoid needs the multi-GPU port ({_MULTI})"),
     "max_rows_per_shard": (None, f"--max-rows-per-shard needs the multi-GPU "
@@ -82,6 +78,11 @@ def _refuse_unported(args) -> None:
     # --sharded auto or false passes: one device is what this package
     # trains on
     if getattr(args, "sharded", None):
+        if getattr(args, "hbm_budget_gb", None) is not None:
+            raise SystemExit(
+                "--hbm-budget-gb is the single-device two-tier layout and "
+                "does not compose with the sharded path; pass --sharded "
+                "false for two-tier on one device")
         raise SystemExit(f"--sharded true needs the multi-GPU port "
                          f"({_MULTI}); this package trains on one device "
                          "(--sharded false)")
@@ -270,6 +271,19 @@ def _block_iter(source, k: int):
         yield flush(buf)
 
 
+def _with_lookahead(source):
+    """One-batch lookahead for the pipelined two-tier step: each batch
+    carries the next batch's ids as ``sparse_next``; the last one carries
+    its own."""
+    prev = None
+    for b in source:
+        if prev is not None:
+            yield {**prev, "sparse_next": b["sparse"]}
+        prev = b
+    if prev is not None:
+        yield {**prev, "sparse_next": prev["sparse"]}
+
+
 def _crossed(prev: int, cur: int, every: Optional[int]) -> bool:
     """True when the steps (prev, cur] hold a multiple of ``every`` (a
     block advances the step counter by K at a time)."""
@@ -306,18 +320,23 @@ def _check_meta_sizes(meta, config):
     return meta_sizes
 
 
+def _tier_plan(meta, config):
+    """The tier plan of a two-tier run's checkpoint, from its
+    ``hbm_budget_gb``."""
+    from dlrm_tpu_torch.parallel.host_tier import GIB, plan_tiers
+
+    return plan_tiers(config, int(meta["hbm_budget_gb"] * GIB))
+
+
 def _open_ckpt(args, config):
     """(the parameters' tree of ``checkpoint.Leaf`` s, config, run
     metadata) of the latest checkpoint of ``--ckpt-dir``: the run's
     ``bf16_tables`` applied, its ``table_sizes`` checked, an optimizer
-    state's wrapping taken off."""
+    state's wrapping taken off.  A two-tier run's tree holds ``emb_dev``
+    and ``emb_host`` in place of ``emb``."""
     from dlrm_tpu_torch.io.checkpoint import open_checkpoint
 
     meta = _read_run_meta(args.ckpt_dir)
-    if meta.get("two_tier"):
-        raise SystemExit(f"{args.ckpt_dir} holds a two-tier run's "
-                         f"checkpoint, which needs two-tier tables "
-                         f"({_TWO_TIER})")
     if meta.get("sharded"):
         raise SystemExit(f"{args.ckpt_dir} holds a sharded run's "
                          f"checkpoint, which needs the multi-GPU port "
@@ -334,8 +353,9 @@ def _open_ckpt(args, config):
 def _file_params(args, device: torch.device):
     """(numpy parameter pytree, config) from ``--hdf5`` (the file's model;
     the flags choose only the interaction), ``--params`` (under the config
-    of the flags) or ``--ckpt-dir`` (leaves read a slice of rows at a time; an
-    int8 artifact is refused)."""
+    of the flags) or ``--ckpt-dir`` (leaves read a slice of rows at a time, a
+    two-tier run's tiers merged on the host a table at a time; an int8
+    artifact is refused)."""
     from dlrm_tpu_torch.io.convert import load_npz
 
     if args.ckpt_dir:
@@ -343,9 +363,16 @@ def _file_params(args, device: torch.device):
         if meta.get("quantized"):
             raise SystemExit(f"{args.ckpt_dir} is already an int8 serving "
                              "artifact (export --quantize int8)")
+        if meta.get("two_tier"):
+            from dlrm_tpu_torch.parallel.host_tier import merge_tiers
+            emb = merge_tiers(tree["emb_dev"].array(),
+                              tree["emb_host"].array(),
+                              _tier_plan(meta, config), config).numpy()
+        else:
+            emb = tree["emb"].array()
         return {"bottom": [{k: v.array() for k, v in l.items()}
                            for l in tree["bottom"]],
-                "emb": tree["emb"].array(),
+                "emb": emb,
                 "top": [{k: v.array() for k, v in l.items()}
                         for l in tree["top"]]}, config
     if args.hdf5:
@@ -363,10 +390,11 @@ def _serving_params(args, device: torch.device):
     """(parameters on ``device``, config) for ``eval`` and ``predict``
     (see :func:`_file_params`), after ``--validate-data``.  A checkpoint's
     tensors go to the device chunk by chunk, an int8 artifact's codes and
-    scales as they are.  With ``--quantize-tables int8`` the tables are
-    quantized on the host (from the checkpoint's files, chunk by
-    chunk), and only the int8 codes, their scales and the dense towers
-    reach the device."""
+    scales as they are, a two-tier run's device tier to the device and its
+    host tier into pinned host memory (``TieredEmb``).  With
+    ``--quantize-tables int8`` the tables are quantized on the host (from
+    the checkpoint's files, chunk by chunk), and only the int8 codes, their
+    scales and the dense towers reach the device."""
     from dlrm_tpu_torch.io.checkpoint import read_tree
     from dlrm_tpu_torch.io.convert import (check_dense, dense_from_numpy,
                                            params_from_numpy)
@@ -379,6 +407,10 @@ def _serving_params(args, device: torch.device):
         if meta.get("quantized") or not quantize:
             _check_data(args, config)
             check_dense(tree, config)
+            if meta.get("two_tier"):
+                from dlrm_tpu_torch.parallel.host_tier import place_tiered
+                return place_tiered(tree, _tier_plan(meta, config), config,
+                                    device), config
             p = read_tree(tree, device)
             if meta.get("quantized"):  # ready to serve: no quantization
                 emb = QuantEmb(p["emb_q"]["codes"], p["emb_q"]["scales"])
@@ -502,8 +534,28 @@ def _train_plan(args) -> argparse.Namespace:
                                  warmup_steps=args.warmup_steps,
                                  decay_start=args.decay_start,
                                  decay_steps=args.decay_steps)
-    return argparse.Namespace(lr=lr, block=max(args.update_interval or 1, 1),
-                              clip=args.grad_clip_norm)
+    block = max(args.update_interval or 1, 1)
+    tiered = args.hbm_budget_gb is not None
+    # the JAX package's refusals of two-tier runs
+    if args.grad_clip_norm is not None and tiered:
+        raise SystemExit("--grad-clip-norm supports the per-step and block "
+                         "paths only; drop --hbm-budget-gb")
+    if args.host_prefetch:
+        if not tiered:
+            raise SystemExit("--host-prefetch is a two-tier feature; it needs "
+                             "--hbm-budget-gb")
+        if args.optimizer != "sgd" or callable(lr):
+            raise SystemExit("--host-prefetch currently supports sgd with a "
+                             "constant lr")
+    if block > 1 and tiered:
+        if callable(lr):
+            raise SystemExit("--update-interval > 1 with --hbm-budget-gb "
+                             "supports a constant lr only")
+        if args.host_prefetch:
+            raise SystemExit("--host-prefetch does not compose with "
+                             "--update-interval > 1 (the block is the "
+                             "prefetch batching)")
+    return argparse.Namespace(lr=lr, block=block, clip=args.grad_clip_norm)
 
 
 def _resume(mgr, say, state: dict):
@@ -535,11 +587,14 @@ def _build_step(args, config, plan, params: dict, mgr=None,
     restored ``opt["count"]``.  A block's ``--adagrad-impl hybrid`` reads
     as ``dense_g`` there; in this package every value runs the one
     implementation."""
+    from dlrm_tpu_torch.parallel.host_tier import TieredEmb
     from dlrm_tpu_torch.train import train as T
 
+    if isinstance(params["emb"], TieredEmb):
+        return _build_tiered_step(args, config, plan, params, mgr, say)
     lr, block, clip = plan.lr, plan.block, plan.clip
     keys = ("dense", "sparse", "labels")
-    v = argparse.Namespace(align=None, uses_opt=(
+    v = argparse.Namespace(align=None, lookahead=False, uses_opt=(
         args.optimizer != "sgd" or (clip is not None and block == 1)))
     if not v.uses_opt:
         _, v.start_step = _resume(mgr, say, params)
@@ -579,12 +634,89 @@ def _build_step(args, config, plan, params: dict, mgr=None,
     return v
 
 
+def _build_tiered_step(args, config, plan, params: dict, mgr=None,
+                       say=lambda *a: None) -> argparse.Namespace:
+    """:func:`_build_step` for two-tier parameters, as the JAX package
+    picks: SGD at a constant lr takes the tiered step, block
+    (``--update-interval``) or pipelined step (``--host-prefetch``: the
+    batches then carry the next batch's ids, ``v.lookahead``); any other
+    optimizer or a schedule takes the optimizer-state step or block.
+    Checkpoints hold ``host_tier.tiered_payload`` (and ``{"params",
+    "opt"}``), restored into the live tensors, the host tier's straight
+    into pinned memory."""
+    from dlrm_tpu_torch.parallel import host_tier as ht
+
+    lr, block = plan.lr, plan.block
+    keys = ("dense", "sparse", "labels")
+    payload = ht.tiered_payload(params)
+    v = argparse.Namespace(align=None, lookahead=False, uses_opt=(
+        args.optimizer != "sgd" or callable(lr)))
+    if not v.uses_opt:
+        _, v.start_step = _resume(mgr, say, payload)
+        v.payload = lambda: payload
+        if block > 1:
+            fn = ht.tiered_train_block
+        elif args.host_prefetch:
+            v.lookahead, box = True, {"rows": None}
+
+            def fn(p, dense, sparse, labels, sparse_next, config, lr):
+                if box["rows"] is None:  # the pipeline's first gather
+                    box["rows"] = ht.prime_host_prefetch(p["emb"], sparse)
+                box["rows"], loss = ht.tiered_train_step_pipelined(
+                    p, box["rows"], dense, sparse, labels, sparse_next,
+                    config=config, lr=lr)
+                return loss
+            keys += ("sparse_next",)
+        else:
+            fn = ht.tiered_train_step
+        call = lambda b: fn(params, *(b[k] for k in keys), config=config,
+                            lr=lr)
+    else:
+        state = {"params": payload, "opt": ht.init_tiered_opt_state(
+            params, config=config, optimizer=args.optimizer)}
+        restored, v.start_step = _resume(mgr, say, state)
+        if restored is not None:
+            state["opt"]["count"] = restored["opt"]["count"]
+        v.payload = lambda: state
+        fn = ht.tiered_train_block_opt if block > 1 \
+            else ht.tiered_train_step_opt
+        call = lambda b: fn(params, state["opt"], *(b[k] for k in keys),
+                            config=config, optimizer=args.optimizer, lr=lr)
+    if block > 1:
+        v.step = lambda b: (call(b)[-1], int(b["dense"].shape[0]))
+    else:
+        v.step = lambda b: (call(b), 1)
+    return v
+
+
+def _tier_params(args, config, generator, device, say) -> dict:
+    """``--hbm-budget-gb``: the run's tier plan, announced; the parameters
+    drawn straight into their tiers (the host tier into pinned host
+    memory), the bits ``init_params`` would draw, with no full stack on
+    the card."""
+    from dlrm_tpu_torch.parallel import host_tier as ht
+
+    tiers = ht.plan_tiers(config, int(args.hbm_budget_gb * ht.GIB))
+    say(f"host-tier tables: {list(tiers.host_tables)} "
+        f"({tiers.host_rows:,} rows)")
+    if args.ckpt_dir and 0 in (tiers.device_rows, tiers.host_rows):
+        raise SystemExit("--ckpt-dir with --hbm-budget-gb needs both tiers "
+                         "non-empty (adjust the budget so at least one table "
+                         "stays on device and one spills)")
+    if args.host_prefetch and not tiers.host_tables:
+        raise SystemExit("--host-prefetch needs a host tier (lower "
+                         "--hbm-budget-gb)")
+    return ht.draw_tiered_params(generator, tiers, config, device)
+
+
 def _write_run_meta(args, config, v) -> None:
     """``run_meta.json`` beside the checkpoints: the JAX package's keys
     that mean something on one device, so that ``eval``, ``predict`` and
-    ``export --ckpt-dir`` rebuild the run's model."""
+    ``export --ckpt-dir`` rebuild the run's model (a two-tier run's tier
+    plan from its ``hbm_budget_gb``)."""
     meta = {"sharded": False, "optimizer": args.optimizer,
-            "two_tier": False, "hbm_budget_gb": None,
+            "two_tier": args.hbm_budget_gb is not None,
+            "hbm_budget_gb": args.hbm_budget_gb,
             "wrapped_opt": bool(v.uses_opt),
             "table_sizes": list(config.table_sizes),
             "bf16_tables": config.embedding_dtype == torch.bfloat16}
@@ -593,7 +725,8 @@ def _write_run_meta(args, config, v) -> None:
         json.dump(meta, f)
 
 
-def run_training(args, config, params: dict, say=lambda *a: None) -> dict:
+def run_training(args, config, params: dict, say=lambda *a: None,
+                 plan: Optional[argparse.Namespace] = None) -> dict:
     """The loop of ``train`` on ``params`` (in place, on their device):
     steps or blocks over the batch stream, a status line through ``say``
     every ``--log-every`` steps, evaluation every ``--eval-every`` steps
@@ -606,14 +739,17 @@ def run_training(args, config, params: dict, say=lambda *a: None) -> dict:
     from ``--seed`` for the ``--steps`` still to go), saves every
     ``--save-interval`` steps and at the end, keeping ``--max-to-keep``.
     With ``--profile-dir`` a ``torch.profiler`` trace of the steps from the
-    run's third to its sixth is written there."""
+    run's third to its sixth is written there.  Two-tier parameters
+    (``params["emb"]`` a ``TieredEmb``) take the tiered steps, and
+    evaluation reads both tiers in place.  ``plan``: the run's
+    :func:`_train_plan`, when the caller made it already."""
     from dlrm_tpu_torch.data.prefetch import device_prefetch
     from dlrm_tpu_torch.io.checkpoint import CheckpointManager
     from dlrm_tpu_torch.train.metrics import evaluate
     from dlrm_tpu_torch.train.train import batch_to_device
     from dlrm_tpu_torch.utils.telemetry import trace
 
-    plan = _train_plan(args)
+    plan = _train_plan(args) if plan is None else plan
     device = params["emb"].device
     mgr = None
     if args.ckpt_dir:
@@ -649,6 +785,8 @@ def run_training(args, config, params: dict, say=lambda *a: None) -> dict:
         shuffle_rows=args.shuffle_rows, shuffle_window=args.shuffle_window)
     if plan.block > 1:
         source = _block_iter(source, plan.block)
+    if v.lookahead:
+        source = _with_lookahead(source)
     profile_dir = args.profile_dir
     capture, capturing = contextlib.ExitStack(), False
     with capture:
@@ -704,20 +842,24 @@ def run_training(args, config, params: dict, say=lambda *a: None) -> dict:
 
 def cmd_train(args) -> int:
     """Training on one device from parameters drawn from the config's
-    seed, or resumed from ``--ckpt-dir``; prints status lines to stderr and
-    one JSON line at the end."""
+    seed (split into two tiers under ``--hbm-budget-gb``), or resumed from
+    ``--ckpt-dir``; prints status lines to stderr and one JSON line at the
+    end."""
     from dlrm_tpu_torch.models.dlrm import init_params
 
     _refuse_unported(args)
+    plan = _train_plan(args)
     device = _device(args)
     config = _build_config(args, device)
     _check_data(args, config)
-    print(f"device: {device} ({config.interaction_impl} interaction)",
-          file=sys.stderr)
-    params = init_params(torch.Generator(device).manual_seed(config.seed),
-                         config, device)
-    result = run_training(args, config, params,
-                          say=lambda *a: print(*a, file=sys.stderr))
+    say = lambda *a: print(*a, file=sys.stderr)
+    say(f"device: {device} ({config.interaction_impl} interaction)")
+    generator = torch.Generator(device).manual_seed(config.seed)
+    if args.hbm_budget_gb is not None:
+        params = _tier_params(args, config, generator, device, say)
+    else:
+        params = init_params(generator, config, device)
+    result = run_training(args, config, params, say=say, plan=plan)
     print(json.dumps({**result, "device": device.type}))
     return 0
 
@@ -944,9 +1086,16 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--sharded", type=_strict_bool, default=None,
                     help="false: one device, what this package trains on "
                     "(true is not served yet: multi-GPU)")
+    tr.add_argument("--hbm-budget-gb", type=float, default=None,
+                    help="two-tier tables: keep the smallest tables on the "
+                    "device within this many GiB and the rest in pinned "
+                    "host memory, which the card reads and updates in "
+                    "place (only the rows a batch touches cross PCIe)")
+    tr.add_argument("--host-prefetch", action="store_true",
+                    help="two-tier SGD at a constant lr: gather the next "
+                    "batch's host-tier rows right after this step's "
+                    "host-tier update")
     for flag, kw in (
-            ("--host-prefetch", {"action": "store_true"}),
-            ("--hbm-budget-gb", {"type": float}),
             ("--paranoid", {"type": int}),
             ("--mesh-shape", {}),
             ("--max-rows-per-shard", {"type": int}),

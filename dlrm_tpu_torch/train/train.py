@@ -35,7 +35,14 @@ from dlrm_tpu_torch.train import optim
 
 def _split_trainable(params: dict):
     """(dense_params, emb) of parameters that can be trained: int8 tables
-    are post-training serving storage."""
+    are post-training serving storage; two-tier tables train through
+    ``parallel/host_tier.py``."""
+    from dlrm_tpu_torch.parallel.host_tier import TieredEmb
+
+    if isinstance(params["emb"], TieredEmb):
+        raise TypeError("the embedding tables are two-tier (TieredEmb): "
+                        "train them with parallel.host_tier's "
+                        "tiered_train_* steps")
     if isinstance(params["emb"], QuantEmb):
         raise TypeError("the embedding tables are int8 (QuantEmb): "
                         "quantized tables serve (forward, evaluate, "
@@ -127,7 +134,8 @@ def init_opt_state(params: dict, *, config: DLRMConfig, optimizer: str
 
 def _micro_step(params: dict, opt_state: Optional[dict], dense, sparse,
                 labels, *, config: DLRMConfig, optimizer: str, lr: float,
-                grad_clip_norm) -> tuple:
+                grad_clip_norm, value_and_grad: Optional[Callable] = None
+                ) -> tuple:
     """Gradients at the current parameters, the optional clip, then the
     updates that are never deferred: the dense parameters and the small
     tables (``config.small_table_threshold``), in place.  Returns (loss,
@@ -135,11 +143,17 @@ def _micro_step(params: dict, opt_state: Optional[dict], dense, sparse,
 
     The clip's norm counts what the JAX package's counts: dense gradients,
     big-table rows once per hit, and small-table rows with a row's hits
-    summed first."""
+    summed first.
+
+    ``value_and_grad``: a function of the form that
+    :func:`emb_ops.sparse_value_and_grad` returns (default: that one over
+    ``params["emb"]``); the two-tier steps pass one over both tiers that
+    hands back the device tier's gradient."""
     dense_params, emb = _split_trainable(params)
-    value_and_grad = emb_ops.sparse_value_and_grad(
-        functools.partial(_loss, config=config),
-        pool_fn=functools.partial(emb_ops.mixed_pool, config=config))
+    if value_and_grad is None:
+        value_and_grad = emb_ops.sparse_value_and_grad(
+            functools.partial(_loss, config=config),
+            pool_fn=functools.partial(emb_ops.mixed_pool, config=config))
     loss, (dgrads, sgrad) = value_and_grad(
         dense_params, emb, sparse, config.table_offsets, dense, labels)
     small_t, big_t = emb_ops.partition_tables(config.table_sizes,
@@ -239,17 +253,20 @@ def make_train_step_opt(config: DLRMConfig, *, optimizer: str = "sgd",
 
 def _run_block(params: dict, opt_state: Optional[dict], dense, sparse,
                labels, *, config: DLRMConfig, optimizer: str, lrs,
-               scheduled: bool, grad_clip_norm) -> torch.Tensor:
+               scheduled: bool, grad_clip_norm,
+               value_and_grad: Optional[Callable] = None) -> torch.Tensor:
     """K micro-steps (K is the batch's leading dimension), then one
     coalesced big-table update.  ``lrs``: the K f32 learning rates; with
     ``scheduled`` each micro-step's big-table rows are scaled by its own lr
-    and the coalesced update applies with lr 1."""
+    and the coalesced update applies with lr 1.  ``value_and_grad``: see
+    :func:`_micro_step`."""
     losses, ids, rows, scaled = [], [], [], []
     for k in range(dense.shape[0]):
         loss, big = _micro_step(params, opt_state, dense[k], sparse[k],
                                 labels[k], config=config,
                                 optimizer=optimizer, lr=lrs[k],
-                                grad_clip_norm=grad_clip_norm)
+                                grad_clip_norm=grad_clip_norm,
+                                value_and_grad=value_and_grad)
         losses.append(loss)
         if big is not None:
             ids.append(big.ids)

@@ -7,7 +7,11 @@ and fires ``:sym_back`` on the reverse pass, and its training loop emits
 
 1. **Profiler scopes** (the production path): ``models/dlrm.py`` and the
    training step's gather run under :func:`phase_scope` s named
-   ``lookup``, ``bottom_mlp``, ``interaction`` and ``top_mlp``;
+   ``lookup``, ``bottom_mlp``, ``interaction`` and ``top_mlp``; the
+   two-tier steps (``parallel/host_tier.py``) add ``lookup_host_tier``
+   (the host tier's gather), ``host_tier_update`` (its update, with the
+   duplicate sum) and ``host_tier_prefetch_next`` (the pipelined step's
+   gather of the next batch), the JAX package's ``named_scope`` s;
    :func:`trace` records a ``torch.profiler`` trace in which they show.
    While no profiler records, a scope is a context that does nothing.
 2. :class:`InstrumentedTrainer` (the diagnostic path): one SGD step as

@@ -308,3 +308,78 @@ def test_resume_equals_straight_run(optimizer, k, schedule, clip, tmp_path):
     assert_bits_equal(resumed.payload(), straight.payload())
     if resumed.uses_opt:
         assert resumed.payload()["opt"]["count"] == N
+
+
+# -- two-tier tables ---------------------------------------------------------
+
+def _tiered(cfg, seed=3):
+    """Tiered parameters under a budget that keeps tables 0, 2 and 4 on the
+    device (6 + 9 + 40 rows of D=8) and spills 300 and 2000."""
+    from dlrm_tpu_torch.parallel import host_tier as ht
+
+    tiers = ht.plan_tiers(cfg, 55 * 8 * cfg.embedding_dtype.itemsize)
+    assert tiers.host_tables == (1, 3)
+    return ht.init_tiered_params(_init(cfg, seed), tiers, cfg)
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "rowwise_adagrad"])
+@pytest.mark.parametrize("variant", ["f32", "bf16"])
+def test_tiered_round_trip_every_tensor_bit_for_bit(optimizer, variant,
+                                                    tmp_path, monkeypatch):
+    """Two-tier parameters and optimizer state after 2 steps, written with
+    a 96-byte host buffer, come back bit for bit: into the live tensors in
+    place (the host tier and its accumulator filled where they lie), and
+    through ``place_tiered`` / ``place_tiered_opt``."""
+    from dlrm_tpu_torch.parallel import host_tier as ht
+
+    cfg = _cfg(**({"embedding_dtype": torch.bfloat16} if variant == "bf16"
+                  else {}))
+    params = _tiered(cfg)
+    opt = ht.init_tiered_opt_state(params, config=cfg, optimizer=optimizer)
+    rng = np.random.default_rng(0)
+    for _ in range(2):
+        b = random_batch(rng, cfg, 32)
+        ht.tiered_train_step_opt(params, opt, *(torch.from_numpy(b[k])
+                                                for k in KEYS),
+                                 config=cfg, optimizer=optimizer, lr=0.1)
+    payload = {"params": ht.tiered_payload(params), "opt": opt}
+    monkeypatch.setattr(ck, "BUFFER_BYTES", 96)
+    ck.save_checkpoint(tmp_path, 2, payload)
+    other = _tiered(cfg, seed=9)
+    out = {"params": ht.tiered_payload(other),
+           "opt": ht.init_tiered_opt_state(other, config=cfg,
+                                           optimizer=optimizer)}
+    filled, step = ck.restore_checkpoint(tmp_path, out=out)
+    assert step == 2 and filled["params"]["emb_host"] is other["emb"].host
+    assert_bits_equal(filled, payload)
+    tree, _ = ck.open_checkpoint(tmp_path)
+    placed = ht.place_tiered(tree["params"], params["emb"].plan, cfg, "cpu")
+    assert_bits_equal(ht.tiered_payload(placed), payload["params"])
+    assert_bits_equal(ht.place_tiered_opt(tree["opt"], "cpu"), opt)
+
+
+@pytest.mark.parametrize("optimizer,k", [("sgd", 1), ("sgd", 3),
+                                         ("rowwise_adagrad", 1),
+                                         ("adagrad", 3)])
+def test_tiered_resume_equals_straight_run(optimizer, k, tmp_path):
+    """``train --hbm-budget-gb --ckpt-dir`` through ``_build_step``: N
+    straight steps against N/2, a save, a restore into other tensors and
+    N/2 more: the same loss bits and the same bits of every tensor."""
+    cfg = _cfg()
+    rng = np.random.default_rng(11)
+    batches = [random_batch(rng, cfg, 32) for _ in range(N)]
+    args = _args(optimizer, k, False, None)
+    args.hbm_budget_gb = 55 * 8 * 4 / (1 << 30)
+    plan = _train_plan(args)
+    straight = _build_step(args, cfg, plan, _tiered(cfg))
+    want_losses, _ = _run(straight, batches, k, 0)
+    mgr = ck.CheckpointManager(tmp_path, save_interval=N // 2)
+    first = _build_step(args, cfg, plan, _tiered(cfg), mgr)
+    got_losses, step = _run(first, batches[:N // 2], k, 0)
+    mgr.save(step, first.payload())
+    resumed = _build_step(args, cfg, plan, _tiered(cfg, seed=77), mgr)
+    assert resumed.start_step == N // 2
+    more, _ = _run(resumed, batches[N // 2:], k, resumed.start_step)
+    for a, b in zip(got_losses + more, want_losses):
+        assert torch.equal(a, b)
+    assert_bits_equal(resumed.payload(), straight.payload())

@@ -421,6 +421,183 @@ def test_train_ckpt_resume_matches_the_jax_cli(optimizer, tmp_path, capsys):
     assert {k: metas[0][k] for k in shared} == metas[1]
 
 
+# -- two-tier runs against the JAX package's CLI ------------------------------
+
+# 2e-6 GiB: 10 of the 26 tables on the device, 16 in the host tier
+TIERED26 = [*TRAIN26, "--hbm-budget-gb", "2e-6"]
+
+
+def _plant_tiered_start(flags, optimizer, jdir, tdir):
+    """The same step-0 two-tier checkpoint for both CLIs: the JAX package's
+    tiered parameters (and, for Adagrad, accumulators warmed to 0.01) and
+    the port's conversion of them; returns (JAX config, JAX plan, the
+    port's plan)."""
+    import jax
+    import dlrm_tpu
+    from dlrm_tpu import run as jrun
+    from dlrm_tpu.io import checkpoint as jck
+    from dlrm_tpu.parallel import host_tier as jht
+    from dlrm_tpu_torch.io import checkpoint as ck
+    from dlrm_tpu_torch.parallel import host_tier as ht
+    from test_torch_host_tier import _jax_opt_np, _jax_tiered_np, _warm_jax
+
+    jargs = jrun.build_parser().parse_args(flags)
+    jcfg = jrun._build_config(jargs)
+    budget = int(jargs.hbm_budget_gb * (1 << 30))
+    jplan, plan = jht.plan_tiers(jcfg, budget), ht.plan_tiers(_cfg(), budget)
+    jparams = dlrm_tpu.init_params(jax.random.key(jcfg.seed), jcfg)
+    jt = jht.init_tiered_params(jax.tree.map(np.asarray, jparams), jplan,
+                                jcfg)
+    tp = convert.tiered_params_from_numpy(_jax_tiered_np(jt, jplan, jcfg),
+                                          plan, _cfg())
+    jpay, tpay = jt, ht.tiered_payload(tp)
+    if optimizer != "sgd":
+        jopt = _warm_jax(jht.init_tiered_opt_state(
+            jt, config=jcfg, optimizer=optimizer, lr=0.1, plan=jplan))
+        topt = convert.tiered_opt_state_from_numpy(
+            _jax_opt_np(jopt, jplan, jcfg, optimizer), plan, _cfg(),
+            optimizer)
+        jpay, tpay = {"params": jt, "opt": jopt}, {"params": tpay,
+                                                    "opt": topt}
+    with jck.CheckpointManager(jdir) as mgr:
+        mgr.save(0, jpay)
+    ck.save_checkpoint(tdir, 0, tpay)
+    return jcfg, jplan, plan
+
+
+def _tiered_ckpts_diff(jdir, tdir, jcfg, jplan, plan, optimizer) -> dict:
+    """Max |diff| between the newest checkpoints of the two CLIs' tiered
+    runs: merged tables, dense parameters, accumulators of both tiers."""
+    from types import SimpleNamespace
+
+    from dlrm_tpu.io import checkpoint as jck
+    from dlrm_tpu.parallel import host_tier as jht
+    from dlrm_tpu_torch.io import checkpoint as ck
+    from dlrm_tpu_torch.parallel import host_tier as ht
+    from test_torch_host_tier import _jax_opt_np
+
+    jpay, jstep = jck.restore_checkpoint(jdir)
+    tpay, step = ck.restore_checkpoint(tdir)
+    assert step == jstep
+    jp, tp = (jpay, tpay) if optimizer == "sgd" else (jpay["params"],
+                                                      tpay["params"])
+    got = ht.merge_tiers(tp["emb_dev"], tp["emb_host"], plan, _cfg())
+    want = jht.merge_tiers(tuple(jp["emb_dev"]), np.asarray(jp["emb_host"]),
+                           jplan, jcfg)
+    out = {"tables": float(np.abs(got.numpy() - want).max()),
+           "dense": max(float(np.abs(l[k].numpy() - np.asarray(jl[k])).max())
+                        for part in ("bottom", "top")
+                        for l, jl in zip(tp[part], jp[part])
+                        for k in ("w", "b"))}
+    if optimizer != "sgd":
+        o = jpay["opt"]
+        want = _jax_opt_np({**o, "dense": [SimpleNamespace(**o["dense"][0])],
+                            "dev_acc": tuple(o["dev_acc"])}, jplan, jcfg,
+                           optimizer)
+        topt = tpay["opt"]
+        assert topt["count"] == want["count"] == step
+        out["accumulators"] = max(
+            float(np.abs(topt["dev_acc"].numpy() - want["dev_acc"]).max()),
+            float(np.abs(topt["host_acc"].numpy().reshape(-1)
+                         - want["host_acc"]).max()))
+    return out
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "rowwise_adagrad"])
+def test_train_two_tier_resume_matches_the_jax_cli(optimizer, tmp_path,
+                                                    capsys):
+    """``train --hbm-budget-gb --ckpt-dir --steps 4``, then ``--steps 6
+    --eval-after`` (a resume), through both CLIs from one planted start:
+    losses, the evaluation of the tiered parameters (JAX: its merged
+    eval_view; the port: both tiers in place), tables and dense parameters
+    within 1e-5, accumulators within 1e-6; ``run_meta.json`` alike."""
+    flags = [*TIERED26, "--optimizer", optimizer]
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jcfg, jplan, plan = _plant_tiered_start(flags, optimizer, jdir, tdir)
+    for steps, done, extra in (("4", 4, []), ("6", 2, ["--eval-after"])):
+        jline = _jax_line(capsys, [*flags, "--steps", steps, "--ckpt-dir",
+                                   jdir, "--sharded", "false", *extra])
+        line = _line(capsys, [*flags, "--steps", steps, "--ckpt-dir", tdir,
+                              "--device", "cpu", *extra])
+        assert jline["steps"] == line["steps"] == done
+        assert abs(jline["final_loss"] - line["final_loss"]) <= 1e-5
+    ev, jev = line["eval"], jline["eval"]
+    assert ev["examples"] == jev["examples"] == 320
+    assert max(abs(ev[k] - jev[k]) for k in ("loss", "auc")) <= 1e-5
+    assert abs(ev["accuracy"] - jev["accuracy"]) <= 1 / 320
+    d = _tiered_ckpts_diff(jdir, tdir, jcfg, jplan, plan, optimizer)
+    assert d["tables"] <= 1e-5 and d["dense"] <= 1e-5, d
+    assert d.get("accumulators", 0) <= 1e-6, d
+    metas = [json.loads(Path(x, "run_meta.json").read_text())
+             for x in (jdir, tdir)]
+    assert metas[1]["two_tier"] is True and metas[1]["hbm_budget_gb"] == 2e-6
+    assert {k: metas[0][k] for k in metas[1]} == metas[1]
+
+
+def test_eval_ckpt_dir_serves_a_two_tier_checkpoint(tmp_path, rng, capsys):
+    """``eval --ckpt-dir`` on a two-tier run's checkpoint (device tier to
+    the device, host tier into host memory) equals the run's own
+    ``--eval-after`` and the JAX package's ``eval --ckpt-dir`` on its twin
+    run; ``predict --ckpt-dir`` scores what ``place_tiered`` of it scores;
+    ``export --quantize int8`` reads it merged."""
+    from dlrm_tpu_torch.io import checkpoint as ck
+    from dlrm_tpu_torch.ops.quant import quantize_emb_host
+    from dlrm_tpu_torch.parallel import host_tier as ht
+    from dlrm_tpu_torch.run import score_batch
+
+    data = str(tmp_path / "d.bin")
+    _write_dac(data, 150, rng)
+    flags = [*TIERED26, "--optimizer", "adagrad"]
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    _, _, plan = _plant_tiered_start(flags, "adagrad", jdir, tdir)
+    run = ["--steps", "3", "--data", data, "--eval-after"]
+    line = _line(capsys, [*flags, *run, "--ckpt-dir", tdir, "--device",
+                          "cpu"])
+    _jax_line(capsys, [*flags, *run, "--ckpt-dir", jdir, "--sharded",
+                       "false"])
+    got = _line(capsys, ["eval", *TINY26, "--data", data, "--ckpt-dir",
+                         tdir])
+    assert got == {**line["eval"], "device": "cpu"}
+    assert got["examples"] == 150
+    want = _jax_line(capsys, ["eval", *MODEL26, "--data", data,
+                              "--batch-size", "32", "--ckpt-dir", jdir])
+    assert max(abs(got[k] - want[k]) for k in ("loss", "auc")) <= 1e-5
+    assert abs(got["accuracy"] - want["accuracy"]) <= 1 / 150
+    out = str(tmp_path / "s.npy")
+    _line(capsys, ["predict", *TINY26, "--data", data, "--ckpt-dir", tdir,
+                   "--out", out])
+    placed = ht.place_tiered(ck.open_checkpoint(tdir)[0]["params"], plan,
+                             _cfg(), "cpu")
+    np.testing.assert_array_equal(np.load(out), score_batch(
+        placed, DACLoader(load(data), 150)[0], _cfg(), torch.device("cpu")))
+    saved = ck.restore_checkpoint(tdir)[0]["params"]
+    logical = ht.merge_tiers(saved["emb_dev"], saved["emb_host"], plan,
+                             _cfg()).numpy()
+    q = str(tmp_path / "q")
+    exp = _line(capsys, ["export", *MODEL26, "--ckpt-dir", tdir, "--out", q,
+                         "--quantize", "int8"])
+    assert exp["table_bytes"] == ck.restore_checkpoint(q)[0]["emb_q"][
+        "codes"].numel() + 4 * sum(TABLES)
+    assert torch.equal(ck.restore_checkpoint(q)[0]["emb_q"]["codes"],
+                       quantize_emb_host(logical, _cfg()).codes)
+
+
+def test_host_prefetch_matches_the_jax_cli(tmp_path, capsys):
+    """``train --hbm-budget-gb --host-prefetch`` through both CLIs from one
+    planted start, 5 steps: the same final loss and tables within 1e-5."""
+    flags = [*TIERED26, "--host-prefetch"]
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jcfg, jplan, plan = _plant_tiered_start(flags, "sgd", jdir, tdir)
+    jline = _jax_line(capsys, [*flags, "--steps", "5", "--ckpt-dir", jdir,
+                               "--sharded", "false"])
+    line = _line(capsys, [*flags, "--steps", "5", "--ckpt-dir", tdir,
+                          "--device", "cpu"])
+    assert jline["steps"] == line["steps"] == 5
+    assert abs(jline["final_loss"] - line["final_loss"]) <= 1e-5
+    d = _tiered_ckpts_diff(jdir, tdir, jcfg, jplan, plan, "sgd")
+    assert d["tables"] <= 1e-5 and d["dense"] <= 1e-5, d
+
+
 @pytest.mark.parametrize("optimizer", ["adagrad", "sgd"])
 def test_eval_ckpt_dir_equals_the_runs_eval_after(optimizer, tmp_path, rng,
                                                   capsys):
@@ -435,7 +612,7 @@ def test_eval_ckpt_dir_equals_the_runs_eval_after(optimizer, tmp_path, rng,
 
 def test_serving_from_ckpt_dir_takes_the_runs_metadata(tmp_path, capsys):
     """bf16 tables come from run_meta.json; table sizes that differ from
-    the run's, and a two-tier or sharded run's checkpoint, are refused."""
+    the run's, and a sharded run's checkpoint, are refused."""
     from dlrm_tpu_torch.io import checkpoint as ck
 
     d = str(tmp_path / "ck")
@@ -452,11 +629,9 @@ def test_serving_from_ckpt_dir_takes_the_runs_metadata(tmp_path, capsys):
               d])
     meta_path = Path(d, "run_meta.json")
     meta = json.loads(meta_path.read_text())
-    for key, item in (("two_tier", "item 2, 'Two-tier"),
-                      ("sharded", "item 3, 'Multi-GPU'")):
-        meta_path.write_text(json.dumps({**meta, key: True}))
-        with pytest.raises(SystemExit, match=item):
-            main(["eval", *TINY26, "--ckpt-dir", d])
+    meta_path.write_text(json.dumps({**meta, "sharded": True}))
+    with pytest.raises(SystemExit, match="item 3, 'Multi-GPU'"):
+        main(["eval", *TINY26, "--ckpt-dir", d])
 
 
 def test_export_hdf5_loads_through_the_jax_package(tmp_path, capsys):

@@ -434,8 +434,6 @@ def test_cli_train_rejects_bad_plans(argv, msg):
 
 
 _REFUSED = [
-    ("--hbm-budget-gb", "8", "item 2, 'Two-tier tables'"),
-    ("--host-prefetch", None, "item 2, 'Two-tier tables'"),
     ("--sharded", "true", "item 3, 'Multi-GPU'"),
     ("--mesh-shape", "2x4", "item 3, 'Multi-GPU'"),
     ("--paranoid", "10", "item 3, 'Multi-GPU'"),
@@ -456,6 +454,69 @@ def test_cli_train_refuses_unported_flags(flag, value, item):
             flag] + ([value] if value is not None else [])
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
         main(argv)
+
+
+# 2e-6 GiB (2147 B, 67 rows of D=8) keeps 10 of the 26 tables on the device
+_BUDGET = ["--hbm-budget-gb", "2e-6"]
+
+
+@pytest.mark.parametrize("flags", [_BUDGET, _BUDGET + ["--host-prefetch"]])
+def test_cli_train_two_tier_flags_now_served(flags, capsys):
+    """``--hbm-budget-gb`` (and ``--host-prefetch``), once refused as 'not
+    served yet', run: the line equals the same tiered steps in process bit
+    for bit, and the all-device run within 1e-5 (a host row's hits are
+    summed before they are added)."""
+    from dlrm_tpu_torch.parallel import host_tier as ht
+
+    argv = ["train", *_TINY26, "--steps", "5", "--synthetic", "skewed",
+            "--log-every", "1"]
+    line = _cli_line(capsys, argv + flags)
+    plain = _cli_line(capsys, argv)
+    cfg = dataclasses.replace(tc.tiny_config(), table_sizes=TABLES)
+    p = dlrm_tpu_torch.init_params(torch.Generator().manual_seed(cfg.seed),
+                                   cfg)
+    tiers = ht.plan_tiers(cfg, int(2e-6 * ht.GIB))
+    assert len(tiers.device_tables) == 10
+    p = ht.init_tiered_params(p, tiers, cfg)
+    data = list(ClickthroughModel(cfg, seed=12345).stream(32, 5, seed=1))
+    rows = ht.prime_host_prefetch(p["emb"], torch.from_numpy(
+        data[0]["sparse"]))
+    for b, nxt in zip(data, data[1:] + data[-1:]):
+        args = [torch.from_numpy(b[k]) for k in BATCH_KEYS]
+        if "--host-prefetch" in flags:
+            rows, loss = ht.tiered_train_step_pipelined(
+                p, rows, *args, torch.from_numpy(nxt["sparse"]), config=cfg,
+                lr=0.1)
+        else:
+            loss = ht.tiered_train_step(p, *args, config=cfg, lr=0.1)
+    assert line["steps"] == 5 and line["final_loss"] == float(loss)
+    assert abs(line["final_loss"] - plain["final_loss"]) <= 1e-5
+
+
+_TWO_TIER_REFUSED = [
+    (["--grad-clip-norm", "1", *_BUDGET], "drop --hbm-budget-gb"),
+    (["--sharded", "true", *_BUDGET], "does not compose with the sharded"),
+    (["--host-prefetch"], "it needs --hbm-budget-gb"),
+    (["--host-prefetch", "--optimizer", "adagrad", *_BUDGET],
+     "supports sgd with a constant lr"),
+    (["--host-prefetch", "--lr-schedule", "warmup_poly_decay",
+      "--warmup-steps", "2", *_BUDGET], "supports sgd with a constant lr"),
+    (["--host-prefetch", "--update-interval", "2", *_BUDGET],
+     "does not compose with --update-interval"),
+    (["--update-interval", "2", "--lr-schedule", "warmup_poly_decay",
+      "--warmup-steps", "2", *_BUDGET], "supports a constant lr only"),
+    (["--ckpt-dir", "{ckpt}", "--hbm-budget-gb", "1"],
+     "needs both tiers non-empty"),
+    (["--host-prefetch", "--hbm-budget-gb", "1"], "needs a host tier"),
+]
+
+
+@pytest.mark.parametrize("flags,msg", _TWO_TIER_REFUSED)
+def test_cli_train_refuses_what_the_jax_two_tier_path_refuses(flags, msg,
+                                                              tmp_path):
+    flags = [f.replace("{ckpt}", str(tmp_path / "ck")) for f in flags]
+    with pytest.raises(SystemExit, match=msg):
+        main(["train", *_TINY26, "--steps", "2", *flags])
 
 
 @pytest.mark.parametrize("flag", ["--ckpt-dir", "--save-interval",
@@ -549,7 +610,8 @@ def test_refusal_table_covers_the_jax_train_flags():
               "grad_clip_norm", "adagrad_impl", "update_interval",
               "block_scan", "eval_data", "eval_after", "eval_every",
               "eval_steps", "validate_data", "ckpt_dir", "save_interval",
-              "max_to_keep", "profile_dir", "sharded"}
+              "max_to_keep", "profile_dir", "sharded", "hbm_budget_gb",
+              "host_prefetch"}
     assert ours - served == set(_NOT_YET)
 
 
