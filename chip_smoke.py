@@ -65,15 +65,18 @@ result):
  11. two-tier tables at full width (Kaggle fs=128 f32 under
      `--hbm-budget-gb 4`: tables 2, 11 and 20, 13.07 GB, in pinned host
      memory, the budget checked against MemAvailable): the host-tier
-     kernels against their plain versions bit for bit (the gather into the
-     pooled columns of a training batch, int64 ids, edge rows, bf16, width
-     1; the update on distinct rows, edge rows, bf16, width 1), timed with
-     their bounds at the pinned copy rates; 8 two-tier SGD steps, 4 Adagrad
-     and 4 row-wise Adagrad from warm accumulators, each against the
-     all-device steps from one state (1e-5); K=4 two-tier blocks against 4
-     steps; pipelined against inline under deterministic sums (equal
-     bits); the device peaks of both steps, step times in turns, a profile
-     (the host-tier kernels named, no cat, no pooled-size copy); `train
+     kernels timed with their bounds (before the host CPU touches a row),
+     with sequential, skewed and pre-sorted ids and an update on shuffled
+     ids read beside them, then against their plain versions bit for bit
+     (the gather into the pooled columns of a training batch, int64 ids,
+     skewed ids, ids unsorted and sorted beforehand, edge rows, bf16, width
+     1; the update on sorted and shuffled distinct rows, edge rows, bf16,
+     width 1); 8 two-tier SGD steps, 4 Adagrad and 4 row-wise Adagrad from
+     warm accumulators, each against the all-device steps from one state
+     under deterministic sums (1e-5); K=4 two-tier blocks against 4 steps;
+     pipelined against inline under deterministic sums (equal bits); the
+     device peaks of both steps, step times in turns, a profile (the
+     host-tier kernels named, no cat, no pooled-size copy); `train
      --hbm-budget-gb 4` (row-wise Adagrad, a resume), `eval --ckpt-dir` on
      its checkpoint and `train --hbm-budget-gb 4 --host-prefetch` in
      subprocesses against the same work in process, with peak VmRSS;
@@ -1542,22 +1545,108 @@ def _host_ids(plan, sparse: torch.Tensor) -> torch.Tensor:
     return sparse[:, list(plan.host_tables)] + offs
 
 
+def _host_kernel_times(H, host, ids, uniq, pooled, ref, cols, rates
+                       ) -> dict:
+    """The host-tier kernels' times at the main path's shapes, taken before
+    the host CPU touches any row of the tier (a row it has just read or
+    written can read faster over PCIe): both kernels, then readings beside
+    them (sequential ids: what such reads reach on this card and host;
+    skewed ids; ids sorted beforehand; an update on shuffled ids), then
+    the plain versions and one PyTorch call on the host each."""
+    d = host.shape[1]
+    rb = d * host.element_size()
+    zeros = torch.zeros((uniq.numel(), d), device=DEV)  # adding 0 keeps bits
+    kernels = {"host_gather": lambda: H.host_gather(host, ids, out=pooled,
+                                                    cols=cols),
+               "host_update_rows": lambda: H.host_update_rows(host, uniq,
+                                                              zeros)}
+    ms = {name: [] for name in kernels}
+    for _ in range(2):
+        for name, kern in kernels.items():
+            ms[name] += time_ms(kern, warmup=2, reps=5, inner=10)
+    flat = ids.reshape(-1)
+    g = torch.Generator(DEV).manual_seed(73)
+    hot = torch.randint(0, host.shape[0], (1000,), generator=g, device=DEV)
+    skew = flat.clone()
+    skew[::2] = hot[torch.randint(0, 1000, (skew[::2].numel(),), generator=g,
+                                  device=DEV)].to(skew.dtype)
+    shuffled = uniq[torch.randperm(uniq.numel(), generator=g, device=DEV)]
+    readings = {
+        "sequential ids 0..n-1": (torch.arange(flat.numel(), device=DEV),
+                                  H.host_gather),
+        "skewed ids (half from 1,000 hot rows)": (skew, H.host_gather),
+        "ids sorted beforehand": (torch.sort(flat).values, H.host_gather),
+        "update on shuffled ids": (shuffled, lambda t, i: H.host_update_rows(
+            t, i, zeros))}
+    read_ms = {}
+    for name, (i, fn) in readings.items():
+        read_ms[name] = statistics.median(time_ms(
+            lambda: fn(host, i), warmup=2, reps=5, inner=10))
+    zeros_host, uniq_host = zeros.cpu(), uniq.cpu()
+    ids_host = flat.cpu()
+    plains = {"host_gather": lambda: H.host_gather_reference(host, ids, ref,
+                                                             cols),
+              "host_update_rows": lambda: H.host_update_rows_reference(
+                  host, uniq, zeros)}
+    library = {"host_gather": lambda: host.index_select(0, ids_host),
+               "host_update_rows": lambda: host.index_add_(0, uniq_host,
+                                                           zeros_host)}
+    out = {}
+    for name in kernels:
+        kern_ms = statistics.median(ms[name])
+        plain_ms = statistics.median(time_ms(plains[name], warmup=1, reps=5,
+                                             inner=3))
+        # the gather reads its rows over PCIe and writes them to HBM with
+        # the ids; the update reads and writes its rows over PCIe (each way
+        # at the link's rate) and reads the ids and f32 updates from HBM
+        n = flat.numel() if name == "host_gather" else uniq.numel()
+        pcie_s = n * rb / PCIE_BYTES_PER_S
+        hbm = n * (ids.element_size() + rb) if name == "host_gather" \
+            else n * (uniq.element_size() + d * 4)
+        bound_ms = max(pcie_s, hbm / HBM_BYTES_PER_S) * 1e3
+        lib = []   # one PyTorch call on the host, its inputs already there
+        for _ in range(5):
+            t0 = time.perf_counter()
+            library[name]()
+            lib.append((time.perf_counter() - t0) * 1e3)
+        library_ms = statistics.median(lib)
+        out[name] = {"ms": kern_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": "bytes",
+                     "library_ms": library_ms}
+        call = "index_select" if name == "host_gather" else "index_add_"
+        print(f"  {name}: {n} rows of {rb} B, kernel {kern_ms:.4f} ms "
+              f"({n * rb / kern_ms / 1e6:.2f} GB/s of rows; pinned copies "
+              f"{rates['h2d']:.2f} / {rates['d2h']:.2f} GB/s to / from the "
+              f"card), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms at "
+              f"{PCIE_BYTES_PER_S / 1e9:.0f} GB/s each way "
+              f"({bound_ms / kern_ms:.0%} of it reached); {call} on the host "
+              f"{library_ms:.4f} ms")
+    for name, t in read_ms.items():
+        n = readings[name][0].numel()
+        print(f"  beside them, {name}: {n} rows, {t:.4f} ms "
+              f"({n * rb / t / 1e6:.2f} GB/s of rows)")
+    return out
+
+
 def _host_kernel_checks(emb, config, batch, rates) -> dict:
-    """host_gather and host_update_rows against their plain versions at the
-    main path's shapes (one training batch's host rows, f32), on the
-    table's first and last rows, in bf16 and on a width-1 stack; then
-    kernel, plain and PyTorch-call times in turns, and each kernel's bound
-    (PCIe bytes at the link's published rate each way, HBM bytes at the HBM
-    rate).  Every row the update checks touch is put back."""
+    """host_gather and host_update_rows at the main path's shapes (one
+    training batch's host rows, f32): timed first (``_host_kernel_times``),
+    then held against their plain versions bit for bit, into the pooled
+    columns and contiguous, on skewed ids, ids sorted beforehand, the
+    table's first and last rows, in bf16 and on a width-1 stack; the update
+    on sorted and shuffled distinct rows as well.  Every row the update
+    checks touch is put back."""
     from dlrm_tpu_torch.parallel import host_tier as H
 
     plan, host, d = emb.plan, emb.host, config.feature_size
-    rb = d * host.element_size()
     g = torch.Generator(DEV).manual_seed(71)
     ids = _host_ids(plan, torch.from_numpy(batch["sparse"]).to(DEV))
     b, t = ids.shape[0], config.num_tables
     pooled = torch.zeros((b, t, d), device=DEV)
     ref = torch.zeros_like(pooled)
+    uniq = torch.unique(ids.long())
+    out = _host_kernel_times(H, host, ids, uniq, pooled, ref,
+                             plan.host_tables, rates)
     errs = {"host_gather": [], "host_update_rows": []}
 
     def gather_pair(name, got, want) -> None:
@@ -1573,7 +1662,16 @@ def _host_kernel_checks(emb, config, batch, rates) -> dict:
     edges = torch.cat([torch.arange(lo + a, lo + a + 4096)
                        for tab, lo in zip(plan.host_tables, plan.host_offsets)
                        for a in (0, config.table_sizes[tab] - 4096)]).to(DEV)
+    flat = ids.reshape(-1)
+    hot = torch.randint(0, plan.host_rows, (1000,), generator=g, device=DEV)
+    skew = flat.clone()
+    skew[::2] = hot[torch.randint(0, 1000, (skew[::2].numel(),), generator=g,
+                                  device=DEV)].to(skew.dtype)
     for name, i in (("int64 ids, contiguous out", ids.long().reshape(-1)),
+                    ("skewed: half the ids from 1,000 hot rows", skew),
+                    ("unsorted ids", flat),
+                    ("the same ids sorted beforehand",
+                     torch.sort(flat).values),
                     ("edge rows", edges)):
         gather_pair(name, H.host_gather(host, i),
                     H.host_gather_reference(host, i))
@@ -1582,7 +1680,7 @@ def _host_kernel_checks(emb, config, batch, rates) -> dict:
         """The kernel's update and the plain one from the same rows: equal
         bits, and (f32) equal to the f32 sum; the rows put back."""
         torch.cuda.synchronize()
-        cpu_rows = rows.cpu()
+        cpu_rows = rows.cpu().long()
         before = table.index_select(0, cpu_rows)
         H.host_update_rows(table, rows, upd)
         torch.cuda.synchronize()
@@ -1599,9 +1697,10 @@ def _host_kernel_checks(emb, config, batch, rates) -> dict:
             check(torch.equal(got, before + upd.cpu().reshape(got.shape)),
                   "host_update_rows is not the f32 sum")
 
-    uniq = torch.unique(ids.long())
     upd = torch.randn((uniq.numel(), d), generator=g, device=DEV)
     update_pair(host, uniq, upd)
+    update_pair(host, uniq[torch.randperm(uniq.numel(), generator=g,
+                                          device=DEV)].int(), upd)
     update_pair(host, edges, torch.randn((edges.numel(), d), generator=g,
                                          device=DEV))
     small = torch.empty((1 << 21, d), dtype=torch.bfloat16, pin_memory=True)
@@ -1619,59 +1718,14 @@ def _host_kernel_checks(emb, config, batch, rates) -> dict:
                 H.host_gather_reference(scalars, edges))
     print(f"host-tier kernels vs plain: host_gather bit for bit into the "
           f"pooled columns of ({b}, {t}, {d}) from {ids.numel()} host ids, "
-          f"contiguous with int64 ids, on the {edges.numel()} first and "
-          f"last rows of the host tables, in bf16 and at width 1; "
-          f"host_update_rows bit for bit on {uniq.numel()} distinct rows "
-          f"(the f32 sum), on the edge rows, in bf16 and at width 1")
-
-    zeros = torch.zeros_like(upd)   # adding 0 keeps the tables' bits
-    zeros_host, uniq_host = zeros.cpu(), uniq.cpu()
-    ids_host = ids.reshape(-1).cpu()
-    library = {"host_gather": lambda: host.index_select(0, ids_host),
-               "host_update_rows": lambda: host.index_add_(0, uniq_host,
-                                                           zeros_host)}
-    timings = {
-        "host_gather": (
-            lambda: H.host_gather(host, ids, out=pooled,
-                                  cols=plan.host_tables),
-            lambda: H.host_gather_reference(host, ids, ref,
-                                            plan.host_tables)),
-        "host_update_rows": (
-            lambda: H.host_update_rows(host, uniq, zeros),
-            lambda: H.host_update_rows_reference(host, uniq, zeros)),
-    }
-    out = {}
-    for name, (kern, plain) in timings.items():
-        p = time_ms(plain, warmup=1, reps=3, inner=3)
-        k = time_ms(kern, warmup=2, reps=5, inner=10)
-        k += time_ms(kern, warmup=0, reps=5, inner=10)
-        p += time_ms(plain, warmup=0, reps=3, inner=3)
-        ms, plain_ms = statistics.median(k), statistics.median(p)
-        # the gather reads its rows over PCIe and writes them to HBM with
-        # the ids; the update reads and writes its rows over PCIe (each way
-        # at the link's rate) and reads the ids and f32 updates from HBM
-        n = ids.numel() if name == "host_gather" else uniq.numel()
-        pcie_s = n * rb / PCIE_BYTES_PER_S
-        hbm = n * (ids.element_size() + rb) if name == "host_gather" \
-            else n * (uniq.element_size() + d * 4)
-        bound_ms = max(pcie_s, hbm / HBM_BYTES_PER_S) * 1e3
-        lib = []   # one PyTorch call on the host, its inputs already there
-        for _ in range(5):
-            t0 = time.perf_counter()
-            library[name]()
-            lib.append((time.perf_counter() - t0) * 1e3)
-        library_ms = statistics.median(lib)
-        out[name] = {"max_abs_err": max(errs[name]), "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": "bytes", "library_ms": library_ms}
-        call = "index_select" if name == "host_gather" else "index_add_"
-        print(f"  {name}: {n} rows of {rb} B, kernel {ms:.4f} ms "
-              f"({n * rb / ms / 1e6:.2f} GB/s of rows; pinned copies "
-              f"{rates['h2d']:.2f} / {rates['d2h']:.2f} GB/s to / from the "
-              f"card), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms at "
-              f"{PCIE_BYTES_PER_S / 1e9:.0f} GB/s each way "
-              f"({bound_ms / ms:.0%} of it reached); {call} on the host "
-              f"{library_ms:.4f} ms")
+          f"contiguous with int64 ids, on skewed ids (half from 1,000 hot "
+          f"rows), on the ids unsorted and sorted beforehand, on the "
+          f"{edges.numel()} first and last rows of the host tables, in bf16 "
+          f"and at width 1; host_update_rows bit for bit on {uniq.numel()} "
+          f"distinct rows sorted and shuffled (the f32 sum), on the edge "
+          f"rows, in bf16 and at width 1")
+    for name, v in out.items():
+        v["max_abs_err"] = max(errs[name])
     del small, scalars
     return out
 
@@ -1827,8 +1881,9 @@ def _tier_times(params, tiered, state_all, state_t, config, optimizer: str,
 def _tiered_vs_all(tiered, state_t, params, state_all, tmap, config,
                    optimizer: str, lr: float, batches) -> None:
     """``len(batches)`` two-tier steps against as many all-device ones from
-    the same state: losses, dense parameters and touched rows within 1e-5;
-    the touched rows' accumulators within 1e-5 of their largest entry."""
+    the same state, both under deterministic sums: losses, dense parameters
+    and touched rows within 1e-5; the touched rows' accumulators within
+    1e-5 of their largest entry."""
     from dlrm_tpu_torch.parallel import host_tier as H
 
     n = len(batches)
@@ -1838,10 +1893,12 @@ def _tiered_vs_all(tiered, state_t, params, state_all, tmap, config,
     step_t = _tier_fns(tiered, state_t, config, optimizer, lr)[0]
     step_a = _step_fns(config, optimizer, lr, params, state_all)[0]
     gather, update = _tier_calls(optimizer)
+    # deterministic sums on both sides: the atomics' order otherwise moves
+    # the accumulators by up to 1.01e-5 of their largest from run to run
     with counted(f"two-tier {optimizer} steps", n, n, gather * n,
-                 update * n):
+                 update * n), _deterministic():
         tiered_losses = [float(step_t(*_to_dev(b))) for b in batches]
-    with counted(f"all-device {optimizer} steps", n, n):
+    with counted(f"all-device {optimizer} steps", n, n), _deterministic():
         all_losses = [float(step_a(*_to_dev(b))) for b in batches]
     rows = _stack_rows(emb.dev, emb.host, tmap, touched)
     diffs = {"losses": float(np.abs(np.subtract(tiered_losses,

@@ -16,10 +16,14 @@ Only the rows a batch touches cross PCIe, through two hand-written CUDA
 kernels (``csrc/host_tier.cu``) that the card runs on the pinned stack in
 place: ``host_gather`` writes the rows straight into their table columns of
 the pooled rows on the card, ``host_update_rows`` adds updates into
-distinct rows (duplicates are summed on the card first, in f32).  Each
-wrapper takes its plain torch version for CPU tensors (``index_select`` /
-``index_add_`` on the host) and launches its kernel, or raises, for CUDA
-ones.
+distinct rows (duplicates are summed on the card first, in f32).  Both
+visit their host rows in ascending order, a narrow window of rows in flight
+at a time, so that neighbouring rows share the card's translations of the
+mapped tier: the gather sorts its ids on the card with their positions
+(``gather_plan``), the update takes the sorted ids that ``sum_duplicates``
+gives (``update_plan``).  Each wrapper takes its plain torch version for
+CPU tensors (``index_select`` / ``index_add_`` on the host) and launches its
+kernel, or raises, for CUDA ones.
 
 Tiered parameters are ``{"bottom", "top", "emb": TieredEmb}``: the model's
 forward, ``train.metrics.evaluate`` and ``run.score_batch`` take them as
@@ -193,18 +197,103 @@ def merge_tiers(emb_dev, emb_host, plan: TierPlan, config: DLRMConfig
 # -- the two host-tier kernels and their plain versions -----------------------
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_GATHER_ARGS = (_P, _L, _L, _L, _P, _I, _L, _P, _I, _I, _P, _L, _L, _L, _I, _I,
-                _P)
+_GATHER_ARGS = (_P, _L, _L, _L, _P, _I, _P, _L, _P, _I, _I, _P)
 _UPDATE_ARGS = (_P, _L, _I, _L, _I, _P, _I, _L, _P, _I, _I, _P)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Mirrors of csrc/host_tier.cu's kThreads and kInFlight: threads a block,
+# units a thread moves a round.
+_THREADS = 256
+_IN_FLIGHT = 2
+# Bytes of host rows the grid moves a round: a narrow window of the
+# visiting order, which keeps the rows in flight within the card's cached
+# translations of the mapped host tier while covering the link's latency.
+# On an H100, of 64 KiB to 1 MiB, 256 KiB gave the fastest update and a
+# gather within 2% of the fastest; 64 KiB is 65-95% slower
+# (probes/host_tier_probe.py, PERF.md §6).
+WINDOW = 256 << 10
 
 
-def _pow2_lanes(chunks: int) -> int:
-    """Lanes a row: the power of two at or above ``chunks``, at most 32."""
-    lanes = 1
-    while lanes < min(chunks, 32):
-        lanes *= 2
-    return lanes
+class GatherPlan(NamedTuple):
+    """What ``host_gather``'s kernel is handed: the ids in the order it
+    visits them (ascending, so that neighbouring host rows share their
+    address translations), each visited row's byte offset in the output,
+    the bytes a thread copies at once, and the grid."""
+
+    ids: torch.Tensor    # (n,) int32 or int64, ascending
+    dst: torch.Tensor    # (n,) int64 byte offsets into the output
+    unit: int            # 16, 8, 4, 2 or 1
+    blocks: int
+
+
+class UpdatePlan(NamedTuple):
+    """What ``host_update_rows``'s kernel is handed besides the tensors:
+    16-byte units (else the element-wise branch) and the grid."""
+
+    vec: bool
+    blocks: int
+
+
+def _grid(n_units: int, unit: int) -> int:
+    """Blocks whose round moves :data:`WINDOW` bytes of ``unit``-byte
+    units, at least 1 and no more than ``n_units`` take."""
+    per_block = _THREADS * _IN_FLIGHT
+    want = max(1, WINDOW // (per_block * unit))
+    return max(1, min(want, -(-n_units // per_block)))
+
+
+@functools.lru_cache(maxsize=32)
+def _column_offsets(batch: int, cols: Tuple[int, ...], n_hot: int,
+                    strides: Tuple[int, int, int], device: torch.device
+                    ) -> torch.Tensor:
+    """Byte offsets in a pooled (B, T[, H], W) output of the rows of ids
+    (B, len(cols)[, H]) in their natural order (made once a shape)."""
+    s_row, s_col, s_hot = strides
+    r = torch.arange(batch, dtype=torch.int64, device=device) * s_row
+    c = torch.tensor(cols, dtype=torch.int64, device=device) * s_col
+    h = torch.arange(n_hot, dtype=torch.int64, device=device) * s_hot
+    return (r[:, None, None] + c[None, :, None] + h[None, None, :]).reshape(-1)
+
+
+def gather_plan(table: torch.Tensor, ids: torch.Tensor, out: torch.Tensor,
+                cols: Optional[Tuple[int, ...]] = None) -> GatherPlan:
+    """The plan of ``host_gather(table, ids, out, cols)`` (``cols`` None: a
+    contiguous ``ids.shape + (W,)`` output): the ids sorted on their
+    device together with their positions (no host sync), the positions
+    turned into byte offsets in ``out``, the widest copy unit that the row
+    bytes, both tensors' addresses and the output's strides allow, and the
+    grid for :data:`WINDOW`."""
+    row_bytes = table.shape[1] * table.element_size()
+    esize = out.element_size()
+    flat = ids.reshape(-1)
+    order, perm = torch.sort(flat)
+    if cols is None:
+        strides = (row_bytes,)
+        dst = perm * row_bytes
+    else:
+        strides = (out.stride(0) * esize, out.stride(1) * esize,
+                   out.stride(2) * esize if ids.dim() == 3 else 0)
+        n_hot = ids.shape[2] if ids.dim() == 3 else 1
+        dst = _column_offsets(ids.shape[0], tuple(cols), n_hot, strides,
+                              ids.device).index_select(0, perm)
+    unit = next(v for v in (16, 8, 4, 2, 1)
+                if all(x % v == 0 for x in (row_bytes, table.data_ptr(),
+                                            out.data_ptr(), *strides)))
+    return GatherPlan(order, dst, unit,
+                      _grid(flat.numel() * row_bytes // unit, unit))
+
+
+def update_plan(table: torch.Tensor, ids: torch.Tensor, upd: torch.Tensor
+                ) -> UpdatePlan:
+    """The plan of ``host_update_rows(table, ids, upd)``: 16-byte units
+    where the row's bytes and both tensors' addresses allow it, else the
+    element-wise branch (the row-wise accumulator, 4 bytes a row); the grid
+    for :data:`WINDOW`.  The ids keep their order: they come sorted
+    from ``sum_duplicates``."""
+    row_bytes = table.shape[1] * table.element_size()
+    vec = (row_bytes % 16 == 0 and table.data_ptr() % 16 == 0
+           and upd.data_ptr() % 16 == 0)
+    unit = 16 if vec else table.element_size()
+    return UpdatePlan(vec, _grid(ids.numel() * row_bytes // unit, unit))
 
 
 def _base(t: torch.Tensor) -> Tuple[int, int]:
@@ -266,46 +355,37 @@ def host_gather(table: torch.Tensor, ids: torch.Tensor,
     of ids' axis 1): ``out[:, cols[j]] = table[ids[:, j]]`` for ids (B,
     len(cols)[, H]), written in place; returns ``out``.
 
-    CPU ids: the plain version.  CUDA ids: the kernel on the pinned stack,
-    or an error; ``host_gather.launches`` counts launches."""
+    CPU ids: the plain version.  CUDA ids: the kernel on the pinned stack
+    (visiting the ids in the order of :func:`gather_plan`), or an error;
+    ``host_gather.launches`` counts launches."""
     if ids.device.type == "cpu":
         return host_gather_reference(table, ids, out, cols)
     _check_table(table, "host_gather")
     _check_ids(ids, "host_gather")
-    w, esize = table.shape[1], table.element_size()
+    w = table.shape[1]
     if out is None:
         out = torch.empty((*ids.shape, w), dtype=table.dtype,
                           device=ids.device)
-        view, n_cols, n_hot = out.reshape(-1, w), 1, 1
-        strides, col_map = (w * esize, 0, 0), None
-    else:
-        if out.dtype != table.dtype or out.device != ids.device \
-                or out.dim() != ids.dim() + 1 or out.shape[-1] != w \
-                or out.stride(-1) != 1 or cols is None \
-                or ids.shape[1] != len(cols) or ids.shape[0] != out.shape[0] \
-                or tuple(ids.shape[2:]) != tuple(out.shape[2:-1]):
-            raise ValueError(f"host_gather: out {tuple(out.shape)} "
-                             f"{out.dtype} on {out.device} does not take ids "
-                             f"{tuple(ids.shape)} into columns {cols}")
-        view, n_cols = out, len(cols)
-        n_hot = ids.shape[2] if ids.dim() == 3 else 1
-        strides = (out.stride(0) * esize, out.stride(1) * esize,
-                   out.stride(2) * esize if ids.dim() == 3 else 0)
-        col_map = _index(tuple(cols), out.device, torch.int32)
+        cols = None
+    elif out.dtype != table.dtype or out.device != ids.device \
+            or out.dim() != ids.dim() + 1 or out.shape[-1] != w \
+            or out.stride(-1) != 1 or cols is None \
+            or ids.shape[1] != len(cols) or ids.shape[0] != out.shape[0] \
+            or tuple(ids.shape[2:]) != tuple(out.shape[2:-1]):
+        raise ValueError(f"host_gather: out {tuple(out.shape)} {out.dtype} "
+                         f"on {out.device} does not take ids "
+                         f"{tuple(ids.shape)} into columns {cols}")
     n = ids.numel()
     if n == 0:
         return out
-    row_bytes = w * esize
+    plan = gather_plan(table, ids, out, cols)
+    row_bytes = w * table.element_size()
     base, offset = _base(table)
-    vec = next(v for v in (16, 8, 4, 2, 1)
-               if all(x % v == 0 for x in (row_bytes, offset, base,
-                                           view.data_ptr(), *strides)))
     with torch.cuda.device(ids.device):
         rc = _kernel("host_gather", _GATHER_ARGS)(
-            base, offset, table.shape[0], row_bytes, ids.data_ptr(),
-            int(ids.dtype == torch.int64), n, view.data_ptr(), n_cols, n_hot,
-            None if col_map is None else col_map.data_ptr(), *strides, vec,
-            _pow2_lanes(row_bytes // vec), _stream(ids))
+            base, offset, table.shape[0], row_bytes, plan.ids.data_ptr(),
+            int(ids.dtype == torch.int64), plan.dst.data_ptr(), n,
+            out.data_ptr(), plan.unit, plan.blocks, _stream(ids))
     if rc != 0:
         raise RuntimeError(f"host_gather kernel launch failed: CUDA error "
                            f"{rc} for {n} rows of {row_bytes} B")
@@ -352,16 +432,13 @@ def host_update_rows(table: torch.Tensor, ids: torch.Tensor,
                          f"{tuple(upd.shape)} {upd.dtype} on {upd.device}")
     if n == 0:
         return
-    esize = table.element_size()
+    plan = update_plan(table, ids, upd)
     base, offset = _base(table)
-    vec = ((w * esize) % 16 == 0 and (base + offset) % 16 == 0
-           and upd.data_ptr() % 16 == 0)
-    chunk = 16 // esize if vec else 1
     with torch.cuda.device(ids.device):
         rc = _kernel("host_update_rows", _UPDATE_ARGS)(
             base, offset, _DTYPE_CODES[table.dtype], table.shape[0], w,
             ids.data_ptr(), int(ids.dtype == torch.int64), n, upd.data_ptr(),
-            int(vec), _pow2_lanes(-(-w // chunk)), _stream(ids))
+            int(plan.vec), plan.blocks, _stream(ids))
     if rc != 0:
         raise RuntimeError(f"host_update_rows kernel launch failed: CUDA "
                            f"error {rc} for {n} rows of {w} {table.dtype}")

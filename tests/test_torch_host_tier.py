@@ -14,6 +14,7 @@ each hit, which moves the last bits only.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -537,6 +538,152 @@ def test_plain_kernel_versions():
     assert torch.equal(ht.host_tier_gather(acc, torch.tensor([5, 2])),
                        torch.tensor([2.0, 4.0]))
     assert ht.host_gather.launches == 0 and ht.host_update_rows.launches == 0
+
+
+def _kernel_walk(n_rows, units, blocks):
+    """The (row, unit) pairs that the kernels of csrc/host_tier.cu visit,
+    by its ``Rounds`` arithmetic: thread t's slots start at units t, t +
+    step, ... (step = blocks x threads), each advancing ``_IN_FLIGHT``
+    steps a round, a row and unit carried by addition, until its first
+    slot passes the last row."""
+    step = blocks * ht._THREADS
+    step_i, step_c = divmod(step, units)
+    round_i, round_c = divmod(step * ht._IN_FLIGHT, units)
+
+    def advance(i, c, di, dc):
+        c = c + dc
+        return i + di + (c >= units), np.where(c >= units, c - units, c)
+
+    first = np.arange(step, dtype=np.int64)
+    slots = [(first // units, first % units)]
+    for _ in range(1, ht._IN_FLIGHT):
+        slots.append(advance(*slots[-1], step_i, step_c))
+    rows, cols = [], []
+    while (slots[0][0] < n_rows).any():
+        for i, c in slots:   # a slot past the last row is not visited
+            rows.append(i[i < n_rows])
+            cols.append(c[i < n_rows])
+        slots = [advance(i, c, round_i, round_c) for i, c in slots]
+    return np.concatenate(rows), np.concatenate(cols)
+
+
+def _bytes(t):
+    """A contiguous tensor's bytes as a writable numpy view."""
+    return t.view(torch.uint8).reshape(-1).numpy()
+
+
+def _emulate_gather(table, plan, out):
+    """The gather kernel's copies, unit by unit along its walk."""
+    row_bytes = table.shape[1] * table.element_size()
+    units = row_bytes // plan.unit
+    i, c = _kernel_walk(plan.ids.numel(), units, plan.blocks)
+    q = np.sort(i * units + c)
+    assert np.array_equal(q, np.arange(plan.ids.numel() * units)), \
+        "the walk must visit every unit once"
+    src = plan.ids.numpy().astype(np.int64)[i] * row_bytes + c * plan.unit
+    dst = plan.dst.numpy()[i] + c * plan.unit
+    tb, ob = _bytes(table), _bytes(out)
+    for b in range(plan.unit):
+        ob[dst + b] = tb[src + b]
+
+
+def _emulate_update(table, ids, upd, plan):
+    """The update kernel along its walk: each unit's elements summed in f32
+    with the update and rounded once to the table's dtype."""
+    w = table.shape[1]
+    vec = 16 // table.element_size() if plan.vec else 1
+    i, c = _kernel_walk(ids.numel(), w // vec, plan.blocks)
+    assert np.array_equal(np.sort(i * (w // vec) + c),
+                          np.arange(ids.numel() * (w // vec)))
+    rows = torch.from_numpy(ids.numpy().astype(np.int64)[i])
+    for e in range(vec):
+        col = torch.from_numpy(c * vec + e)
+        table[rows, col] = (table[rows, col].float()
+                            + upd[torch.from_numpy(i), col]).to(table.dtype)
+
+
+_LAYOUTS = ("pooled", "pooled_multi_hot", "contiguous")
+# (dtype, width): 16-byte units, bf16, width 1 (4-byte rows), 8- and
+# 2-byte units
+_ROWS = ((torch.float32, 8), (torch.bfloat16, 8), (torch.float32, 1),
+         (torch.float32, 2), (torch.bfloat16, 3))
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("rows", _ROWS, ids=lambda r: f"{r[0]}-w{r[1]}")
+@pytest.mark.parametrize("layout", _LAYOUTS)
+def test_gather_plan_emulated_is_the_gather(layout, rows, id_dtype):
+    """``gather_plan`` and the kernel's walk over it, emulated in numpy,
+    give the plain gather's bytes and the JAX package's rows: ids sorted
+    with their positions, duplicates, every output layout, id dtype, row
+    width and unit."""
+    dtype, w = rows
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.normal(size=(3000, w)).astype(np.float32)
+                             ).to(dtype)
+    b, cols, t = 300, (1, 3), 5
+    shape = {"pooled": (b, len(cols)), "pooled_multi_hot": (b, len(cols), 3),
+             "contiguous": (b, 7)}[layout]
+    ids = torch.from_numpy(rng.integers(0, 3000, size=shape)).to(id_dtype)
+    ids.view(-1)[:50] = ids.view(-1)[50:100]        # duplicates
+    ids.view(-1)[100:150] = 2999                    # the last row, repeated
+    if layout == "contiguous":
+        out = torch.empty((*shape, w), dtype=dtype)
+        want = ht.host_gather_reference(table, ids)
+        plan = ht.gather_plan(table, ids, out)
+    else:
+        out = torch.zeros((b, t, *shape[2:], w), dtype=dtype)
+        want = ht.host_gather_reference(table, ids, out.clone(), cols)
+        plan = ht.gather_plan(table, ids, out, cols)
+    assert torch.equal(plan.ids, torch.sort(ids.reshape(-1)).values)
+    assert plan.ids.dtype == id_dtype and plan.dst.dtype == torch.int64
+    assert plan.unit == next(u for u in (16, 8, 4, 2, 1)
+                             if w * table.element_size() % u == 0)
+    assert 1 <= plan.blocks * ht._THREADS * ht._IN_FLIGHT * plan.unit \
+        <= max(ht.WINDOW,
+               ht._THREADS * ht._IN_FLIGHT * plan.unit)
+    _emulate_gather(table, plan, out)
+    assert torch.equal(out, want)
+    jrows = jax.jit(functools.partial(jht.host_tier_gather, width=w))(
+        jax.device_put(jnp.asarray(table.float().numpy().reshape(-1)),
+                       jax.memory.Space.Host), jnp.asarray(ids.numpy()))
+    got = out if layout == "contiguous" else out[:, list(cols)]
+    assert np.array_equal(got.float().numpy(), np.asarray(jrows))
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("rows", ((torch.float32, 8), (torch.bfloat16, 8),
+                                  (torch.float32, 1), (torch.float32, 3),
+                                  (torch.bfloat16, 16)),
+                         ids=lambda r: f"{r[0]}-w{r[1]}")
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+def test_update_plan_emulated_is_the_update(order, rows, id_dtype):
+    """``update_plan`` and the kernel's walk, emulated: the plain update's
+    bits (f32: the JAX package's scatter-add on distinct ids) in 16-byte
+    units and in the element-wise branch (width 1, 4-byte rows)."""
+    dtype, w = rows
+    rng = np.random.default_rng(6)
+    table = torch.from_numpy(rng.normal(size=(3000, w)).astype(np.float32)
+                             ).to(dtype)
+    ids = np.sort(rng.choice(3000, size=700, replace=False))
+    ids[-1] = 2999
+    if order == "shuffled":
+        rng.shuffle(ids)
+    ids = torch.from_numpy(ids).to(id_dtype)
+    upd = torch.from_numpy(rng.normal(size=(700, w)).astype(np.float32))
+    plan = ht.update_plan(table, ids, upd)
+    assert plan.vec == (w * table.element_size() % 16 == 0)
+    want = table.clone()
+    ht.host_update_rows_reference(want, ids, upd)
+    jtable = table.float().numpy().reshape(-1).copy()
+    _emulate_update(table, ids, upd, plan)
+    assert torch.equal(table, want)
+    if dtype == torch.float32:
+        jnew = jax.jit(functools.partial(jht.host_tier_scatter_add,
+                                         width=w))(
+            jax.device_put(jnp.asarray(jtable), jax.memory.Space.Host),
+            jnp.asarray(ids.numpy()), jnp.asarray(upd.numpy()))
+        assert np.array_equal(table.numpy().reshape(-1), np.asarray(jnew))
 
 
 def test_tiered_storage_serves_evaluate_and_refuses_plain_training():
