@@ -27,25 +27,38 @@ result):
      must show no cat and no full-size copy of the embedding gradient;
   5. evaluation: the same model, `evaluate` over 8 batches of 16384 and a
      ragged one of 107, against the metrics of `score_batch`'s scores;
-  6. the optimizers at full width: 4 Adagrad and 4 row-wise Adagrad steps at
+  6. the sharded path at full width under NCCL at world size 1, in this
+     process: the placement (tables 2, 11 and 20 row-sharded, 15
+     column-sharded, 22 in slots) laid out on the card; the sharded lookup
+     against the plain one at B=16384 (f32 within 1e-6; the bf16 exchange
+     the f32 lookup rounded once); sharded serving against `forward` and
+     timed against it in turns; `sharded_evaluate` against `evaluate` with
+     a ragged tail; one sharded SGD step at B=32768 against `train_step`
+     from one state under deterministic sums, bit for bit (loss, every
+     row through `unshard_tables` with the touched slot, row-sharded and
+     column-sharded rows each seen to move, dense parameters, the trash
+     row); the two steps'
+     times in turns and device peaks, and a profile of the sharded step
+     with NCCL's kernels and the time under each exchange scope;
+  7. the optimizers at full width: 4 Adagrad and 4 row-wise Adagrad steps at
      B=32768 with a step of each held against the plain formula on the rows
      it touched, row-wise fused against gram from a clone, a clipped SGD
      step, K=4 blocks of each optimizer against 4 sequential steps, then
      the step times of the three optimizers at K=1 and K=4 in turns, a
      `torch.profiler` breakdown of the Adagrad step and the time of an
      `evaluate` batch;
-  7. checkpoints at full width: row-wise Adagrad at B=32768, 2 steps, a
+  8. checkpoints at full width: row-wise Adagrad at B=32768, 2 steps, a
      save through `CheckpointManager`, 2 more steps, a restore (the page
      cache dropped where the kernel shows it dropped) into the same tensors,
      which must give back the whole saved state, and the same 2 steps
      again, all under deterministic sums: the same loss bits and the same
      bits of every tensor; bytes, seconds, GB/s and the host's peak
      resident set of the save and of the restore;
-  8. telemetry at full width: the instrumented SGD step against
+  9. telemetry at full width: the instrumented SGD step against
      `train_step` from the same state (1e-5), the ms of every phase beside
      the unprofiled step, and the CUDA time under each phase scope of a
      profiled step;
-  9. int8 serving at full width: the serving phase's tables (the same
+ 10. int8 serving at full width: the serving phase's tables (the same
      seed) quantized on the card, codes and scales held bit for bit to the
      host quantizer on the first and last 4096 rows of every table, the
      footprint read; 8 batches of 16384 through `score_batch` on the int8
@@ -53,7 +66,7 @@ result):
      within 5e-3; int8 against f32 serving times in turns, a
      `torch.profiler` breakdown of an int8 batch, and `predict
      --quantize-tables int8` in a subprocess against the port in process;
- 10. data: Criteo text written from a seed at the full Kaggle table sizes,
+ 11. data: Criteo text written from a seed at the full Kaggle table sizes,
      `python -m dlrm_tpu_torch preprocess` (the native engine) against the
      numpy path byte for byte, `train --data --validate-data --prefetch 2`
      at full width in a subprocess against the same steps in process with
@@ -62,9 +75,10 @@ result):
      the tables, then the SGD step fed from `DACLoader` through
      `device_prefetch` and through plain copies, in turns, and a profile of
      each (host-to-device copy time, its stream, idle share);
- 11. two-tier tables at full width (Kaggle fs=128 f32 under
-     `--hbm-budget-gb 4`: tables 2, 11 and 20, 13.07 GB, in pinned host
-     memory, the budget checked against MemAvailable): the host-tier
+ 12. two-tier tables at full width (Kaggle fs=128 f32 under
+     `--hbm-budget-gb 4`: tables 2, 11 and 20, 13.07 GB, in host memory
+     registered with the card at its exact size, which is checked, the
+     budget checked against MemAvailable): the host-tier
      kernels timed with their bounds (before the host CPU touches a row),
      with sequential, skewed and pre-sorted ids and an update on shuffled
      ids read beside them, then against their plain versions bit for bit
@@ -80,10 +94,10 @@ result):
      --hbm-budget-gb 4` (row-wise Adagrad, a resume), `eval --ckpt-dir` on
      its checkpoint and `train --hbm-budget-gb 4 --host-prefetch` in
      subprocesses against the same work in process, with peak VmRSS;
- 12. small inputs: the forward, and 3 training steps, on the card against
+ 13. small inputs: the forward, and 3 training steps, on the card against
      the same on the CPU for every interaction, f32, bf16 and multi-hot;
      3 steps and a K=3 block of every optimizer likewise;
- 13. the entry points: `python -m dlrm_tpu_torch predict`, `train` and
+ 14. the entry points: `python -m dlrm_tpu_torch predict`, `train` and
      `eval` in subprocesses on the card, held against the port in
      process; `train --ckpt-dir` and its resume, `eval --ckpt-dir`,
      `export --quantize int8` with `predict --ckpt-dir` on the artifact
@@ -91,7 +105,7 @@ result):
      width (Kaggle fs=128, row-wise Adagrad, B=32768), each full-width
      process's peak resident set read and bounded far below the tables'
      bytes; `instrument`, `train --profile-dir` and `bench` at full width;
- 14. a `{"kernels": [...]}` line (the two interaction kernels and the two
+ 15. a `{"kernels": [...]}` line (the two interaction kernels and the two
      host-tier kernels), then the result line.
 It needs a CUDA device and the repository around it; without either it
 fails.
@@ -102,6 +116,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import shutil
@@ -536,6 +551,12 @@ def _fused_vs_gram_steps(fused_params, gram_params, batches, config,
 _SCOPES = ("lookup", "bottom_mlp", "interaction", "top_mlp")
 _TIER_SCOPES = ("lookup_host_tier", "host_tier_update",
                 "host_tier_prefetch_next")
+# the sharded path's scopes (parallel/embedding.py, the sharded step): the
+# profile prints the CUDA time under each
+_SHARD_SCOPES = ("a2a_fwd", "rs_reduce_scatter", "cs_a2a_fwd",
+                 "pooled_permute", "a2a_bwd", "rs_allgather_bwd",
+                 "cs_a2a_bwd", "dcn_grad_allgather", "dense_allreduce",
+                 "sparse_update")
 # (group, substrings of a CUDA activity's name); the first match wins
 _PROFILE_GROUPS = (
     ("dedup: sort, unique, scan (cub and thrust kernels)",
@@ -580,10 +601,13 @@ def _profile_steps(what: str, run, batches, steps: int = 5,
         wall_ms = (time.perf_counter() - t0) * 1e3
     table = tuple(groups) + _PROFILE_GROUPS
     groups = {name: 0.0 for name, _ in table}
-    other = {}
+    other, scoped = {}, {}
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA \
-                or evt.key in _SCOPES + _TIER_SCOPES:
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if evt.key in _SHARD_SCOPES:
+            scoped[evt.key] = evt.device_time_total
+        if evt.key in _SCOPES + _TIER_SCOPES + _SHARD_SCOPES:
             continue
         us = evt.self_device_time_total
         for name, keys in table:
@@ -607,6 +631,9 @@ def _profile_steps(what: str, run, batches, steps: int = 5,
     for key, us in sorted(other.items(), key=lambda kv: -kv[1])[:6]:
         print(f"    of all else: {us / 1e3 / steps:.3f} ms a step: "
               f"{key[:110]}")
+    for key, us in sorted(scoped.items(), key=lambda kv: -kv[1]):
+        print(f"  under the scope {key}: {us / 1e3 / steps:.3f} ms a step "
+              f"of device time")
     copies, fwd_streams = {}, set()
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -654,6 +681,22 @@ def _all_ids(batches: list, config) -> torch.Tensor:
         translate_ids(torch.from_numpy(b["sparse"]).to(DEV),
                       config.table_offsets).reshape(-1)
         for b in batches])).long()
+
+
+def _touched_by_kind(rows: torch.Tensor, placement, config) -> dict:
+    """``rows`` (stacked-table rows) split by the placement kind of their
+    table: slot, row-sharded and column-sharded; every kind must hold
+    some."""
+    starts = torch.tensor(config.table_offsets, device=rows.device)
+    table = torch.searchsorted(starts, rows, right=True) - 1
+    out = {}
+    for kind, tables in (("slot", placement.slot_table_list),
+                         ("row-sharded", placement.row_sharded),
+                         ("column-sharded", placement.col_sharded)):
+        mask = torch.isin(table, torch.tensor(tables, device=rows.device))
+        out[kind] = rows[mask]
+        check(out[kind].numel() > 0, f"the batch touches no {kind} row")
+    return out
 
 
 def phase_evaluation() -> None:
@@ -1380,6 +1423,262 @@ def phase_telemetry() -> None:
     torch.cuda.empty_cache()
 
 
+# -- the sharded path --------------------------------------------------------
+
+SHARD_MAX_ROWS = 6_000_000  # row-shards tables 2, 11 and 20
+SHARD_COLS = (15,)          # 5,461,306 rows, column-sharded
+SHARD_STEPS = 10
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _host_step_ms(step, batches, steps: int = SHARD_STEPS,
+                  warmup: int = 3) -> float:
+    """Median host-to-host ms of ``steps`` steps after ``warmup``: the
+    batch copied in, ``step(dense, sparse, labels)``, its loss read
+    back."""
+    secs = []
+    for i in range(warmup + steps):
+        t0 = time.perf_counter()
+        float(step(*_to_dev(batches[i % len(batches)])))
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs[warmup:]) * 1e3
+
+
+def _sharded_serving(params, sh, mesh, p, config) -> None:
+    """The sharded forward against `forward`, then `sharded_evaluate`
+    against `evaluate` with a ragged tail."""
+    from dlrm_tpu_torch.data.synthetic import batch_stream, random_batch
+    from dlrm_tpu_torch.models.dlrm import forward
+    from dlrm_tpu_torch.train.metrics import (evaluate,
+                                              make_sharded_eval_forward,
+                                              sharded_evaluate)
+
+    fwd = make_sharded_eval_forward(config, mesh, p)
+    batches = list(batch_stream(config, BATCH, MAIN_BATCHES, seed=71))
+
+    def sharded(dense, sparse):
+        return fwd(sh, sh["emb"], sh["emb_cs"], dense, sparse)
+
+    def single(dense, sparse):
+        with torch.no_grad():
+            return forward(params, dense, sparse, config)
+
+    def scores(serve, batch):
+        dense, sparse, _ = _to_dev(batch)
+        return serve(dense, sparse).cpu()
+
+    with counted("sharded serving", len(batches), 0):
+        preds = [scores(sharded, b) for b in batches]
+    diff = max((got - scores(single, b)).abs().max().item()
+               for b, got in zip(batches, preds))
+    check(diff <= 1e-6, f"sharded serving vs forward: {diff}")
+    ms = {"single-device": [], "sharded": []}
+    for name, serve in (("single-device", single), ("sharded", sharded),
+                        ("sharded", sharded), ("single-device", single)):
+        secs = []
+        for b in batches:
+            t0 = time.perf_counter()
+            scores(serve, b)
+            secs.append(time.perf_counter() - t0)
+        ms[name].append(statistics.median(secs[1:]) * 1e3)
+    print(f"sharded serving: {len(batches)} batches of {BATCH}, "
+          f"interaction_fwd launched {len(batches)} times; against forward "
+          f"on the unsharded tables max |diff| {diff:.3g}; ms a batch host "
+          f"to host (ids and dense copied in, scores out; median of "
+          f"{len(batches) - 1} after 1) in turns, single-device / sharded / "
+          f"sharded / single-device: {ms['single-device'][0]:.3f} / "
+          f"{ms['sharded'][0]:.3f} / {ms['sharded'][1]:.3f} / "
+          f"{ms['single-device'][1]:.3f}")
+    data = batches[:4] + [random_batch(np.random.default_rng(72), config,
+                                       107)]
+    with counted("sharded evaluation", len(data), 0):
+        got = sharded_evaluate(sh, data, config, mesh=mesh, placement=p)
+    want = evaluate(params, data, config)
+    check(got["examples"] == want["examples"]
+          == sum(len(b["labels"]) for b in data)
+          and got["accuracy"] == want["accuracy"]
+          and got["auc"] == want["auc"]
+          and abs(got["loss"] - want["loss"]) <= 1e-6,
+          f"sharded_evaluate {got} vs evaluate {want}")
+    print(f"sharded_evaluate over {got['examples']} rows (a ragged tail of "
+          f"107) against evaluate: accuracy {got['accuracy']:.6f} and AUC "
+          f"{got['auc']:.6f} the same, loss {got['loss']:.6f} (|diff| "
+          f"{abs(got['loss'] - want['loss']):.3g})")
+
+
+def phase_sharded() -> None:
+    """The sharded path at full width (Kaggle fs=128, f32, fused) under
+    NCCL at world size 1, in this process: the placement (tables 2, 11 and
+    20 row-sharded, 15 column-sharded, 22 in slots), the tables laid out by
+    shard on the card; the sharded lookup against the plain one at
+    B=16384, f32 and bf16 exchange; sharded serving and `sharded_evaluate`
+    against `forward` and `evaluate`; one sharded SGD step at B=32768
+    against `train_step` from one state under deterministic sums, bit for
+    bit (loss, rows of each placement kind, each seen to move, dense
+    parameters, trash row); step times and device
+    peaks in turns with the single-device step, and a profile of the
+    sharded step."""
+    import torch.distributed as dist
+    from dlrm_tpu_torch import kaggle_config
+    from dlrm_tpu_torch.parallel import mesh as pmesh
+
+    dev = pmesh.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                                 device=DEV)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+          and dev == DEV, f"process group {dist.get_backend()} of "
+          f"{dist.get_world_size()} on {dev}")
+    try:
+        _sharded(pmesh.make_mesh(), kaggle_config(
+            feature_size=128, interaction_impl="fused"))
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
+def _sharded(mesh, config) -> None:
+    """The body of :func:`phase_sharded` on ``mesh``."""
+    from dlrm_tpu_torch import init_params
+    from dlrm_tpu_torch.data.synthetic import batch_stream
+    from dlrm_tpu_torch.ops.embedding import lookup
+    from dlrm_tpu_torch.parallel import embedding as pemb
+    from dlrm_tpu_torch.parallel.placement import plan_placement
+    from dlrm_tpu_torch.train.train import (broadcast_dense,
+                                            make_sharded_train_step,
+                                            train_step)
+
+    p = plan_placement(config.table_sizes, 1,
+                       max_rows_per_shard=SHARD_MAX_ROWS,
+                       col_sharded_tables=SHARD_COLS)
+    check(p.row_sharded == (2, 11, 20) and p.col_sharded == SHARD_COLS
+          and len(p.slot_table_list) == 22, f"placement {p}")
+    params = init_params(torch.Generator(DEV).manual_seed(config.seed),
+                         config, DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh = {**_clone_dense(params),
+          "emb": pemb.shard_tables(params["emb"], p, config)[0],
+          "emb_cs": tuple(c[0] for c in pemb.shard_col_tables(
+              params["emb"], p, config))}
+    broadcast_dense(sh)
+    torch.cuda.synchronize()
+    print(f"sharded, NCCL world size 1 on {torch.cuda.get_device_name(0)}: "
+          f"{len(p.slot_table_list)} slot tables, row-sharded "
+          f"{list(p.row_sharded)}, column-sharded {list(p.col_sharded)}; "
+          f"local stack {p.local_rows} rows "
+          f"({sh['emb'].numel() * 4 / 1e9:.2f} GB) + column shards "
+          f"{sum(c.numel() for c in sh['emb_cs']) * 4 / 1e9:.2f} GB, laid "
+          f"out on the card in {time.perf_counter() - t0:.2f} s")
+
+    ids = torch.from_numpy(next(batch_stream(config, BATCH, 1, seed=70))[
+        "sparse"]).to(DEV)
+    want = lookup(params["emb"], ids, config.table_offsets)
+    got = pemb.sharded_lookup(sh["emb"], ids, mesh=mesh, placement=p,
+                              cs=sh["emb_cs"])
+    diff = (got - want).abs().max().item()
+    bf16 = pemb.sharded_lookup(sh["emb"], ids, mesh=mesh, placement=p,
+                               cs=sh["emb_cs"],
+                               exchange_dtype=torch.bfloat16)
+    rounded = want.to(torch.bfloat16).float()
+    # one-hot: the bf16 exchange is the f32 lookup rounded once
+    check(diff <= 1e-6 and torch.equal(bf16, rounded),
+          f"sharded lookup vs lookup {diff}; bf16 exchange vs the rounded "
+          f"lookup {(bf16 - rounded).abs().max().item()}")
+    rel = ((bf16 - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+    print(f"sharded lookup at B={BATCH} against ops.embedding.lookup: max "
+          f"|diff| {diff:.3g}; bf16 exchange equal to the f32 lookup "
+          f"rounded once to bf16 (relative error up to {rel:.3g}, bound "
+          f"2^-8 = {2 ** -8:.3g})")
+    del want, got, bf16, rounded
+
+    _sharded_serving(params, sh, mesh, p, config)
+
+    batches = list(batch_stream(config, TRAIN_BATCH, 4, seed=73))
+    b = _to_dev(batches[0])
+    touched = _touched_by_kind(_all_ids(batches[:1], config), p, config)
+    before = {kind: params["emb"][rows] for kind, rows in touched.items()}
+    step = make_sharded_train_step(config, 0.1, mesh, p)
+    with _deterministic():
+        with counted("sharded SGD step", 1, 1):
+            loss_s = float(step(sh, *b))
+        loss_1 = float(train_step(params, *b, config=config, lr=0.1))
+    torch.cuda.synchronize()
+    loss_diff = abs(loss_s - loss_1)
+    dense_diff = _max_dense_diff(sh, params)
+    full = pemb.unshard_tables(sh["emb"][None], p, config)
+    for j, t in enumerate(p.col_sharded):
+        go = config.table_offsets[t]
+        full[go:go + config.table_sizes[t]] = pemb.unshard_col_tables(
+            [sh["emb_cs"][j][None]], p)[0]
+    # per placement kind: how far train_step moved its touched rows, and
+    # how far the sharded step's rows are from train_step's
+    moved, row_diff = {}, {}
+    for kind, rows in touched.items():
+        want = params["emb"][rows]
+        moved[kind] = (want - before[kind]).abs().max().item()
+        row_diff[kind] = (full[rows] - want).abs().max().item()
+    all_diff = _chunked_max_diff(full, params["emb"])
+    trash = sh["emb"][p.trash_row].abs().max().item()
+    del full, before
+    torch.cuda.empty_cache()
+    # an update moves a row of a 10M-row table by about 1e-7, under any
+    # float tolerance, so the step is held to the single-device bits
+    # (both sides run the same kernels in the same order under
+    # deterministic sums), and every kind's rows must have moved
+    check(loss_diff == 0.0 and dense_diff == 0.0 and all_diff == 0.0
+          and trash == 0.0 and all(d == 0.0 for d in row_diff.values())
+          and all(m > 0.0 for m in moved.values()),
+          f"sharded vs single-device step: loss {loss_diff}, dense "
+          f"{dense_diff}, touched rows {row_diff} (moved {moved}), all "
+          f"rows {all_diff}, trash row {trash}")
+    print(f"sharded SGD step at B={TRAIN_BATCH} against train_step from one "
+          f"state (deterministic sums, held bit for bit): loss {loss_s:.6f} "
+          f"(|diff| {loss_diff:.3g}), dense parameters {dense_diff:.3g}, "
+          f"all rows {all_diff:.3g} through unshard_tables, trash row "
+          f"{trash}; touched rows by kind: " + ", ".join(
+              f"{kind} {touched[kind].numel()} moved up to {moved[kind]:.3g}"
+              f" (|diff| {row_diff[kind]:.3g})" for kind in touched))
+
+    single = functools.partial(train_step, params, config=config, lr=0.1)
+    sharded = functools.partial(step, sh)
+    resident = torch.cuda.memory_allocated(DEV)
+    peaks = {}
+    for name, fn in (("single-device", single), ("sharded", sharded)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(DEV)
+        for batch in batches[:2]:
+            float(fn(*_to_dev(batch)))
+        peaks[name] = torch.cuda.max_memory_allocated(DEV) - resident
+    ms = {"single-device": [], "sharded": []}
+    for name, fn in (("single-device", single), ("sharded", sharded),
+                     ("sharded", sharded), ("single-device", single)):
+        ms[name].append(_host_step_ms(fn, batches))
+    print(f"SGD step at B={TRAIN_BATCH}, ms host to host in turns "
+          f"(single-device, sharded, sharded, single-device; median of "
+          f"{SHARD_STEPS} after 3): {ms['single-device'][0]:.3f} / "
+          f"{ms['sharded'][0]:.3f} / {ms['sharded'][1]:.3f} / "
+          f"{ms['single-device'][1]:.3f}; device peak net of both resident "
+          f"copies of the tables ({resident / 1e9:.2f} GB): single-device "
+          f"{peaks['single-device'] / 1e9:.3f} GB, sharded "
+          f"{peaks['sharded'] / 1e9:.3f} GB")
+    groups = _profile_steps("sharded SGD steps", lambda data: [
+        float(sharded(*_to_dev(batch))) for batch in data], batches,
+        groups=(("NCCL kernels", ("nccl",)),
+                ("device-to-device copies (Memcpy DtoD)",
+                 ("Memcpy DtoD",))))
+    check(groups is not None and groups["interaction_fwd kernel"] > 0
+          and groups["interaction_bwd kernel"] > 0,
+          f"the sharded step's profile names no interaction kernel: "
+          f"{groups}")
+    del params, sh
+
+
 # -- two-tier tables ---------------------------------------------------------
 
 TIER_BUDGET_GB = 4        # Kaggle fs=128 f32: tables 2, 11 and 20 spill
@@ -1411,10 +1710,49 @@ def _pinned_rates(nbytes: int = 1 << 30) -> dict:
     return out
 
 
+# what a host tier's draw may add to the host's resident set besides the
+# tier: far below the 4.11 GB by which a 16 GiB block exceeds the 13.07 GB
+# tier
+TIER_RSS_SLACK = 1 << 30
+
+
+def _check_host_tier_size(host: torch.Tensor, host_bytes: int,
+                          rss_grew: int) -> None:
+    """The host tier takes its exact size: its storage is ``host_bytes``
+    (the mapping under it rounds that up to a page, not to a power of
+    two), it is registered with the card, and drawing it grew the host's
+    resident set by its size."""
+    import mmap
+
+    nbytes = host.untyped_storage().nbytes()
+    check(nbytes == host_bytes and host.data_ptr() % mmap.PAGESIZE == 0,
+          f"host tier of {nbytes} B at {host.data_ptr():#x}, not "
+          f"{host_bytes} B page-aligned")
+    check(host.is_pinned(), "the registered host tier does not read as "
+          "pinned (is_pinned() False)")
+    check(host_bytes - TIER_RSS_SLACK <= rss_grew
+          <= host_bytes + TIER_RSS_SLACK,
+          f"drawing the {host_bytes} B host tier grew the host's resident "
+          f"set by {rss_grew} B")
+    block = 1 << (host_bytes - 1).bit_length()
+    stats = {k: v for k, v in torch.cuda.host_memory_stats().items()
+             if "reserved" in k and "current" in k} \
+        if hasattr(torch.cuda, "host_memory_stats") else "not available"
+    print(f"host tier: {nbytes} B registered at its exact size (a mapping "
+          f"of {-(-nbytes // mmap.PAGESIZE) * mmap.PAGESIZE} B, pages of "
+          f"{mmap.PAGESIZE} B; PyTorch's pinned allocator would reserve a "
+          f"{block} B block), is_pinned() True; the draw grew the host's "
+          f"resident set by {rss_grew} B; the pinned allocator's "
+          f"reserved bytes {stats}")
+
+
 def _release_pinned() -> None:
-    """Hand the pinned host blocks that PyTorch caches back to the
-    system."""
+    """Hand host memory pinned for the card back to the system: the
+    registered host tiers whose tensors the caller dropped (collected here,
+    so that each unregisters and unmaps) and the blocks PyTorch's pinned
+    allocator caches."""
     torch.cuda.synchronize()
+    gc.collect()
     torch._C._host_emptyCache()
 
 
@@ -1941,13 +2279,12 @@ def phase_two_tier() -> dict:
     host_bytes = plan.host_rows * config.feature_size * 4
     check(plan.host_tables == (2, 11, 20)
           and plan.host_rows == TIER_HOST_ROWS, f"tier plan {plan}")
-    # the host tier and an Adagrad accumulator of its size, each pinned in
-    # a block rounded up to a power of two, and 8 GiB to spare
-    pinned = 1 << (host_bytes - 1).bit_length()
+    # the host tier and an Adagrad accumulator of its size, each registered
+    # at its exact size, and 8 GiB to spare
     mem = _meminfo()
-    check(mem["MemAvailable"] > 2 * pinned + 8 * GIB, f"two-tier phase: "
+    check(mem["MemAvailable"] > 2 * host_bytes + 8 * GIB, f"two-tier phase: "
           f"{mem['MemAvailable']} B of host memory available, it pins up to "
-          f"{2 * pinned} B")
+          f"{2 * host_bytes} B")
     print(f"two-tier, Kaggle fs=128 f32 under --hbm-budget-gb "
           f"{TIER_BUDGET_GB}: host tier tables {list(plan.host_tables)}, "
           f"{plan.host_rows} rows = {host_bytes} B pinned; "
@@ -1970,6 +2307,8 @@ def phase_two_tier() -> dict:
     draw_s = time.perf_counter() - t0
     draw_peak = torch.cuda.max_memory_allocated(DEV) - resident
     emb = tiered["emb"]
+    rss1 = _rss()
+    _check_host_tier_size(emb.host, host_bytes, rss1 - rss0)
     _check_drawn_tiers(tiered, params, config)
     print(f"drawn straight into the tiers (pinning the host tier included) "
           f"in {draw_s:.2f} s, device peak {draw_peak / 1e9:.3f} GB (the "
@@ -2039,9 +2378,16 @@ def phase_two_tier() -> dict:
                     batches)
         del state_all, state_t
         torch.cuda.empty_cache()
+    rss2 = _rss()
     del params, tiered, emb
     torch.cuda.empty_cache()
     _release_pinned()
+    rss3 = _rss()
+    check(rss2 - rss3 >= host_bytes - TIER_RSS_SLACK, f"dropping the "
+          f"two-tier tables gave back {rss2 - rss3} B of the host's resident "
+          f"set, not the {host_bytes} B tier")
+    print(f"two-tier tables dropped and the host tier unregistered: host "
+          f"resident set {rss2 / 1e9:.3f} -> {rss3 / 1e9:.3f} GB")
     _tier_entry_points(config, plan, tmap)
     _release_pinned()
     return kern
@@ -3122,7 +3468,8 @@ def main() -> int:
 
     kern = {}
     for phase in (phase_card, phase_kernels, phase_serving, phase_training,
-                  phase_evaluation, phase_optimizers, phase_checkpoint,
+                  phase_evaluation, phase_sharded, phase_optimizers,
+                  phase_checkpoint,
                   phase_telemetry, phase_int8_serving, phase_data,
                   phase_two_tier, phase_small_inputs, phase_small_optimizers,
                   phase_entry_points):

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from functools import cached_property
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -65,6 +65,10 @@ class DLRMConfig:
       remat: recompute the dense tower (interaction and MLP activations)
         on backward instead of storing them (``torch.utils.checkpoint``);
         the same gradients, fewer stored activations.
+      exchange_dtype: wire dtype of the sharded embedding exchanges
+        (``parallel/embedding.py``); None keeps the operand's dtype,
+        ``torch.bfloat16`` halves the bytes, with one rounding at each
+        exchange.
     """
 
     bottom_mlp_sizes: Tuple[int, ...]
@@ -74,6 +78,7 @@ class DLRMConfig:
     n_hot: int = 1
     interaction_pad_to: int = 1
     remat: bool = False
+    exchange_dtype: Optional[torch.dtype] = None
     weight_dtype: torch.dtype = torch.float32
     embedding_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32

@@ -22,6 +22,10 @@ neither accumulator.
 JAX package's two-tier parameters and optimizer state (device tier as its
 logical stack, flat host stacks) to this package's two tiers.
 
+``sharded_params_from_numpy`` takes the JAX package's sharded parameters
+(the per-shard stacks and column shards) to one rank's tensors, and
+``sharded_params_to_numpy`` gathers every rank's back.
+
 ``quant_from_numpy`` takes the JAX package's int8 ``QuantEmb`` as numpy
 (lane-packed int8 chunks and ``(rows, pack)`` scales) to this package's
 logical ``QuantEmb``.
@@ -209,6 +213,66 @@ def tiered_opt_state_from_numpy(np_opt: dict, plan, config: DLRMConfig,
                                        (plan.host_rows, *tail),
                                        torch.float32, device)
     return state
+
+
+def _keep_dtype(a, device) -> torch.Tensor:
+    """An array as a tensor of its own dtype (bfloat16 kept) on
+    ``device``."""
+    a = np.asarray(a)
+    dtype = torch.bfloat16 if a.dtype.name == "bfloat16" \
+        else torch.from_numpy(np.zeros(0, a.dtype)).dtype
+    return _to_torch(a, dtype, device)
+
+
+def sharded_params_from_numpy(np_params: dict, placement, rank: int,
+                              device="cpu") -> dict:
+    """The JAX package's sharded parameters as numpy -> rank ``rank``'s
+    tensors on ``device``, in their own dtypes.
+
+    ``np_params``: ``{"bottom", "top", "emb", "emb_cs"}`` with ``emb`` the
+    ``(N, local_rows, D)`` per-shard stacks (``parallel.embedding
+    .shard_tables``) and ``emb_cs`` the ``(N, R_t, D/N)`` column shards of
+    ``placement.col_sharded`` (absent or empty without them).  Returns
+    ``{"bottom", "top", "emb": (local_rows, D), "emb_cs": ((R_t, D/N),
+    ...)}``."""
+    n = placement.num_shards
+    emb = np_params["emb"]
+    if tuple(np.shape(emb)[:2]) != (n, placement.local_rows):
+        raise ValueError(f"emb {np.shape(emb)}, the placement needs "
+                         f"({n}, {placement.local_rows}, D)")
+    cs = tuple(np_params.get("emb_cs", ()))
+    if len(cs) != len(placement.col_sharded):
+        raise ValueError(f"{len(cs)} column-sharded tables, the placement "
+                         f"has {len(placement.col_sharded)}")
+    for a, t in zip(cs, placement.col_sharded):
+        want = (n, placement.table_sizes[t], np.shape(emb)[2] // n)
+        if tuple(np.shape(a)) != want:
+            raise ValueError(f"column shards of table {t}: {np.shape(a)}, "
+                             f"the placement needs {want}")
+    dense = {part: [{k: _keep_dtype(layer[k], device) for k in ("w", "b")}
+                    for layer in np_params[part]]
+             for part in ("bottom", "top")}
+    return {**dense, "emb": _keep_dtype(np.asarray(emb)[rank], device),
+            "emb_cs": tuple(_keep_dtype(np.asarray(a)[rank], device)
+                            for a in cs)}
+
+
+def sharded_params_to_numpy(rank_params: Sequence[dict]) -> dict:
+    """Inverse of :func:`sharded_params_from_numpy` over every rank: the
+    ranks' parameter dicts (tensors or arrays, rank order) -> the JAX
+    package's sharded layout as numpy (dense parameters from rank 0; bf16
+    widened to f32)."""
+    def arr(x):
+        return _to_numpy(x) if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    first = rank_params[0]
+    out = {part: [{k: arr(layer[k]) for k in ("w", "b")}
+                  for layer in first[part]] for part in ("bottom", "top")}
+    out["emb"] = np.stack([arr(p["emb"]) for p in rank_params])
+    out["emb_cs"] = tuple(
+        np.stack([arr(p["emb_cs"][j]) for p in rank_params])
+        for j in range(len(first.get("emb_cs", ()))))
+    return out
 
 
 def save_npz(path: str, np_params: dict) -> None:

@@ -1,0 +1,503 @@
+"""Model-parallel embedding lookup and SGD update over a process group: the
+counterpart of ``dlrm_tpu/parallel/embedding.py``.
+
+The DLRM hybrid: the embedding tables are sharded over the ranks of the
+table group (``parallel/placement.py``) while the batch is data-parallel
+over the same ranks.  Rank r holds its local stack ``(local_rows, D)``
+(the JAX package's ``(1, R, W)`` shard), the blocks of its row-sharded
+tables inside it, and its ``(R_t, D / N)`` column shards.  One lookup::
+
+    ids (b, T)  --all_gather_into_tensor-->  ids (N*b, T)   [ints: cheap]
+    gather of the owned slots  -->  (N*b, K, D)
+    --all_to_all_single-->  (N, b, K, D)   [batch-split, slot-concat]
+    row-sharded tables: masked gather  --reduce_scatter_tensor-->  (b, n_rs, D)
+    column-sharded tables: lane gather  --all_to_all_single-->  (N, b, D/N)
+    one index_select of all three  -->  pooled (b, T, D), global table order
+
+and the SGD update routes the gradient back with the inverse exchanges
+(``all_to_all_single``; an ``all_gather_into_tensor`` of the row-sharded
+columns, applied where the rank owns the row) and applies it with a local
+``index_add_``: embedding gradients are never densified.  On a 2-D mesh
+the DCN replicas' gradients are gathered first (:func:`_dcn_fold`), so
+every replica applies the same update.
+
+JAX's tiled ``all_to_all(split_axis=0, concat_axis=1)`` turns ``(B, K, D)``
+into ``(B/N, N*K, D)``; ``all_to_all_single`` stacks along dim 0 instead.
+The receive buffer is ``(N, b, K, D)``, and the transpose to ``(b, N*K,
+D)``, the JAX package's ``out_column`` take and its ``output_order`` take
+are one ``index_select`` (:func:`_exchange_index`) over one buffer that
+every collective writes into.
+
+Functions take and return this rank's rows: ``ids`` are its ``b`` rows of
+the global batch (``parallel/mesh.local_batch_rows``), and the pooled rows
+are those same ``b`` rows.  The layout functions (:func:`shard_tables`
+and the rest) take numpy arrays or tensors, on any device.
+
+Host-resident row-sharded tables and int8 tables are not served here yet
+(``ROADMAP.md`` queue 1, items 3c and 3d).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from dlrm_tpu_torch.config import DLRMConfig
+from dlrm_tpu_torch.parallel.mesh import dcn_axis_of
+from dlrm_tpu_torch.parallel.placement import TablePlacement
+from dlrm_tpu_torch.utils.telemetry import phase_scope
+
+# all_gather_into_tensor / reduce_scatter_tensor under their newer names
+# where torch has them (the old ones warn there)
+_all_gather = getattr(dist, "all_gather_single",
+                      dist.all_gather_into_tensor)
+_reduce_scatter = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+
+_HOST_ROWS = ("host-resident row-sharded tables need ROADMAP.md queue 1, "
+              "item 3c")
+_INT8 = "int8 sharded serving needs ROADMAP.md queue 1, item 3d"
+
+
+# -- layout: the stack <-> per-shard stacks ------------------------------------
+
+def _zeros(like, shape):
+    if isinstance(like, torch.Tensor):
+        return torch.zeros(shape, dtype=like.dtype, device=like.device)
+    return np.zeros(shape, dtype=like.dtype)
+
+
+def _empty(like, shape):
+    if isinstance(like, torch.Tensor):
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+    return np.empty(shape, dtype=like.dtype)
+
+
+def _blocks(placement: TablePlacement, k: int):
+    """(shard, first row, end row) of row-sharded table k's blocks, the
+    empty ones left out."""
+    rows = placement.table_sizes[placement.row_sharded[k]]
+    chunk = placement.rs_rows_per_shard[k]
+    for shard in range(placement.num_shards):
+        a, b = shard * chunk, min((shard + 1) * chunk, rows)
+        if b > a:
+            yield shard, a, b
+
+
+def shard_tables(stacked, placement: TablePlacement, config: DLRMConfig):
+    """The logical ``(R, D)`` stack -> the ``(N, local_rows, D)`` per-shard
+    stacks (padding and the trash row zero).  Host-resident row-sharded
+    tables are left out (:func:`shard_host_tables`), column-sharded ones
+    too (:func:`shard_col_tables`)."""
+    out = _zeros(stacked, (placement.num_shards, placement.local_rows,
+                           stacked.shape[1]))
+    for t in placement.slot_table_list:
+        rows, go = config.table_sizes[t], config.table_offsets[t]
+        lo = int(placement.table_local_offsets[t])
+        out[int(placement.table_shard[t]), lo:lo + rows] = \
+            stacked[go:go + rows]
+    for k, t in enumerate(placement.row_sharded):
+        if placement.rs_host[k]:
+            continue
+        lo, go = placement.rs_local_offsets[k], config.table_offsets[t]
+        for shard, a, b in _blocks(placement, k):
+            out[shard, lo:lo + b - a] = stacked[go + a:go + b]
+    return out
+
+
+def shard_host_tables(stacked, placement: TablePlacement,
+                      config: DLRMConfig):
+    """The per-shard host stacks ``(N, host_local_rows, D)`` of the
+    host-resident row-sharded tables (``placement.rs_host``)."""
+    out = _zeros(stacked, (placement.num_shards, placement.host_local_rows,
+                           stacked.shape[1]))
+    for k, t in enumerate(placement.row_sharded):
+        if not placement.rs_host[k]:
+            continue
+        lo, go = placement.rs_local_offsets[k], config.table_offsets[t]
+        for shard, a, b in _blocks(placement, k):
+            out[shard, lo:lo + b - a] = stacked[go + a:go + b]
+    return out
+
+
+def unshard_tables(sharded, placement: TablePlacement, config: DLRMConfig,
+                   host=None):
+    """Inverse of :func:`shard_tables`: the logical ``(R, D)`` stack.
+    ``host``: the ``(N, host_local_rows, D)`` host stacks when the placement
+    has host-resident tables (their rows stay zero without it).  Rows of
+    column-sharded tables stay zero (:func:`unshard_col_tables`)."""
+    out = _zeros(sharded, (config.total_rows, sharded.shape[-1]))
+    for t in placement.slot_table_list:
+        rows, go = config.table_sizes[t], config.table_offsets[t]
+        lo = int(placement.table_local_offsets[t])
+        out[go:go + rows] = sharded[int(placement.table_shard[t]),
+                                    lo:lo + rows]
+    for k, t in enumerate(placement.row_sharded):
+        src = sharded
+        if placement.rs_host[k]:
+            if host is None:
+                continue
+            src = host
+        lo, go = placement.rs_local_offsets[k], config.table_offsets[t]
+        for shard, a, b in _blocks(placement, k):
+            out[go + a:go + b] = src[shard, lo:lo + b - a]
+    return out
+
+
+def shard_col_tables(stacked, placement: TablePlacement,
+                     config: DLRMConfig) -> tuple:
+    """Column-sharded tables: the ``(R, D)`` stack -> one ``(N, R_t, D/N)``
+    array per table (a copy), in ``placement.col_sharded`` order; shard s
+    holds features ``[s * D/N, (s + 1) * D/N)``."""
+    n, d = placement.num_shards, stacked.shape[1]
+    if d % n:
+        raise ValueError(f"column sharding splits D={d} over {n} shards")
+    out = []
+    for t in placement.col_sharded:
+        go, rows = config.table_offsets[t], config.table_sizes[t]
+        tab = stacked[go:go + rows].reshape(rows, n, d // n)
+        shards = _empty(stacked, (n, rows, d // n))
+        shards[...] = tab.transpose(0, 1) if isinstance(tab, torch.Tensor) \
+            else tab.transpose(1, 0, 2)
+        out.append(shards)
+    return tuple(out)
+
+
+def unshard_col_tables(cs_arrays, placement: TablePlacement) -> list:
+    """Inverse of :func:`shard_col_tables`: the per-table ``(N, R_t,
+    D/N)`` arrays -> the logical ``(R_t, D)`` tables (copies), in
+    ``placement.col_sharded`` order."""
+    out = []
+    for arr in cs_arrays:
+        n, rows, wc = arr.shape
+        tab = _empty(arr, (rows, n * wc))
+        tab.reshape(rows, n, wc)[...] = arr.transpose(0, 1) \
+            if isinstance(arr, torch.Tensor) else arr.transpose(1, 0, 2)
+        out.append(tab)
+    return out
+
+
+def placement_arrays(placement: TablePlacement, rank: int,
+                     device="cpu") -> dict:
+    """Rank ``rank``'s row of the slot metadata as ``(K,)`` int64 tensors
+    on ``device``: ``slot_tables`` (global table per slot),
+    ``slot_valid`` (1 for real slots) and ``slot_offsets`` (each slot's
+    first row in the local stack; padding slots point at the trash
+    row).  Made once a device: the tensors are shared, not to be
+    written."""
+    device = torch.device(device)
+    return {name: _index_tensor(tuple(int(x) for x in a[rank]), device)
+            for name, a in (("slot_tables", placement.slot_tables),
+                            ("slot_valid", placement.slot_valid),
+                            ("slot_offsets", placement.slot_local_offsets))}
+
+
+# -- the exchange ---------------------------------------------------------------
+
+def _xc(x: torch.Tensor, exchange_dtype) -> torch.Tensor:
+    """A collective operand in the wire dtype (``exchange_dtype``, e.g.
+    bf16: half the bytes); None keeps it.  Exactly one rounding at the
+    exchange boundary: the collectives only move data, or add partials of
+    which at most one is nonzero for a one-hot row-sharded lookup
+    (multi-hot ones take one rounding more per owning shard)."""
+    return x if exchange_dtype is None else x.to(exchange_dtype)
+
+
+def _gather_rows_of(ids: torch.Tensor, group) -> torch.Tensor:
+    """This rank's ids (b, ...) -> every rank's, rank-major (N*b, ...)."""
+    n = dist.get_world_size(group)
+    out = torch.empty((n * ids.shape[0], *ids.shape[1:]), dtype=ids.dtype,
+                      device=ids.device)
+    _all_gather(out, ids.contiguous(), group=group)
+    return out
+
+
+def _layout(placement: TablePlacement) -> tuple:
+    """The placement as the hashable key of :func:`_exchange_index`: each
+    table's (kind, position) -- (0, exchanged column) for a slot table,
+    (1, k) for row-sharded table k, (2, k) for column-sharded table k --
+    then N, K, and the row- and column-sharded counts."""
+    col = dict(zip(placement.slot_table_list,
+                   placement.out_column().tolist()))
+    kinds = []
+    for t in range(placement.num_tables):
+        if t in col:
+            kinds.append((0, col[t]))
+        elif t in placement.row_sharded:
+            kinds.append((1, placement.row_sharded.index(t)))
+        else:
+            kinds.append((2, placement.col_sharded.index(t)))
+    return (tuple(kinds), placement.num_shards, placement.slots_per_shard,
+            len(placement.row_sharded), len(placement.col_sharded))
+
+
+def _regions(layout: tuple, b: int) -> Tuple[int, int, int]:
+    """Rows of D of the exchange buffer's three regions (slot, row-sharded,
+    column-sharded) for ``b`` rows a rank."""
+    kinds, n, k, n_rs, n_cs = layout
+    slot = n * b * k if any(kind == 0 for kind, _ in kinds) else 0
+    return slot, n_rs * b, n_cs * b
+
+
+@functools.lru_cache(maxsize=64)
+def _exchange_index(layout: tuple, b: int, device: torch.device):
+    """(the pooled index, the slot index) of the exchange buffer for ``b``
+    rows a rank.
+
+    The buffer holds, in rows of D: the slot all-to-all's receive buffer
+    ``(N, b, K)``; the row-sharded reduce-scatter's ``(b, n_rs)``; each
+    column-sharded table's all-to-all receive buffer ``(N, b, D/N)``, b
+    rows of D.  The pooled index picks ``(b, T)`` rows of D in global table
+    order -- with column-sharded tables, ``(b, T, N)`` pieces of D/N --
+    so one ``index_select`` composes the transpose and both of the JAX
+    package's takes.  The slot index is the slot tables' ``(b, T_slot)``
+    rows of D, the rows the backward's send buffer fills."""
+    kinds, n, k, n_rs, n_cs = layout
+    slot_rows, rs_rows, _ = _regions(layout, b)
+    bb = np.arange(b, dtype=np.int64)[:, None]
+    rows = np.zeros((b, len(kinds)), np.int64)
+    for t, (kind, pos) in enumerate(kinds):
+        if kind == 0:    # receive buffer (N, b, K): shard-major
+            rows[:, t:t + 1] = (pos // k) * b * k + pos % k + bb * k
+        elif kind == 1:  # reduce-scatter output (b, n_rs)
+            rows[:, t:t + 1] = slot_rows + bb * n_rs + pos
+    slot_cols = [t for t, (kind, _) in enumerate(kinds) if kind == 0]
+    slot_index = rows[:, slot_cols].reshape(-1)
+    if not n_cs:
+        pooled = rows.reshape(-1)
+    else:            # pieces of D/N: N of them a row of D
+        p = np.arange(n, dtype=np.int64)[None, :]
+        pieces = rows[:, :, None] * n + p[None]
+        for t, (kind, pos) in enumerate(kinds):
+            if kind == 2:  # receive buffer (N, b, D/N)
+                start = (slot_rows + rs_rows + pos * b) * n
+                pieces[:, t, :] = start + p * b + bb
+        pooled = pieces.reshape(-1)
+    return (torch.as_tensor(pooled, device=device),
+            torch.as_tensor(slot_index, device=device))
+
+
+@functools.lru_cache(maxsize=64)
+def _index_tensor(values: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.int64, device=device)
+
+
+def _local_rows_for_slots(ids_all: torch.Tensor, meta: dict) -> torch.Tensor:
+    """This rank's local rows for its slots: global ids (B, T[, H]) ->
+    (B, K[, H]) int64; padding slots resolve to the trash row."""
+    own = ids_all.index_select(1, meta["slot_tables"])
+    valid, offs = meta["slot_valid"], meta["slot_offsets"]
+    if own.dim() == 3:
+        valid, offs = valid[:, None], offs[:, None]
+    return own * valid + offs
+
+
+def _rs_translate(ids_rs: torch.Tensor, placement: TablePlacement,
+                  my_idx: int):
+    """Row-sharded tables: global ids (B, n_rs[, H]) -> (local row, owned)
+    for this rank's contiguous blocks; ids it does not own go to the trash
+    row."""
+    dev = ids_rs.device
+    chunk = _index_tensor(placement.rs_rows_per_shard, dev)
+    lo = _index_tensor(placement.rs_local_offsets, dev)
+    if ids_rs.dim() == 3:
+        chunk, lo = chunk[:, None], lo[:, None]
+    owned = ids_rs // chunk == my_idx
+    local = torch.where(owned, lo + ids_rs - my_idx * chunk,
+                        placement.trash_row)
+    return local, owned
+
+
+def _check_served(placement: TablePlacement, scales=None) -> None:
+    if placement.host_row_sharded:
+        raise NotImplementedError(
+            f"tables {list(placement.host_row_sharded)} are host-resident "
+            f"row-sharded: {_HOST_ROWS}")
+    if scales is not None:
+        raise NotImplementedError(_INT8)
+
+
+def _table_group(mesh, axis: str, placement: TablePlacement):
+    group = mesh.get_group(axis)
+    n = dist.get_world_size(group)
+    if n != placement.num_shards:
+        raise ValueError(f"the placement has {placement.num_shards} shards, "
+                         f"the mesh's {axis!r} axis {n} ranks")
+    return group, mesh.get_local_rank(axis)
+
+
+def _lookup_body(emb, cs, ids, meta, *, group, my_idx: int,
+                 placement: TablePlacement, exchange_dtype=None):
+    """This rank's local stack ``emb`` (local_rows, D), column shards
+    ``cs`` (R_t, D/N), ids (b, T[, H]) -> pooled (b, T, D) in global table
+    order."""
+    b, d = ids.shape[0], emb.shape[1]
+    layout = _layout(placement)
+    n = placement.num_shards
+    slot_rows, rs_rows, cs_rows = _regions(layout, b)
+    wire = emb.dtype if exchange_dtype is None else exchange_dtype
+    buf = torch.empty((slot_rows + rs_rows + cs_rows, d), dtype=wire,
+                      device=emb.device)
+    ids_all = _gather_rows_of(ids, group).long()
+    if slot_rows:
+        phys = _local_rows_for_slots(ids_all, meta)
+        rows = emb.index_select(0, phys.reshape(-1))
+        if phys.dim() == 3:  # pool the hot axis before the exchange
+            rows = rows.view(*phys.shape, d).sum(dim=2)
+        with phase_scope("a2a_fwd"):
+            dist.all_to_all_single(buf[:slot_rows],
+                                   _xc(rows, exchange_dtype).view(-1, d),
+                                   group=group)
+    if rs_rows:
+        rs = _index_tensor(placement.row_sharded, emb.device)
+        local, owned = _rs_translate(ids_all.index_select(1, rs), placement,
+                                     my_idx)
+        rows = emb.index_select(0, local.reshape(-1)).view(*local.shape, d)
+        rows = rows * owned[..., None].to(rows.dtype)
+        if rows.dim() == 4:
+            rows = rows.sum(dim=2)
+        with phase_scope("rs_reduce_scatter"):
+            # each id is owned by one rank: the partials sum over ranks
+            # and the batch splits in one collective
+            _reduce_scatter(buf[slot_rows:slot_rows + rs_rows],
+                            _xc(rows, exchange_dtype).view(-1, d),
+                            group=group)
+    for j, t in enumerate(placement.col_sharded):
+        ids_t = ids_all[:, t]
+        rows = cs[j].index_select(0, ids_t.reshape(-1))
+        if ids_t.dim() == 2:
+            rows = rows.view(*ids_t.shape, -1).sum(dim=1)
+        start = slot_rows + rs_rows + j * b
+        with phase_scope("cs_a2a_fwd"):
+            dist.all_to_all_single(
+                buf[start:start + b].view(n * b, d // n),
+                _xc(rows, exchange_dtype).contiguous(), group=group)
+    with phase_scope("pooled_permute"):
+        pooled_index, _ = _exchange_index(layout, b, emb.device)
+        pieces = buf.view(-1, d // n) if cs_rows else buf
+        pooled = pieces.index_select(0, pooled_index).view(
+            b, placement.num_tables, d)
+    return pooled.to(emb.dtype)
+
+
+def sharded_lookup(emb: torch.Tensor, ids: torch.Tensor, *, mesh,
+                   placement: TablePlacement, axis: str = "d", cs=(),
+                   exchange_dtype=None, scales=None) -> torch.Tensor:
+    """Pooled lookup of this rank's ``b`` batch rows: ``emb`` its local
+    stack ``(local_rows, D)``, ``cs`` its column shards ``(R_t, D/N)`` in
+    ``placement.col_sharded`` order, ``ids`` (b, T[, H]) -> (b, T, D).
+    Every rank of the mesh's ``axis`` group calls it with the same ``b``.
+    Runs outside autograd.
+
+    ``exchange_dtype`` (e.g. ``torch.bfloat16``) carries the exchanges in
+    that dtype: the result is the f32 lookup rounded once (one-hot).
+    ``scales`` (int8 tables) is refused, as are host-resident tables."""
+    _check_served(placement, scales)
+    group, my_idx = _table_group(mesh, axis, placement)
+    meta = placement_arrays(placement, my_idx, emb.device)
+    with torch.no_grad():
+        return _lookup_body(emb, cs, ids, meta, group=group, my_idx=my_idx,
+                            placement=placement,
+                            exchange_dtype=exchange_dtype)
+
+
+def _dcn_fold(ids, d_pooled, group, exchange_dtype=None):
+    """Fold the DCN axis into the local batch for the update: gather the
+    ids and the pooled gradients of every DCN replica, so that each applies
+    the same global sparse update and the tables stay replicated across
+    the axis (the compressed gradient moves, never a dense one)."""
+    with phase_scope("dcn_grad_allgather"):
+        ids = _gather_rows_of(ids, group)
+        d = _gather_rows_of(_xc(d_pooled, exchange_dtype), group)
+    return ids, d.to(d_pooled.dtype)
+
+
+def _update_body(emb, cs, ids, d_pooled, lr: float, meta, *, group,
+                 my_idx: int, placement: TablePlacement,
+                 exchange_dtype=None) -> None:
+    """SGD on this rank's tables, in place: ``d_pooled`` (b, T, D) is the
+    gradient of the pooled rows of its ``ids`` (b, T[, H]).  Slot tables
+    take the inverse all-to-all, row-sharded tables all-gather their
+    gradient columns and add the rows the rank owns, column-sharded tables
+    take the inverse of their all-to-all; each then one ``index_add_``."""
+    b, d = d_pooled.shape[0], d_pooled.shape[-1]
+    n, k = placement.num_shards, placement.slots_per_shard
+    dt = d_pooled.dtype
+    wire = dt if exchange_dtype is None else exchange_dtype
+    layout = _layout(placement)
+    slot_rows, rs_rows, _ = _regions(layout, b)
+    ids_all = _gather_rows_of(ids, group).long()
+    if slot_rows:
+        _, slot_index = _exchange_index(layout, b, emb.device)
+        slots = _index_tensor(placement.slot_table_list, emb.device)
+        padded = bool((placement.slot_valid == 0).any())
+        with phase_scope("a2a_bwd"):
+            # the forward's receive layout is this send layout: row
+            # (shard, batch row, slot); padding slots send zeros
+            send = (torch.zeros if padded else torch.empty)(
+                (slot_rows, d), dtype=wire, device=emb.device)
+            send.index_copy_(0, slot_index, _xc(
+                d_pooled.index_select(1, slots), exchange_dtype).view(-1, d))
+            back = torch.empty_like(send)
+            dist.all_to_all_single(back, send, group=group)
+        phys = _local_rows_for_slots(ids_all, meta)
+        back = back.view(n * b, k, d).to(dt)
+        if phys.dim() == 3:  # sum-pooled multi-hot: each hit gets it
+            back = back[:, :, None, :].expand(*phys.shape, d)
+        emb.index_add_(0, phys.reshape(-1),
+                       (back.float() * -lr).to(emb.dtype).reshape(-1, d))
+    if rs_rows:
+        rs = _index_tensor(placement.row_sharded, emb.device)
+        with phase_scope("rs_allgather_bwd"):
+            g = _gather_rows_of(_xc(d_pooled.index_select(1, rs),
+                                    exchange_dtype), group).to(dt)
+        ids_rs = ids_all.index_select(1, rs)
+        local, owned = _rs_translate(ids_rs, placement, my_idx)
+        if ids_rs.dim() == 3:
+            g = g[:, :, None, :].expand(*ids_rs.shape, d)
+        g = g * owned[..., None].to(dt)
+        emb.index_add_(0, local.reshape(-1),
+                       (g.float() * -lr).to(emb.dtype).reshape(-1, d))
+    for j, t in enumerate(placement.col_sharded):
+        wc = d // n
+        with phase_scope("cs_a2a_bwd"):
+            send = _xc(d_pooled[:, t], exchange_dtype).reshape(
+                b, n, wc).transpose(0, 1).contiguous()
+            g = torch.empty((n * b, wc), dtype=wire, device=emb.device)
+            dist.all_to_all_single(g, send.view(n * b, wc), group=group)
+        ids_t = ids_all[:, t]
+        g = g.to(dt)
+        if ids_t.dim() == 2:
+            g = g[:, None, :].expand(*ids_t.shape, wc)
+        cs[j].index_add_(0, ids_t.reshape(-1),
+                         (g.float() * -lr).to(cs[j].dtype).reshape(-1, wc))
+
+
+def sharded_update_sgd(emb: torch.Tensor, ids: torch.Tensor,
+                       d_pooled: torch.Tensor, lr, *, mesh,
+                       placement: TablePlacement, axis: str = "d", cs=(),
+                       exchange_dtype=None) -> None:
+    """Apply the compressed embedding gradient ``d_pooled`` (b, T, D) of
+    this rank's batch rows ``ids`` (b, T[, H]) to the sharded tables with
+    SGD, in place: ``emb`` the local stack, ``cs`` the column shards.  On
+    a 2-D mesh the DCN replicas' gradients are folded in first.  ``lr`` is
+    taken as the f32 value the JAX package computes with; padding slots and
+    ids a rank does not own add zeros to the trash row."""
+    _check_served(placement)
+    if emb.dtype == torch.int8:
+        raise ValueError("int8 tables are inference-only; train f32 or bf16 "
+                         "tables and quantize after")
+    group, my_idx = _table_group(mesh, axis, placement)
+    dcn = dcn_axis_of(mesh, axis)
+    if dcn is not None:
+        ids, d_pooled = _dcn_fold(ids, d_pooled, mesh.get_group(dcn),
+                                  exchange_dtype)
+    meta = placement_arrays(placement, my_idx, emb.device)
+    with torch.no_grad():
+        _update_body(emb, cs, ids, d_pooled, float(np.float32(lr)), meta,
+                     group=group, my_idx=my_idx, placement=placement,
+                     exchange_dtype=exchange_dtype)

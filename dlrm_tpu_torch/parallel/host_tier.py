@@ -52,6 +52,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import mmap
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -145,10 +146,74 @@ def _tier_config(plan: TierPlan, config: DLRMConfig) -> DLRMConfig:
 
 
 def _host_empty(shape, dtype: torch.dtype, device) -> torch.Tensor:
-    """A host-tier tensor: pinned for a CUDA device (the kernels read and
-    write it in place), plain host memory for the CPU."""
-    return torch.empty(shape, dtype=dtype,
-                       pin_memory=torch.device(device).type == "cuda")
+    """A host-tier tensor: for a CUDA device, exactly ``prod(shape) *
+    itemsize`` bytes of page-aligned host memory registered with the card
+    (the kernels read and write it in place); plain host memory for the
+    CPU.  PyTorch's pinned allocator would round the tier up to a power of
+    two (13.07 GB into a 16 GiB block), so the tier is mapped and
+    registered here instead."""
+    if torch.device(device).type != "cuda":
+        return torch.empty(shape, dtype=dtype)
+    out, mapping = _page_aligned_empty(shape, dtype)
+    if mapping is not None:
+        ptr = out.untyped_storage().data_ptr()
+        _cuda_host_register(ptr, out.untyped_storage().nbytes())
+        mapping.registered = ptr
+    return out
+
+
+class _HostMap(mmap.mmap):
+    """An anonymous mapping that unregisters itself from CUDA before it is
+    unmapped.  The tensors viewing it keep it alive (``torch.frombuffer``
+    holds its buffer), so that runs when the last of them dies."""
+
+    registered = 0  # the address given to cudaHostRegister, or 0
+
+    def __del__(self):
+        if self.registered:
+            _cuda_host_unregister(self.registered)
+            self.registered = 0
+
+
+def _page_aligned_empty(shape, dtype: torch.dtype):
+    """(an uninitialised host tensor of exactly ``prod(shape) * itemsize``
+    bytes at the start of an anonymous mapping, which is page-aligned and
+    that size rounded up to a page; the mapping, None for 0 bytes)."""
+    numel = 1
+    for s in shape:
+        numel *= int(s)
+    if numel == 0:
+        return torch.empty(shape, dtype=dtype), None
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    mapping = _HostMap(-1, numel * itemsize)
+    out = torch.frombuffer(mapping, dtype=dtype, count=numel)
+    return out.view(tuple(shape)), mapping
+
+
+_CUDA_HOST_REGISTER_PORTABLE = 1
+_CUDA_HOST_REGISTER_MAPPED = 2
+
+
+def _cuda_host_register(ptr: int, nbytes: int) -> None:
+    """``cudaHostRegister`` with the portable and mapped flags: every
+    context may use the range, at its host address under unified
+    addressing."""
+    rc = torch.cuda.cudart().cudaHostRegister(
+        ptr, nbytes,
+        _CUDA_HOST_REGISTER_PORTABLE | _CUDA_HOST_REGISTER_MAPPED)
+    if int(rc) != 0:
+        raise RuntimeError(f"cudaHostRegister of {nbytes} B at {ptr:#x}: "
+                           f"CUDA error {int(rc)}")
+
+
+def _cuda_host_unregister(ptr: int) -> None:
+    """``cudaHostUnregister``, after the card has finished every kernel
+    that may still read or write the range."""
+    torch.cuda.synchronize()
+    rc = torch.cuda.cudart().cudaHostUnregister(ptr)
+    if int(rc) != 0:
+        raise RuntimeError(f"cudaHostUnregister at {ptr:#x}: CUDA error "
+                           f"{int(rc)}")
 
 
 def split_tiers(emb: torch.Tensor, plan: TierPlan, config: DLRMConfig,

@@ -40,10 +40,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from dlrm_tpu_torch.parallel.placement import _TPU_LAYOUT
+
 _Q = "ROADMAP.md queue 1, "
 _MULTI = _Q + "item 3, 'Multi-GPU'"
-_TPU_LAYOUT = ("is TPU storage layout, which the port does not carry over "
-               "(ROADMAP.md, north star)")
 
 # Flags of the JAX package's CLI that this package does not serve yet:
 # flag -> (default, why).  A flag at its default passes.

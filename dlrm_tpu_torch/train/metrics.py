@@ -1,7 +1,7 @@
 """Evaluation metrics: accuracy, ROC AUC (exact on the host, and
 histogram-bucketed streaming on the device), the ``Every`` periodic-callback
-combinator and ``evaluate`` -- the single-device part of
-``dlrm_tpu/train/metrics.py``."""
+combinator, ``evaluate`` and its sharded twin ``sharded_evaluate`` -- the
+counterpart of ``dlrm_tpu/train/metrics.py``."""
 
 from __future__ import annotations
 
@@ -100,10 +100,16 @@ class Every:
 
 
 def _accumulate(data: Iterable, predict_batch: Callable, *,
-                record: Optional[List[float]], auc_buckets: int
-                ) -> Dict[str, float]:
+                record: Optional[List[float]], auc_buckets: int,
+                mp_reduce: bool = False) -> Dict[str, float]:
     """The metric loop: accuracy, streaming AUC and mean loss over batches
-    scored by ``predict_batch(batch) -> preds`` (a (b,) tensor)."""
+    scored by ``predict_batch(batch) -> preds`` (a (b,) tensor; a batch
+    with no labels adds nothing).
+
+    ``mp_reduce``: every rank of the process group scores its own rows,
+    and the counts (correct, total, the AUC histograms) and the loss sum
+    are summed over the ranks at the end (:func:`_reduce_counts`), so each
+    reports the metrics of every row."""
     from dlrm_tpu_torch.ops.loss import bce_loss
 
     auc = StreamingAUC(auc_buckets)
@@ -113,6 +119,8 @@ def _accumulate(data: Iterable, predict_batch: Callable, *,
     for batch in data:
         preds = predict_batch(batch)
         host_labels = torch.as_tensor(batch["labels"])
+        if host_labels.shape[0] == 0:
+            continue
         labels = host_labels.to(preds.device)
         auc.update(preds, labels)
         loss_sum += float(bce_loss(preds, labels)) * labels.shape[0]
@@ -121,11 +129,36 @@ def _accumulate(data: Iterable, predict_batch: Callable, *,
         l = host_labels.cpu().numpy()
         correct += int(((p >= 0.5) == (l >= 0.5)).sum())
         total += l.shape[0]
+    if mp_reduce:
+        correct, total, loss_sum = _reduce_counts(correct, total, auc,
+                                                  loss_sum)
     acc = correct / max(total, 1)
     if record is not None:
         record.append(acc)
     return {"accuracy": acc, "auc": auc.compute(),
             "loss": loss_sum / max(total, 1), "examples": total}
+
+
+def _reduce_counts(correct: int, total: int, auc: StreamingAUC,
+                   loss_sum: float):
+    """Sum the counters over every rank of the default process group: the
+    counts as int64 (exact at any size), the loss sum in f64; ``auc``'s
+    histograms in place.  Returns (correct, total, loss_sum)."""
+    import torch.distributed as dist
+
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    counts = torch.as_tensor(np.concatenate(
+        [np.asarray([correct, total], np.int64), auc.pos.astype(np.int64),
+         auc.neg.astype(np.int64)]), device=device)
+    loss = torch.tensor([loss_sum], dtype=torch.float64, device=device)
+    dist.all_reduce(counts)
+    dist.all_reduce(loss)
+    counts = counts.cpu().numpy()
+    n = auc.num_buckets
+    auc.pos = counts[2:2 + n].astype(np.float64)
+    auc.neg = counts[2 + n:].astype(np.float64)
+    return int(counts[0]), int(counts[1]), float(loss.item())
 
 
 def evaluate(params: dict, data: Iterable, config, *,
@@ -147,3 +180,68 @@ def evaluate(params: dict, data: Iterable, config, *,
 
     return _accumulate(data, predict_batch, record=record,
                        auc_buckets=auc_buckets)
+
+
+def make_sharded_eval_forward(config, mesh, placement, axis: str = "d"
+                              ) -> Callable:
+    """The sharded forward of this rank's rows: ``fwd(dense_params, emb,
+    cs, dense, sparse) -> (b,) predictions``, the sharded lookup
+    (``parallel/embedding.sharded_lookup``) then the model's
+    ``forward_from_pooled``.  Every rank of the mesh calls it with the
+    same number of rows."""
+    from dlrm_tpu_torch.models.dlrm import forward_from_pooled
+    from dlrm_tpu_torch.parallel.embedding import sharded_lookup
+    from dlrm_tpu_torch.utils.telemetry import phase_scope
+
+    def fwd(dense_params, emb, cs, dense, sparse):
+        with torch.no_grad():
+            with phase_scope("lookup"):
+                pooled = sharded_lookup(
+                    emb, sparse, mesh=mesh, placement=placement, axis=axis,
+                    cs=cs, exchange_dtype=config.exchange_dtype)
+            return forward_from_pooled(dense_params, pooled, dense, config)
+
+    return fwd
+
+
+def sharded_evaluate(params: dict, data: Iterable, config, *, mesh,
+                     placement, axis: str = "d",
+                     record: Optional[List[float]] = None,
+                     auc_buckets: int = 1 << 14) -> Dict[str, float]:
+    """:func:`evaluate` on this rank's sharded parameters (as
+    ``train.sharded_train_step`` takes them); every rank of the mesh calls
+    it with the same global batches and gets the metrics of every row.
+
+    A rank scores its rows of each batch (``parallel.mesh
+    .local_batch_rows``).  A batch that does not divide by the mesh's
+    ranks (a ragged tail) is padded by repeating its last row and the
+    padded predictions are dropped, so every row counts once."""
+    from dlrm_tpu_torch.parallel.mesh import local_batch_rows
+
+    fwd = make_sharded_eval_forward(config, mesh, placement, axis)
+    dense_params = {"bottom": params["bottom"], "top": params["top"]}
+    emb, cs = params["emb"], tuple(params.get("emb_cs", ()))
+    ranks = mesh.mesh.numel()
+
+    def local_batches():
+        for batch in data:
+            dense, sparse, labels = (torch.as_tensor(batch[k]) for k in
+                                     ("dense", "sparse", "labels"))
+            b = dense.shape[0]
+            pad = -b % ranks
+            if pad:
+                dense = torch.cat([dense, dense[-1:].expand(
+                    pad, *dense.shape[1:])])
+                sparse = torch.cat([sparse, sparse[-1:].expand(
+                    pad, *sparse.shape[1:])])
+            lo, hi = local_batch_rows(mesh, b + pad)
+            yield {"dense": dense[lo:hi], "sparse": sparse[lo:hi],
+                   "labels": labels[lo:max(lo, min(hi, b))]}
+
+    def predict_batch(batch):
+        preds = fwd(dense_params, emb, cs, batch["dense"].to(emb.device),
+                    batch["sparse"].to(emb.device))
+        return preds[:batch["labels"].shape[0]]
+
+    return _accumulate(local_batches(), predict_batch, record=record,
+                       auc_buckets=auc_buckets, mp_reduce=True)

@@ -10,6 +10,9 @@ duplicate ids.  Table gradients are never densified.  The parameters (and
 the optimizer state) are updated in place, which stands in for the JAX
 package's buffer donation.
 
+``sharded_train_step`` is the hybrid-parallel SGD step of one rank of a
+gang (``parallel/embedding.py``, ``parallel/mesh.py``).
+
 ``train_step_opt`` adds the optimizers of ``train/optim.py`` and global-norm
 clipping.  ``train_block`` / ``train_block_opt`` fuse K micro-steps: the
 dense parameters and the small tables update every micro-step, the big
@@ -375,6 +378,85 @@ def make_train_block_opt(config: DLRMConfig, *, optimizer: str, lr,
                              adagrad_impl=adagrad_impl, unroll=unroll,
                              optimizer=optimizer,
                              grad_clip_norm=grad_clip_norm)
+
+
+# -- the sharded step (parallel/embedding.py) -----------------------------------
+
+def broadcast_dense(params: dict) -> None:
+    """Give every rank rank 0's dense parameters, in place (one flat
+    buffer): the sharded step keeps them replicated from there on, so they
+    are never drawn per rank."""
+    import torch.distributed as dist
+
+    leaves = emb_ops.tree_leaves(model_lib.split_params(params)[0])
+    flat = torch.cat([p.reshape(-1) for p in leaves])
+    dist.broadcast(flat, src=0)
+    for p, q in zip(leaves, torch.split(flat, [p.numel() for p in leaves])):
+        p.copy_(q.view_as(p))
+
+
+def sharded_train_step(params: dict, dense, sparse, labels, *,
+                       config: DLRMConfig, lr: float, mesh, placement,
+                       axis: str = "d") -> torch.Tensor:
+    """One hybrid-parallel SGD step on this rank's parameters, in place;
+    returns the global batch's loss (0-d, no host sync).
+
+    ``params``: ``{"bottom", "top", "emb": (local_rows, D), "emb_cs":
+    ((R_t, D/N), ...)}``, the rank's shard (``parallel.embedding``), the
+    dense parameters the same on every rank (:func:`broadcast_dense`).
+    ``dense`` / ``sparse`` / ``labels`` are the global batch, the same on
+    every rank, which takes its rows (``parallel.mesh.local_batch_rows``;
+    the batch must divide by the mesh's ranks) to the parameters'
+    device.
+
+    The loss and the gradients are those of the global mean: the local
+    backward carries ``1 / ranks``, so ``d_pooled`` carries ``1 / B``, and
+    the dense gradients and the loss are summed over every rank in one
+    all-reduce of one flat buffer.  The lookup runs outside autograd."""
+    import torch.distributed as dist
+    from dlrm_tpu_torch.parallel import embedding as pemb
+    from dlrm_tpu_torch.parallel.mesh import local_batch_rows
+    from dlrm_tpu_torch.utils.telemetry import phase_scope
+
+    dense_params, emb = _split_trainable(params)
+    cs = tuple(params.get("emb_cs", ()))
+    lo, hi = local_batch_rows(mesh, dense.shape[0])
+    dense, sparse, labels = (t[lo:hi].to(emb.device)
+                             for t in (dense, sparse, labels))
+    with phase_scope("lookup"):
+        pooled = pemb.sharded_lookup(
+            emb, sparse, mesh=mesh, placement=placement, axis=axis, cs=cs,
+            exchange_dtype=config.exchange_dtype)
+    pooled.requires_grad_()
+    live = emb_ops.tree_map(lambda p: p.detach().requires_grad_(),
+                            dense_params)
+    loss = _loss(live, pooled, dense, labels, config=config)
+    leaves = emb_ops.tree_leaves(live)
+    share = torch.full((), 1.0 / mesh.mesh.numel(), dtype=loss.dtype,
+                       device=loss.device)
+    grads = torch.autograd.grad(loss, leaves + [pooled], grad_outputs=share)
+    with torch.no_grad():
+        flat = torch.cat([g.reshape(-1) for g in grads[:-1]]
+                         + [(loss * share).reshape(1)])
+        with phase_scope("dense_allreduce"):
+            dist.all_reduce(flat)
+        for p, g in zip(emb_ops.tree_leaves(dense_params),
+                        torch.split(flat[:-1], [p.numel() for p in leaves])):
+            p.sub_(g.view_as(p) * lr)
+    with phase_scope("sparse_update"):
+        pemb.sharded_update_sgd(emb, sparse, grads[-1], lr, mesh=mesh,
+                                placement=placement, axis=axis, cs=cs,
+                                exchange_dtype=config.exchange_dtype)
+    return flat[-1]
+
+
+def make_sharded_train_step(config: DLRMConfig, lr: float, mesh, placement,
+                            axis: str = "d") -> Callable:
+    """``step(params, dense, sparse, labels) -> loss`` of
+    :func:`sharded_train_step` at the f32 learning rate."""
+    return functools.partial(sharded_train_step, config=config,
+                             lr=_f32(lr), mesh=mesh, placement=placement,
+                             axis=axis)
 
 
 def batch_to_device(batch: Dict[str, Any], device: torch.device

@@ -728,3 +728,50 @@ def test_opt_state_and_converters():
     with pytest.raises(ValueError, match="tiers"):
         convert.tiered_params_from_numpy(
             {**_jax_tiered_np(jt, jplan, jcfg)}, ht.plan_tiers(tcfg, 0), tcfg)
+
+
+@pytest.mark.parametrize("shape,dtype", [((25_529, 128), torch.float32),
+                                         ((3, 1000, 7), torch.bfloat16),
+                                         ((5_000_003,), torch.float32)])
+def test_cuda_host_tier_takes_its_exact_size(monkeypatch, shape, dtype):
+    """The host tier for a CUDA device: exactly prod(shape) * itemsize
+    bytes (no power-of-two block) at a page-aligned address, registered
+    once with exactly that address and size, and unregistered when the
+    last view of it dies.  The registration is recorded, not made: there
+    is no card here."""
+    import gc
+    import mmap
+
+    calls = []
+    monkeypatch.setattr(ht, "_cuda_host_register",
+                        lambda ptr, n: calls.append(("register", ptr, n)))
+    monkeypatch.setattr(ht, "_cuda_host_unregister",
+                        lambda ptr: calls.append(("unregister", ptr)))
+    t = ht._host_empty(shape, dtype, "cuda")
+    nbytes = int(np.prod(shape)) * t.element_size()
+    assert t.shape == shape and t.dtype == dtype and t.device.type == "cpu"
+    assert t.is_contiguous()
+    assert t.untyped_storage().nbytes() == nbytes
+    assert t.data_ptr() == t.untyped_storage().data_ptr()
+    assert t.data_ptr() % mmap.PAGESIZE == 0
+    assert calls == [("register", t.data_ptr(), nbytes)]
+    t.fill_(1)  # the whole range is writable memory
+    ptr, view = t.data_ptr(), t[1:]
+    del t
+    gc.collect()
+    assert len(calls) == 1  # a view still holds the mapping
+    del view
+    gc.collect()
+    assert calls == [("register", ptr, nbytes), ("unregister", ptr)]
+
+
+def test_cpu_host_tier_is_plain_memory(monkeypatch):
+    """For the CPU the host tier is plain host memory of the exact shape
+    and dtype, with nothing registered."""
+    monkeypatch.setattr(ht, "_cuda_host_register", None)
+    for dtype in (torch.float32, torch.bfloat16):
+        t = ht._host_empty((1000, 3), dtype, "cpu")
+        assert t.shape == (1000, 3) and t.dtype == dtype
+        assert t.device.type == "cpu" and not t.is_pinned()
+        assert t.untyped_storage().nbytes() == 3000 * t.element_size()
+    assert ht._host_empty((0, 8), torch.float32, "cuda").numel() == 0

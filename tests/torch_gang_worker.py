@@ -1,0 +1,218 @@
+"""One rank of a gloo gang that drives dlrm_tpu_torch's sharded path, and
+the launcher the gang tests call (``run_gang``).
+
+A rank imports torch, numpy and the port only (never JAX), joins the gang
+through a ``file://`` store, builds its mesh and its shard of the
+parameters (``io.convert.sharded_params_from_numpy``), runs the task of
+the spec and writes its results to ``<out>/rank<r>.npz``: results never
+travel through stdout, where gloo's log lines interleave.
+
+    python tests/torch_gang_worker.py --rank R --world N --store FILE \\
+        --spec spec.json --out DIR
+
+The spec (JSON): ``config`` (DLRMConfig fields; ``exchange_dtype`` "bf16"
+or null), ``placement`` (``plan_placement`` keywords), ``mesh`` (null for
+1-D, ``[dcn, ici]`` for 2-D), ``arrays`` (an .npz with the JAX package's
+sharded parameters under ``emb``, ``emb_cs.<j>``, ``bottom.<i>.<w|b>``,
+``top.<i>.<w|b>``, and the task's inputs), ``task`` and its fields:
+
+* ``lookup``: ``cases``, names of global id arrays; each rank writes its
+  pooled rows under ``<case>`` (f32) and ``<case>.bf16`` (bf16 exchange).
+* ``train``: ``lr`` and ``steps``; global batches ``dense.<s>``,
+  ``sparse.<s>``, ``labels.<s>``.  Ranks other than 0 first add 1 to their
+  dense parameters, which ``broadcast_dense`` must undo; each rank writes
+  ``losses``, its ``emb``, ``emb_cs.<j>`` and dense leaves, and
+  ``refused`` if a global batch of ``world + 1`` rows was refused.
+* ``eval``: batches ``dense.<s>`` ... (``batches`` of them, the last may
+  be ragged); each rank writes its metrics, and the sums of a few large
+  counters over the gang (``big``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent
+REPO = HERE.parent
+
+
+def run_gang(tmp: Path, world: int, spec: dict, arrays: dict,
+             timeout: float = 240.0) -> list:
+    """Start ``world`` ranks on ``spec`` and ``arrays``, wait for all of
+    them (each within ``timeout`` seconds) and return each rank's results
+    as a dict of arrays."""
+    tmp = Path(tmp)
+    out = tmp / "out"
+    out.mkdir(parents=True, exist_ok=True)
+    np.savez(tmp / "arrays.npz", **arrays)
+    spec = {**spec, "arrays": str(tmp / "arrays.npz")}
+    (tmp / "spec.json").write_text(json.dumps(spec))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX", "XLA"))}
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "2"
+    procs = [subprocess.Popen(
+        [sys.executable, str(HERE / "torch_gang_worker.py"), "--rank",
+         str(r), "--world", str(world), "--store", str(tmp / "store"),
+         "--spec", str(tmp / "spec.json"), "--out", str(out)],
+        cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True) for r in range(world)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=timeout)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, err) in enumerate(zip(procs, errs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n" \
+                                  f"{err[-4000:]}"
+    results = []
+    for r in range(world):
+        with np.load(out / f"rank{r}.npz") as z:
+            results.append({k: z[k] for k in z.files})
+    return results
+
+
+def jax_sharded_arrays(sh_params: dict) -> dict:
+    """The JAX package's sharded parameters (numpy) as the arrays of a
+    spec."""
+    arrays = {"emb": np.asarray(sh_params["emb"])}
+    for j, a in enumerate(sh_params.get("emb_cs", ())):
+        arrays[f"emb_cs.{j}"] = np.asarray(a)
+    for part in ("bottom", "top"):
+        for i, layer in enumerate(sh_params[part]):
+            for k in ("w", "b"):
+                arrays[f"{part}.{i}.{k}"] = np.asarray(layer[k])
+    return arrays
+
+
+# -- one rank ---------------------------------------------------------------------
+
+def _config(spec: dict):
+    import torch
+    from dlrm_tpu_torch.config import DLRMConfig
+
+    kw = dict(spec)
+    kw["exchange_dtype"] = {None: None, "bf16": torch.bfloat16}[
+        kw.get("exchange_dtype")]
+    return DLRMConfig(**kw)
+
+
+def _params(arrays, placement, rank: int) -> dict:
+    from dlrm_tpu_torch.io.convert import sharded_params_from_numpy
+
+    def mlp(part):
+        n = sum(1 for k in arrays.files if k.startswith(part + ".")
+                and k.endswith(".w"))
+        return [{k: arrays[f"{part}.{i}.{k}"] for k in ("w", "b")}
+                for i in range(n)]
+
+    np_params = {"bottom": mlp("bottom"), "top": mlp("top"),
+                 "emb": arrays["emb"],
+                 "emb_cs": tuple(arrays[f"emb_cs.{j}"] for j in
+                                 range(len(placement.col_sharded)))}
+    return sharded_params_from_numpy(np_params, placement, rank)
+
+
+def _batch(arrays, s: int):
+    import torch
+    return [torch.as_tensor(arrays[f"{k}.{s}"])
+            for k in ("dense", "sparse", "labels")]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--store", required=True)
+    ap.add_argument("--spec", required=True)
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+
+    import torch
+    import torch.distributed as dist
+    from dlrm_tpu_torch.parallel import mesh as pmesh
+    from dlrm_tpu_torch.parallel.embedding import sharded_lookup
+    from dlrm_tpu_torch.parallel.placement import plan_placement
+
+    torch.set_num_threads(2)
+    spec = json.loads(Path(args.spec).read_text())
+    pmesh.init_distributed(f"file://{args.store}", args.world, args.rank,
+                           device="cpu")
+    mesh = (pmesh.make_mesh() if spec.get("mesh") is None
+            else pmesh.make_mesh_2d(*spec["mesh"]))
+    config = _config(spec["config"])
+    shard = mesh.get_local_rank("d")
+    placement = plan_placement(config.table_sizes, mesh.size(
+        mesh.mesh_dim_names.index("d")), **spec.get("placement", {}))
+    arrays = np.load(spec["arrays"])
+    params = _params(arrays, placement, shard)
+    out = {}
+    task = spec["task"]
+    if task == "lookup":
+        lo, hi = pmesh.local_batch_rows(mesh, arrays[spec["cases"][0]]
+                                        .shape[0])
+        for case in spec["cases"]:
+            ids = torch.as_tensor(arrays[case][lo:hi])
+            for suffix, xd in (("", None), (".bf16", torch.bfloat16)):
+                out[case + suffix] = sharded_lookup(
+                    params["emb"], ids, mesh=mesh, placement=placement,
+                    cs=params["emb_cs"], exchange_dtype=xd).float().numpy()
+    elif task == "train":
+        from dlrm_tpu_torch.ops.embedding import tree_leaves
+        from dlrm_tpu_torch.train.train import (broadcast_dense,
+                                                make_sharded_train_step)
+
+        if args.rank:  # rank 0's dense parameters must reach every rank
+            for leaf in tree_leaves({k: params[k] for k in ("bottom",
+                                                            "top")}):
+                leaf.add_(1.0)
+        broadcast_dense(params)
+        try:
+            pmesh.local_batch_rows(mesh, args.world + 1)
+        except ValueError:
+            out["refused"] = np.int64(1)
+        step = make_sharded_train_step(config, spec["lr"], mesh, placement)
+        out["losses"] = np.asarray([
+            float(step(params, *_batch(arrays, s)))
+            for s in range(spec["steps"])], np.float32)
+    elif task == "eval":
+        from dlrm_tpu_torch.train.metrics import (StreamingAUC,
+                                                  _reduce_counts,
+                                                  sharded_evaluate)
+
+        batches = [dict(zip(("dense", "sparse", "labels"),
+                            _batch(arrays, s)))
+                   for s in range(spec["batches"])]
+        m = sharded_evaluate(params, batches, config, mesh=mesh,
+                             placement=placement)
+        out.update({k: np.float64(v) for k, v in m.items()})
+        auc = StreamingAUC(4)
+        auc.pos[:] = 2.0 ** 40 + args.rank
+        big = _reduce_counts(2 ** 60 + args.rank, 2 ** 61 + 1, auc, 0.1)
+        out["big"] = np.asarray(big[:2] + (auc.pos[0],), np.int64)
+    if task == "train":
+        out["emb"] = params["emb"].numpy()
+        for j, a in enumerate(params["emb_cs"]):
+            out[f"emb_cs.{j}"] = a.numpy()
+        for part in ("bottom", "top"):
+            for i, layer in enumerate(params[part]):
+                for k in ("w", "b"):
+                    out[f"{part}.{i}.{k}"] = layer[k].numpy()
+    np.savez(Path(args.out) / f"rank{args.rank}.npz", **out)
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
