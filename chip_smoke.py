@@ -40,25 +40,42 @@ result):
      row); the two steps'
      times in turns and device peaks, and a profile of the sharded step
      with NCCL's kernels and the time under each exchange scope;
-  7. the optimizers at full width: 4 Adagrad and 4 row-wise Adagrad steps at
+  7. the sharded optimizers at full width under NCCL at world size 1:
+     row-wise Adagrad on phase 6's placement, one step from warm
+     accumulators against `train_step_opt` from one state under
+     deterministic sums, bit for bit (every kind of touched row and its
+     accumulator seen to move, loss, dense parameters and accumulators,
+     trash rows 0), a K=1 block bit for bit against the step, step times
+     and device peaks in turns, a profile (the column shard's update
+     beside the bytes its dense form would move), K=4 blocks against 4
+     steps in turns, the
+     replica check (`make_dcn_replica_check` on a 1 x 1 2-D mesh) over the
+     17.29 GB; then elementwise Adagrad with tables 2, 11 and 20 (13.07 GB,
+     and their accumulators) in registered host memory and table 3
+     row-sharded on the card: the lookup with host rows against the plain
+     one, one step against `train_step_opt` as above (slot, row-sharded,
+     host row-sharded and column-sharded rows), times and peaks in turns, a
+     profile (the host-tier kernels, NCCL, dedup, idle share), the replica
+     check with the host stack passing through the card;
+  8. the optimizers at full width: 4 Adagrad and 4 row-wise Adagrad steps at
      B=32768 with a step of each held against the plain formula on the rows
      it touched, row-wise fused against gram from a clone, a clipped SGD
      step, K=4 blocks of each optimizer against 4 sequential steps, then
      the step times of the three optimizers at K=1 and K=4 in turns, a
      `torch.profiler` breakdown of the Adagrad step and the time of an
      `evaluate` batch;
-  8. checkpoints at full width: row-wise Adagrad at B=32768, 2 steps, a
+  9. checkpoints at full width: row-wise Adagrad at B=32768, 2 steps, a
      save through `CheckpointManager`, 2 more steps, a restore (the page
      cache dropped where the kernel shows it dropped) into the same tensors,
      which must give back the whole saved state, and the same 2 steps
      again, all under deterministic sums: the same loss bits and the same
      bits of every tensor; bytes, seconds, GB/s and the host's peak
      resident set of the save and of the restore;
-  9. telemetry at full width: the instrumented SGD step against
+ 10. telemetry at full width: the instrumented SGD step against
      `train_step` from the same state (1e-5), the ms of every phase beside
      the unprofiled step, and the CUDA time under each phase scope of a
      profiled step;
- 10. int8 serving at full width: the serving phase's tables (the same
+ 11. int8 serving at full width: the serving phase's tables (the same
      seed) quantized on the card, codes and scales held bit for bit to the
      host quantizer on the first and last 4096 rows of every table, the
      footprint read; 8 batches of 16384 through `score_batch` on the int8
@@ -66,7 +83,7 @@ result):
      within 5e-3; int8 against f32 serving times in turns, a
      `torch.profiler` breakdown of an int8 batch, and `predict
      --quantize-tables int8` in a subprocess against the port in process;
- 11. data: Criteo text written from a seed at the full Kaggle table sizes,
+ 12. data: Criteo text written from a seed at the full Kaggle table sizes,
      `python -m dlrm_tpu_torch preprocess` (the native engine) against the
      numpy path byte for byte, `train --data --validate-data --prefetch 2`
      at full width in a subprocess against the same steps in process with
@@ -75,7 +92,7 @@ result):
      the tables, then the SGD step fed from `DACLoader` through
      `device_prefetch` and through plain copies, in turns, and a profile of
      each (host-to-device copy time, its stream, idle share);
- 12. two-tier tables at full width (Kaggle fs=128 f32 under
+ 13. two-tier tables at full width (Kaggle fs=128 f32 under
      `--hbm-budget-gb 4`: tables 2, 11 and 20, 13.07 GB, in host memory
      registered with the card at its exact size, which is checked, the
      budget checked against MemAvailable): the host-tier
@@ -94,10 +111,10 @@ result):
      --hbm-budget-gb 4` (row-wise Adagrad, a resume), `eval --ckpt-dir` on
      its checkpoint and `train --hbm-budget-gb 4 --host-prefetch` in
      subprocesses against the same work in process, with peak VmRSS;
- 13. small inputs: the forward, and 3 training steps, on the card against
+ 14. small inputs: the forward, and 3 training steps, on the card against
      the same on the CPU for every interaction, f32, bf16 and multi-hot;
      3 steps and a K=3 block of every optimizer likewise;
- 14. the entry points: `python -m dlrm_tpu_torch predict`, `train` and
+ 15. the entry points: `python -m dlrm_tpu_torch predict`, `train` and
      `eval` in subprocesses on the card, held against the port in
      process; `train --ckpt-dir` and its resume, `eval --ckpt-dir`,
      `export --quantize int8` with `predict --ckpt-dir` on the artifact
@@ -105,7 +122,7 @@ result):
      width (Kaggle fs=128, row-wise Adagrad, B=32768), each full-width
      process's peak resident set read and bounded far below the tables'
      bytes; `instrument`, `train --profile-dir` and `bench` at full width;
- 15. a `{"kernels": [...]}` line (the two interaction kernels and the two
+ 16. a `{"kernels": [...]}` line (the two interaction kernels and the two
      host-tier kernels), then the result line.
 It needs a CUDA device and the repository around it; without either it
 fails.
@@ -556,7 +573,9 @@ _TIER_SCOPES = ("lookup_host_tier", "host_tier_update",
 _SHARD_SCOPES = ("a2a_fwd", "rs_reduce_scatter", "cs_a2a_fwd",
                  "pooled_permute", "a2a_bwd", "rs_allgather_bwd",
                  "cs_a2a_bwd", "dcn_grad_allgather", "dense_allreduce",
-                 "sparse_update")
+                 "sparse_update", "host_rs_gather", "host_rs_update",
+                 "adagrad_dedup", "cs_adagrad", "grad_clip",
+                 "dcn_replica_check")
 # (group, substrings of a CUDA activity's name); the first match wins
 _PROFILE_GROUPS = (
     ("dedup: sort, unique, scan (cub and thrust kernels)",
@@ -1677,6 +1696,516 @@ def _sharded(mesh, config) -> None:
           f"the sharded step's profile names no interaction kernel: "
           f"{groups}")
     del params, sh
+
+
+# -- sharded optimizers, blocks, host rows and the replica check -------------
+
+SHARD_OPT_LR = 0.01
+SHARD_HOST_TABLES = (2, 11, 20)   # 25,529,367 rows, 13.07 GB, on the host
+SHARD_HOST_MAX_ROWS = 2_000_000   # row-shards table 3 (2,202,608 rows)
+SHARD_KINDS = ("slot", "row-sharded", "host row-sharded", "column-sharded")
+
+
+def _placed(p, config, rows: torch.Tensor) -> list:
+    """Where the stacked-table ``rows`` live at world size 1: (kind, the
+    positions in ``rows``, the tensor key ``emb`` / ``cs<j>`` / ``h``, the
+    local rows of that tensor), a table at a time."""
+    starts = torch.tensor(config.table_offsets, device=rows.device)
+    table = torch.searchsorted(starts, rows, right=True) - 1
+    out = []
+    for t in range(config.num_tables):
+        sel = (table == t).nonzero()[:, 0]
+        if not sel.numel():
+            continue
+        local = rows[sel] - config.table_offsets[t]
+        if t in p.col_sharded:
+            out.append(("column-sharded", sel,
+                        f"cs{p.col_sharded.index(t)}", local))
+        elif t in p.row_sharded:
+            k = p.row_sharded.index(t)
+            out.append(("host row-sharded" if p.rs_host[k] else
+                        "row-sharded", sel, "h" if p.rs_host[k] else "emb",
+                        local + p.rs_local_offsets[k]))
+        else:
+            out.append(("slot", sel, "emb",
+                        local + int(p.table_local_offsets[t])))
+    return out
+
+
+def _shard_tensors(emb, cs, h) -> dict:
+    """A rank's stacks (tables, or their accumulators) by the keys of
+    :func:`_placed`."""
+    return {"emb": emb, "h": h, **{f"cs{j}": c for j, c in enumerate(cs)}}
+
+
+def _read_placed(placed: list, tensors: dict, n: int) -> torch.Tensor:
+    """The values of the rows of :func:`_placed` (host rows copied to the
+    card), in the order of the rows it was given."""
+    first = tensors["emb"]
+    out = torch.empty((n, *first.shape[1:]), dtype=torch.float32, device=DEV)
+    for _, sel, key, local in placed:
+        src = tensors[key]
+        out[sel] = src.index_select(0, local.to(src.device)).to(DEV).float()
+    return out
+
+
+def _shard_params(params, p, config) -> dict:
+    """Rank 0's sharded copy of single-device parameters at world size 1:
+    the stacks on the card, the host stack written into registered host
+    memory."""
+    from dlrm_tpu_torch.parallel import embedding as pemb
+    from dlrm_tpu_torch.parallel.host_tier import _host_empty
+
+    sh = {**_clone_dense(params),
+          "emb": pemb.shard_tables(params["emb"], p, config)[0],
+          "emb_cs": tuple(c[0] for c in pemb.shard_col_tables(
+              params["emb"], p, config))}
+    if p.host_row_sharded:
+        sh["emb_h"] = pemb.shard_host_tables(
+            params["emb"], p, config, shard=0, out=_host_empty(
+                (p.host_local_rows, config.feature_size), torch.float32,
+                DEV))
+    return sh
+
+
+def _shard_state(state, p, config, optimizer: str) -> dict:
+    """The sharded optimizer state (``init_sharded_opt_state``'s layout)
+    holding a single-device state's accumulators, at world size 1."""
+    from dlrm_tpu_torch.ops.embedding import tree_map
+    from dlrm_tpu_torch.parallel import embedding as pemb
+    from dlrm_tpu_torch.parallel.host_tier import _host_empty
+
+    rowwise = optimizer == "rowwise_adagrad"
+    acc = state["emb"][:, None] if rowwise else state["emb"]
+    out = {"dense": tree_map(lambda t: t.clone(), state["dense"]),
+           "count": state["count"],
+           "emb_acc": pemb.shard_tables(acc, p, config)[0],
+           "emb_acc_h": None}
+    if rowwise:  # a column-sharded table's: its rows' scalars, whole
+        out["emb_acc"] = out["emb_acc"][:, 0].contiguous()
+        out["emb_acc_cs"] = tuple(
+            state["emb"][config.table_offsets[t]:config.table_offsets[t]
+                         + config.table_sizes[t]].clone()
+            for t in p.col_sharded)
+    else:
+        out["emb_acc_cs"] = tuple(
+            c[0] for c in pemb.shard_col_tables(acc, p, config))
+    if p.host_row_sharded:
+        host = _host_empty((p.host_local_rows, *acc.shape[1:]),
+                           torch.float32, DEV)
+        pemb.shard_host_tables(acc, p, config, shard=0, out=host)
+        out["emb_acc_h"] = host[:, 0] if rowwise else host
+    return out
+
+
+def _warm_opt(state: dict, seed: int) -> None:
+    """Accumulators drawn from [1e-6, 2e-6): a step is well conditioned
+    (its move lr * g / 1e-3), and a hit's g^2 (1e-11 to 1e-9 at B=32768)
+    moves an accumulator by hundreds of its f32 spacings, so a dropped
+    or doubled update shows."""
+    from dlrm_tpu_torch.ops.embedding import tree_leaves
+
+    gen = torch.Generator(DEV).manual_seed(seed)
+    for a in [state["emb"]] + tree_leaves(state["dense"]):
+        a.uniform_(1e-6, 2e-6, generator=gen)
+
+
+def _moves_agree(before, single, sharded, placed, what: str) -> dict:
+    """Each kind's touched rows: both steps run the same sums in the same
+    order (deterministic sums), so the sharded rows must hold the
+    single-device bits; an update moves a row by as little as 2e-13 (an
+    accumulator), under any float tolerance, so every kind must also have
+    moved.  Returns the print-out per kind: rows, largest move, largest
+    |diff|."""
+    out = {}
+    for kind in SHARD_KINDS:
+        if not any(k == kind for k, _, _, _ in placed):
+            continue
+        sel = torch.cat([s for k, s, _, _ in placed if k == kind])
+        w1, ws = single[sel], sharded[sel]
+        largest = (w1 - before[sel]).abs().max().item()
+        err = (ws - w1).abs().max().item()
+        out[kind] = (sel.numel(), largest, err)
+        check(largest > 0 and torch.equal(ws, w1),
+              f"{what}, {kind} rows: moved up to {largest}, off the "
+              f"single-device rows by up to {err}")
+    return out
+
+
+def _report(what: str, kinds: dict) -> str:
+    return f"{what}: " + "; ".join(
+        f"{kind} {n} rows moved up to {m:.3g} (|diff| {e:.3g})"
+        for kind, (n, m, e) in kinds.items())
+
+
+def _sharded_vs_single(params, state, sh, st, p, mesh, config,
+                       optimizer: str, batch, gather: int,
+                       update: int) -> None:
+    """One sharded step against one single-device step from the same
+    state, under deterministic sums, bit for bit: each kind's rows and
+    accumulators (``_moves_agree``), the loss, the dense parameters and
+    their accumulators; the trash rows of both stacks and their
+    accumulators 0."""
+    from dlrm_tpu_torch.ops.embedding import tree_leaves
+    from dlrm_tpu_torch.train.train import (sharded_train_step_opt,
+                                            train_step_opt)
+
+    rows = _all_ids([batch], config)
+    placed = _placed(p, config, rows)
+    w0, a0 = params["emb"][rows], state["emb"][rows]
+    b = _to_dev(batch)
+    with _deterministic():
+        with counted(f"sharded {optimizer} step", 1, 1, gather, update):
+            loss_s = float(sharded_train_step_opt(
+                sh, st, *b, config=config, optimizer=optimizer,
+                lr=SHARD_OPT_LR, mesh=mesh, placement=p))
+        loss_1 = float(train_step_opt(params, state, *b, config=config,
+                                      optimizer=optimizer, lr=SHARD_OPT_LR))
+    torch.cuda.synchronize()
+    tables = _shard_tensors(sh["emb"], sh["emb_cs"], sh.get("emb_h"))
+    accs = _shard_tensors(st["emb_acc"], st["emb_acc_cs"], st["emb_acc_h"])
+    w = _moves_agree(w0, params["emb"][rows],
+                     _read_placed(placed, tables, rows.numel()), placed,
+                     f"sharded {optimizer} tables")
+    a = _moves_agree(a0, state["emb"][rows],
+                     _read_placed(placed, accs, rows.numel()), placed,
+                     f"sharded {optimizer} accumulators")
+    dense = _max_dense_diff(sh, params)
+    dense_acc = max((x - y).abs().max().item() for x, y in zip(
+        tree_leaves(st["dense"]), tree_leaves(state["dense"])))
+    trash = [sh["emb"][p.trash_row], st["emb_acc"][p.trash_row]]
+    if p.host_row_sharded:
+        trash += [sh["emb_h"][-1], st["emb_acc_h"][-1]]
+    check(loss_s == loss_1 and dense == 0.0 and dense_acc == 0.0
+          and not any(bool(t.any()) for t in trash),
+          f"sharded {optimizer} vs single-device: loss {loss_s} / {loss_1}, "
+          f"dense {dense}, dense accumulators {dense_acc}, trash rows "
+          f"{[t.abs().max().item() for t in trash]}")
+    print(f"sharded {optimizer} step at B={TRAIN_BATCH} against "
+          f"train_step_opt from one state (accumulators warm, deterministic "
+          f"sums, held bit for bit): loss {loss_s:.6f} (|diff| {abs(loss_s - loss_1):.3g}), "
+          f"dense parameters {dense:.3g}, their accumulators "
+          f"{dense_acc:.3g}, trash rows and their accumulators 0")
+    print("  " + _report("tables", w))
+    print("  " + _report("accumulators", a))
+
+
+class _ShardSnap:
+    """The rows ``rows`` of every sharded stack and accumulator, the dense
+    parameters and their accumulators, and the count, to read again and
+    to put back."""
+
+    def __init__(self, sh, st, p, config, rows):
+        from dlrm_tpu_torch.ops.embedding import tree_leaves
+
+        self.placed = _placed(p, config, rows)
+        self.tensors = [_shard_tensors(sh["emb"], sh["emb_cs"],
+                                       sh.get("emb_h")),
+                        _shard_tensors(st["emb_acc"], st["emb_acc_cs"],
+                                       st["emb_acc_h"])]
+        self.whole = tree_leaves({"bottom": sh["bottom"],
+                                  "top": sh["top"]}) + tree_leaves(
+                                      st["dense"])
+        self.st, self.count = st, st["count"]
+        self.saved = self.read()
+
+    def read(self) -> list:
+        torch.cuda.synchronize()  # the card writes host rows in place
+        out = []
+        for tensors in self.tensors:
+            for _, _, key, local in self.placed:
+                src = tensors[key]
+                out.append(src.index_select(0, local.to(src.device)))
+        return out + [t.clone() for t in self.whole]
+
+    def restore(self) -> None:
+        torch.cuda.synchronize()
+        it = iter(self.saved)
+        for tensors in self.tensors:
+            for _, _, key, local in self.placed:
+                src = tensors[key]
+                src.index_copy_(0, local.to(src.device), next(it))
+        for t in self.whole:
+            t.copy_(next(it))
+        self.st["count"] = self.count
+
+
+def _check_k1_block(sh, st, p, mesh, config, optimizer: str,
+                    batch) -> None:
+    """A K=1 sharded block against the sharded step from the same state:
+    the same loss and the same bits everywhere."""
+    from dlrm_tpu_torch.train.train import (sharded_train_block_opt,
+                                            sharded_train_step_opt)
+
+    snap = _ShardSnap(sh, st, p, config, _all_ids([batch], config))
+    b = _to_dev(batch)
+    kw = dict(config=config, optimizer=optimizer, lr=SHARD_OPT_LR,
+              mesh=mesh, placement=p)
+    with _deterministic():
+        loss = float(sharded_train_step_opt(sh, st, *b, **kw))
+        after_step = snap.read()
+        snap.restore()
+        with counted("sharded K=1 block", 1, 1):
+            loss_b = float(sharded_train_block_opt(
+                sh, st, *(t[None] for t in b), **kw)[0])
+    after_block = snap.read()
+    same = loss == loss_b and all(torch.equal(x, y) for x, y in
+                                  zip(after_step, after_block))
+    moved = any(not torch.equal(x, y) for x, y in
+                zip(after_block, snap.saved))
+    check(same and moved, f"sharded K=1 {optimizer} block vs step: loss "
+          f"{loss_b} / {loss}, bits {'equal' if same else 'differ'}, moved "
+          f"{moved}")
+    print(f"sharded K=1 {optimizer} block against the sharded step from one "
+          f"state: the same loss ({loss:.6f}) and the same bits in "
+          f"{len(after_step)} tensors of touched rows, dense parameters and "
+          f"accumulators")
+
+
+def _replica_check_s(sh, what: str) -> None:
+    """make_dcn_replica_check on a 1 x 1 2-D mesh over ``sh``: True, its
+    seconds, and the card's fold of a slice against the CPU's."""
+    from dlrm_tpu_torch.parallel import embedding as pemb
+    from dlrm_tpu_torch.parallel import mesh as pmesh
+
+    check_fn = pemb.make_dcn_replica_check(pmesh.make_mesh_2d(1, 1))
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 [sh["emb"], *sh["emb_cs"]]
+                 + ([sh["emb_h"]] if sh.get("emb_h") is not None else []))
+    check_fn(sh)  # the groups' first collectives
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok = check_fn(sh)
+    secs = time.perf_counter() - t0
+    part = sh["emb"][:1 << 16]
+    card = int(pemb._xor_fold(part, DEV))
+    host = int(pemb._xor_fold(part.cpu(), torch.device("cpu")))
+    check(ok and card == host, f"replica check {ok}; fold of a slice on "
+          f"the card {card} against the CPU's {host}")
+    print(f"replica check ({what}, 1 x 1 2-D mesh): True over "
+          f"{nbytes / 1e9:.2f} GB in {secs:.3f} s ({nbytes / secs / 1e9:.1f} "
+          f"GB/s); the card's fold of 2^16 rows equals the CPU's")
+
+
+def _in_turns(single, sharded, batches, what: str) -> None:
+    """Device peaks net of the resident tensors, then single-device,
+    sharded, sharded, single-device ms a step host to host."""
+    resident = torch.cuda.memory_allocated(DEV)
+    peaks = {}
+    for name, fn in (("single-device", single), ("sharded", sharded)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(DEV)
+        for batch in batches[:2]:
+            float(fn(*_to_dev(batch)))
+        peaks[name] = torch.cuda.max_memory_allocated(DEV) - resident
+    ms = {"single-device": [], "sharded": []}
+    for name, fn in (("single-device", single), ("sharded", sharded),
+                     ("sharded", sharded), ("single-device", single)):
+        ms[name].append(_host_step_ms(fn, batches))
+    print(f"{what} at B={TRAIN_BATCH}, ms host to host in turns "
+          f"(single-device, sharded, sharded, single-device; median of "
+          f"{SHARD_STEPS} after 3): {ms['single-device'][0]:.3f} / "
+          f"{ms['sharded'][0]:.3f} / {ms['sharded'][1]:.3f} / "
+          f"{ms['single-device'][1]:.3f}; device peak net of the resident "
+          f"{resident / 1e9:.2f} GB: single-device "
+          f"{peaks['single-device'] / 1e9:.3f} GB, sharded "
+          f"{peaks['sharded'] / 1e9:.3f} GB")
+
+
+def _block_turns(sh, st, p, mesh, config, optimizer: str,
+                 batches) -> None:
+    """K=4 sharded blocks against 4 sharded steps, in turns (steps,
+    blocks, blocks, steps): ms a step host to host, median of 5 blocks (20
+    steps) after 2."""
+    from dlrm_tpu_torch.train.train import (make_sharded_train_block_opt,
+                                            make_sharded_train_step_opt)
+
+    kw = dict(optimizer=optimizer, lr=SHARD_OPT_LR, mesh=mesh, placement=p)
+    step = make_sharded_train_step_opt(config, **kw)
+    block = make_sharded_train_block_opt(config, **kw)
+    stacked = [_stack(batches[i:i + BLOCK])
+               for i in range(0, len(batches), BLOCK)]
+
+    def run(k):
+        secs = []
+        for i in range(7):
+            t0 = time.perf_counter()
+            if k == 1:
+                for b in batches[:BLOCK]:
+                    loss = step(sh, st, *_to_dev(b))
+            else:
+                loss = block(sh, st, *_to_dev(stacked[i % len(stacked)]))[-1]
+            float(loss)
+            secs.append((time.perf_counter() - t0) * 1e3 / BLOCK)
+        return statistics.median(secs[2:])
+
+    ms = [run(k) for k in (1, BLOCK, BLOCK, 1)]
+    print(f"sharded {optimizer}, K=1 steps against K={BLOCK} blocks in "
+          f"turns (ms a step host to host): {ms[0]:.3f} / {ms[1]:.3f} / "
+          f"{ms[2]:.3f} / {ms[3]:.3f}")
+
+
+def phase_sharded_optim() -> None:
+    """The sharded optimizers at full width (Kaggle fs=128, f32, fused)
+    under NCCL at world size 1, in this process.  Row-wise Adagrad on
+    phase 6's placement (tables on the card): one step from warm
+    accumulators against `train_step_opt` from one state (each kind of
+    touched row and its accumulator seen to move as the single-device one,
+    trash rows 0), a K=1 block bit for bit against the step, the steps'
+    times and device peaks in turns, K=4 blocks against 4 steps in turns,
+    the replica check on a 1 x 1 2-D mesh.  Then elementwise Adagrad with
+    tables 2, 11 and 20 in registered host memory (26.1 GB of tables and
+    accumulators on the host; MemAvailable checked) and table 3
+    row-sharded on the card: the lookup with host rows against the plain
+    one, one step against `train_step_opt` as above (host_gather and
+    host_update_rows launches counted), times and peaks in turns, a
+    profile, the replica check over both stacks."""
+    import torch.distributed as dist
+    from dlrm_tpu_torch import init_params, kaggle_config
+    from dlrm_tpu_torch.parallel import mesh as pmesh
+
+    dev = pmesh.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                                 device=DEV)
+    check(dist.get_backend() == "nccl" and dev == DEV,
+          f"process group {dist.get_backend()} on {dev}")
+    try:
+        config = kaggle_config(feature_size=128, interaction_impl="fused")
+        mesh = pmesh.make_mesh()
+        params = init_params(torch.Generator(DEV).manual_seed(config.seed),
+                             config, DEV)
+        _sharded_rowwise(mesh, config, params)
+        _release_pinned()
+        _sharded_host_adagrad(mesh, config, params)
+        del params
+    finally:
+        dist.destroy_process_group()
+        _release_pinned()
+        torch.cuda.empty_cache()
+
+
+def _sharded_rowwise(mesh, config, params) -> None:
+    from dlrm_tpu_torch.data.synthetic import batch_stream
+    from dlrm_tpu_torch.parallel.placement import plan_placement
+    from dlrm_tpu_torch.train.train import (init_opt_state,
+                                            make_sharded_train_step_opt,
+                                            make_train_step_opt)
+
+    opt = "rowwise_adagrad"
+    p = plan_placement(config.table_sizes, 1,
+                       max_rows_per_shard=SHARD_MAX_ROWS,
+                       col_sharded_tables=SHARD_COLS)
+    state = init_opt_state(params, config=config, optimizer=opt)
+    _warm_opt(state, 81)
+    sh = _shard_params(params, p, config)
+    st = _shard_state(state, p, config, opt)
+    batches = list(batch_stream(config, TRAIN_BATCH, 2 * BLOCK, seed=83))
+    _sharded_vs_single(params, state, sh, st, p, mesh, config, opt,
+                       batches[0], 0, 0)
+    _check_k1_block(sh, st, p, mesh, config, opt, batches[1])
+    single = make_train_step_opt(config, optimizer=opt, lr=SHARD_OPT_LR)
+    sharded = make_sharded_train_step_opt(config, optimizer=opt,
+                                          lr=SHARD_OPT_LR, mesh=mesh,
+                                          placement=p)
+    _in_turns(functools.partial(single, params, state),
+              functools.partial(sharded, sh, st), batches,
+              "row-wise Adagrad step")
+    groups = _profile_steps("sharded row-wise Adagrad steps",
+                            lambda data: [float(sharded(sh, st, *_to_dev(b)))
+                                          for b in data], batches,
+                            groups=(("NCCL kernels", ("nccl",)),
+                                    ("device-to-device copies (Memcpy DtoD)",
+                                     ("Memcpy DtoD",))))
+    check(groups is not None and groups["interaction_fwd kernel"] > 0,
+          f"the sharded row-wise profile names no interaction kernel: "
+          f"{groups}")
+    # what the dense form of the column shards' row-wise update (a zeroed
+    # (R_t, D/N) buffer a step, scattered into and read back) would at
+    # least move: the buffer written twice and read twice
+    dense_bytes = 4 * sum(config.table_sizes[t] * config.feature_size * 4
+                          for t in p.col_sharded)
+    print(f"  the column shards' row-wise update in the sparse form is under "
+          f"the scope cs_adagrad above; the dense form would move at least "
+          f"{dense_bytes / 1e9:.2f} GB a step, "
+          f"{dense_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM rate")
+    _block_turns(sh, st, p, mesh, config, opt, batches)
+    _replica_check_s(sh, "row-wise placement, tables on the card")
+    del sh, st, state
+
+
+def _sharded_host_adagrad(mesh, config, params) -> None:
+    from dlrm_tpu_torch.data.synthetic import batch_stream
+    from dlrm_tpu_torch.ops.embedding import lookup
+    from dlrm_tpu_torch.parallel import embedding as pemb
+    from dlrm_tpu_torch.parallel.placement import plan_placement
+    from dlrm_tpu_torch.train.train import (init_opt_state,
+                                            make_sharded_train_step_opt,
+                                            make_train_step_opt)
+
+    opt = "adagrad"
+    p = plan_placement(config.table_sizes, 1,
+                       max_rows_per_shard=SHARD_HOST_MAX_ROWS,
+                       col_sharded_tables=SHARD_COLS,
+                       host_tables=SHARD_HOST_TABLES)
+    check(p.host_row_sharded == SHARD_HOST_TABLES
+          and p.row_sharded == (2, 3, 11, 20), f"placement {p}")
+    host_bytes = (p.host_local_rows * config.feature_size * 4)
+    mem = _meminfo()
+    print(f"sharded Adagrad with host rows: tables {list(p.host_row_sharded)}"
+          f" ({host_bytes / 1e9:.2f} GB) and their accumulators "
+          f"({host_bytes / 1e9:.2f} GB) in host memory; MemAvailable "
+          f"{mem['MemAvailable']} B of MemTotal {mem['MemTotal']} B")
+    check(mem["MemAvailable"] > 2 * host_bytes + 4 * GIB,
+          f"the host cannot hold {2 * host_bytes} B of host stacks: "
+          f"MemAvailable {mem['MemAvailable']} B")
+    state = init_opt_state(params, config=config, optimizer=opt)
+    _warm_opt(state, 85)
+    t0 = time.perf_counter()
+    sh = _shard_params(params, p, config)
+    st = _shard_state(state, p, config, opt)
+    torch.cuda.synchronize()
+    print(f"  laid out in {time.perf_counter() - t0:.2f} s: local stack "
+          f"{p.local_rows} rows ({sh['emb'].numel() * 4 / 1e9:.2f} GB), "
+          f"column shards {sum(c.numel() for c in sh['emb_cs']) * 4 / 1e9:.2f}"
+          f" GB, host stack {p.host_local_rows} rows, is_pinned() "
+          f"{sh['emb_h'].is_pinned()}; the accumulators beside each")
+    ids = torch.from_numpy(next(batch_stream(config, BATCH, 1, seed=86))[
+        "sparse"]).to(DEV)
+    with counted("sharded lookup with host rows", 0, 0, 1, 0):
+        got = pemb.sharded_lookup(sh["emb"], ids, mesh=mesh, placement=p,
+                                  cs=sh["emb_cs"], emb_h=sh["emb_h"])
+    diff = (got - lookup(params["emb"], ids, config.table_offsets)).abs() \
+        .max().item()
+    check(diff == 0.0, f"sharded lookup with host rows vs lookup: {diff}")
+    print(f"sharded lookup with host rows at B={BATCH} against "
+          f"ops.embedding.lookup: max |diff| {diff} (host_gather launched "
+          f"once)")
+    del got
+    batches = list(batch_stream(config, TRAIN_BATCH, 4, seed=87))
+    _sharded_vs_single(params, state, sh, st, p, mesh, config, opt,
+                       batches[0], 2, 2)
+    single = make_train_step_opt(config, optimizer=opt, lr=SHARD_OPT_LR)
+    sharded = functools.partial(make_sharded_train_step_opt(
+        config, optimizer=opt, lr=SHARD_OPT_LR, mesh=mesh, placement=p),
+        sh, st)
+    _in_turns(functools.partial(single, params, state), sharded, batches,
+              "Adagrad step, host rows")
+    groups = _profile_steps("sharded Adagrad steps with host rows",
+                            lambda data: [float(sharded(*_to_dev(b)))
+                                          for b in data], batches,
+                            groups=(("host_gather kernel",
+                                     ("host_gather_kernel",)),
+                                    ("host_update_rows kernel",
+                                     ("host_update_rows_kernel",)),
+                                    ("NCCL kernels", ("nccl",)),
+                                    ("device-to-device copies (Memcpy DtoD)",
+                                     ("Memcpy DtoD",))))
+    check(groups is not None and groups["host_gather kernel"] > 0
+          and groups["host_update_rows kernel"] > 0
+          and groups["interaction_fwd kernel"] > 0,
+          f"the sharded Adagrad profile names no host-tier or interaction "
+          f"kernel: {groups}")
+    _replica_check_s(sh, "Adagrad placement, host rows through the card")
+    del sh, st, state
 
 
 # -- two-tier tables ---------------------------------------------------------
@@ -3468,7 +3997,8 @@ def main() -> int:
 
     kern = {}
     for phase in (phase_card, phase_kernels, phase_serving, phase_training,
-                  phase_evaluation, phase_sharded, phase_optimizers,
+                  phase_evaluation, phase_sharded, phase_sharded_optim,
+                  phase_optimizers,
                   phase_checkpoint,
                   phase_telemetry, phase_int8_serving, phase_data,
                   phase_two_tier, phase_small_inputs, phase_small_optimizers,

@@ -23,8 +23,10 @@ JAX package's two-tier parameters and optimizer state (device tier as its
 logical stack, flat host stacks) to this package's two tiers.
 
 ``sharded_params_from_numpy`` takes the JAX package's sharded parameters
-(the per-shard stacks and column shards) to one rank's tensors, and
-``sharded_params_to_numpy`` gathers every rank's back.
+(the per-shard stacks, column shards and host stacks) to one rank's
+tensors, and ``sharded_params_to_numpy`` gathers every rank's back;
+``sharded_opt_state_from_numpy`` / ``_to_numpy`` do the same for the JAX
+package's sharded optimizer state.
 
 ``quant_from_numpy`` takes the JAX package's int8 ``QuantEmb`` as numpy
 (lane-packed int8 chunks and ``(rows, pack)`` scales) to this package's
@@ -224,22 +226,43 @@ def _keep_dtype(a, device) -> torch.Tensor:
     return _to_torch(a, dtype, device)
 
 
+def _host_keep_dtype(a, device) -> torch.Tensor:
+    """An array as a host tensor of its own dtype, in host memory
+    registered with the card for a CUDA ``device``."""
+    from dlrm_tpu_torch.parallel.host_tier import _host_empty
+
+    t = _keep_dtype(a, "cpu")
+    out = _host_empty(t.shape, t.dtype, device)
+    return out.copy_(t)
+
+
+def _check_stacked(a, n: int, want: tuple, name: str) -> np.ndarray:
+    """``a`` as an array, checked to hold every shard's stack: ``(n,
+    *want, ...)``."""
+    a = np.asarray(a)
+    if tuple(a.shape[:1 + len(want)]) != (n, *want):
+        raise ValueError(f"{name} {a.shape}, the placement needs "
+                         f"({n}, {', '.join(map(str, want))}, ...)")
+    return a
+
+
 def sharded_params_from_numpy(np_params: dict, placement, rank: int,
                               device="cpu") -> dict:
     """The JAX package's sharded parameters as numpy -> rank ``rank``'s
     tensors on ``device``, in their own dtypes.
 
-    ``np_params``: ``{"bottom", "top", "emb", "emb_cs"}`` with ``emb`` the
-    ``(N, local_rows, D)`` per-shard stacks (``parallel.embedding
-    .shard_tables``) and ``emb_cs`` the ``(N, R_t, D/N)`` column shards of
-    ``placement.col_sharded`` (absent or empty without them).  Returns
-    ``{"bottom", "top", "emb": (local_rows, D), "emb_cs": ((R_t, D/N),
-    ...)}``."""
+    ``np_params``: ``{"bottom", "top", "emb", "emb_cs", "emb_h"}`` with
+    ``emb`` the ``(N, local_rows, D)`` per-shard stacks (``parallel
+    .embedding.shard_tables``), ``emb_cs`` the ``(N, R_t, D/N)`` column
+    shards of ``placement.col_sharded`` (absent or empty without them) and
+    ``emb_h`` the ``(N, host_local_rows, D)`` host stacks
+    (``shard_host_tables``; needed when the placement has host-resident
+    tables).  Returns ``{"bottom", "top", "emb": (local_rows, D),
+    "emb_cs": ((R_t, D/N), ...)}`` and, with host tables, ``"emb_h":
+    (host_local_rows, D)`` in host memory (registered with the card for a
+    CUDA ``device``)."""
     n = placement.num_shards
-    emb = np_params["emb"]
-    if tuple(np.shape(emb)[:2]) != (n, placement.local_rows):
-        raise ValueError(f"emb {np.shape(emb)}, the placement needs "
-                         f"({n}, {placement.local_rows}, D)")
+    emb = _check_stacked(np_params["emb"], n, (placement.local_rows,), "emb")
     cs = tuple(np_params.get("emb_cs", ()))
     if len(cs) != len(placement.col_sharded):
         raise ValueError(f"{len(cs)} column-sharded tables, the placement "
@@ -252,9 +275,23 @@ def sharded_params_from_numpy(np_params: dict, placement, rank: int,
     dense = {part: [{k: _keep_dtype(layer[k], device) for k in ("w", "b")}
                     for layer in np_params[part]]
              for part in ("bottom", "top")}
-    return {**dense, "emb": _keep_dtype(np.asarray(emb)[rank], device),
-            "emb_cs": tuple(_keep_dtype(np.asarray(a)[rank], device)
-                            for a in cs)}
+    out = {**dense, "emb": _keep_dtype(emb[rank], device),
+           "emb_cs": tuple(_keep_dtype(np.asarray(a)[rank], device)
+                           for a in cs)}
+    if placement.host_row_sharded:
+        if np_params.get("emb_h") is None:
+            raise ValueError(f"the placement has host-resident tables "
+                             f"{list(placement.host_row_sharded)}: emb_h "
+                             f"is needed")
+        emb_h = _check_stacked(np_params["emb_h"], n,
+                            (placement.host_local_rows, emb.shape[2]),
+                            "emb_h")
+        out["emb_h"] = _host_keep_dtype(emb_h[rank], device)
+    return out
+
+
+def _arr(x) -> np.ndarray:
+    return _to_numpy(x) if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def sharded_params_to_numpy(rank_params: Sequence[dict]) -> dict:
@@ -262,16 +299,95 @@ def sharded_params_to_numpy(rank_params: Sequence[dict]) -> dict:
     ranks' parameter dicts (tensors or arrays, rank order) -> the JAX
     package's sharded layout as numpy (dense parameters from rank 0; bf16
     widened to f32)."""
-    def arr(x):
-        return _to_numpy(x) if isinstance(x, torch.Tensor) else np.asarray(x)
-
     first = rank_params[0]
-    out = {part: [{k: arr(layer[k]) for k in ("w", "b")}
+    out = {part: [{k: _arr(layer[k]) for k in ("w", "b")}
                   for layer in first[part]] for part in ("bottom", "top")}
-    out["emb"] = np.stack([arr(p["emb"]) for p in rank_params])
+    out["emb"] = np.stack([_arr(p["emb"]) for p in rank_params])
     out["emb_cs"] = tuple(
-        np.stack([arr(p["emb_cs"][j]) for p in rank_params])
+        np.stack([_arr(p["emb_cs"][j]) for p in rank_params])
         for j in range(len(first.get("emb_cs", ()))))
+    if first.get("emb_h") is not None:
+        out["emb_h"] = np.stack([_arr(p["emb_h"]) for p in rank_params])
+    return out
+
+
+def sharded_opt_state_from_numpy(np_opt: dict, placement, optimizer: str,
+                                 rank: int, device="cpu") -> dict:
+    """The JAX package's sharded optimizer state as numpy -> rank
+    ``rank``'s, as ``train.init_sharded_opt_state`` lays it out, on
+    ``device`` (f32; the host accumulator in host memory, registered with
+    the card for a CUDA ``device``).
+
+    ``np_opt``: ``dense`` (as :func:`opt_state_from_numpy` takes it, None
+    for sgd), ``count``, and for adagrad / rowwise_adagrad ``emb_acc``
+    ``(N, local_rows, D)`` / ``(N, local_rows, 1)`` (the JAX package's
+    row-wise ``(N, local_rows, pack)`` at pack 1), ``emb_acc_cs`` one per
+    column-sharded table, ``(N, R_t, D/N)`` / ``(R_t,)``, and ``emb_acc_h``
+    ``(N, host_local_rows, D)`` / ``(N, host_local_rows, 1)`` with host
+    tables (``()`` or None without)."""
+    from dlrm_tpu_torch.train.optim import check_optimizer
+
+    check_optimizer(optimizer)
+    n = placement.num_shards
+    out = {"dense": None, "count": int(np_opt["count"]), "emb_acc": None,
+           "emb_acc_cs": (), "emb_acc_h": None}
+    if optimizer == "sgd":
+        return out
+    rowwise = optimizer == "rowwise_adagrad"
+
+    def rank_acc(a, rows, name):
+        a = _check_stacked(a, n, (rows,), name)[rank]
+        return a.reshape(rows) if rowwise else a
+
+    dense = np_opt["dense"]
+    out["dense"] = {part: [{k: _to_torch(layer[k], torch.float32, device)
+                            for k in ("w", "b")} for layer in dense[part]]
+                    for part in ("bottom", "top")}
+    out["emb_acc"] = _to_torch(rank_acc(np_opt["emb_acc"],
+                                        placement.local_rows, "emb_acc"),
+                               torch.float32, device)
+    accs = tuple(np_opt.get("emb_acc_cs", ()))
+    if len(accs) != len(placement.col_sharded):
+        raise ValueError(f"{len(accs)} column-shard accumulators, the "
+                         f"placement has {len(placement.col_sharded)} "
+                         f"column-sharded tables")
+    out["emb_acc_cs"] = tuple(_to_torch(
+        a if rowwise else _check_stacked(a, n, (placement.table_sizes[t],),
+                                      "emb_acc_cs")[rank],
+        torch.float32, device) for a, t in zip(accs, placement.col_sharded))
+    if placement.host_row_sharded:
+        acc_h = rank_acc(np_opt["emb_acc_h"], placement.host_local_rows,
+                         "emb_acc_h")
+        out["emb_acc_h"] = _host_tier(acc_h, acc_h.shape, torch.float32,
+                                      device)
+    return out
+
+
+def sharded_opt_state_to_numpy(rank_states: Sequence[dict]) -> dict:
+    """Inverse of :func:`sharded_opt_state_from_numpy` over every rank
+    (rank order): the JAX package's layout as numpy, the dense
+    accumulators and the row-wise column-shard ones from rank 0."""
+    first = rank_states[0]
+    out = {"dense": None if first["dense"] is None else {
+               part: [{k: _arr(layer[k]) for k in ("w", "b")}
+                      for layer in first["dense"][part]]
+               for part in ("bottom", "top")},
+           "count": int(first["count"]), "emb_acc": (), "emb_acc_cs": (),
+           "emb_acc_h": ()}
+    if first["emb_acc"] is None:
+        return out
+
+    def stack(key):
+        a = np.stack([_arr(s[key]) for s in rank_states])
+        return a[..., None] if a.ndim == 2 else a
+
+    out["emb_acc"] = stack("emb_acc")
+    out["emb_acc_cs"] = tuple(
+        _arr(a) if a.dim() == 1 else np.stack(
+            [_arr(s["emb_acc_cs"][j]) for s in rank_states])
+        for j, a in enumerate(first["emb_acc_cs"]))
+    if first["emb_acc_h"] is not None:
+        out["emb_acc_h"] = stack("emb_acc_h")
     return out
 
 

@@ -33,8 +33,24 @@ the global batch (``parallel/mesh.local_batch_rows``), and the pooled rows
 are those same ``b`` rows.  The layout functions (:func:`shard_tables`
 and the rest) take numpy arrays or tensors, on any device.
 
-Host-resident row-sharded tables and int8 tables are not served here yet
-(``ROADMAP.md`` queue 1, items 3c and 3d).
+Host-resident row-sharded tables (``placement.rs_host``) live in a second
+per-rank stack ``emb_h`` ``(host_local_rows, D)`` in host memory registered
+with the card (``parallel/host_tier._host_empty``).  Their rows are read
+and written in place over PCIe by the host-tier kernels
+(``host_tier.host_gather`` into their columns of the row-sharded exchange,
+``host_tier.host_update_rows`` on distinct rows, a row's hits summed on the
+card first); they join the same reduce-scatter and all-gather as the
+device row shards.  A placement with host tables and no ``emb_h`` is
+refused.
+
+``sharded_update_adagrad`` is the exact dedup-then-apply Adagrad (and
+row-wise Adagrad) on every kind: the routed rows of a key are summed --
+over every rank's batch rows, every micro-step of a block and every DCN
+replica -- before ``acc += g^2``.  Padding slots and ids a rank does not
+own carry zero rows to the trash row of their stack, which stays 0.
+:func:`make_dcn_replica_check` checks that the DCN replicas of a 2-D mesh
+hold the same bits.  Int8 tables are not served here yet (``ROADMAP.md``
+queue 1, item 3d).
 """
 
 from __future__ import annotations
@@ -47,8 +63,11 @@ import torch
 import torch.distributed as dist
 
 from dlrm_tpu_torch.config import DLRMConfig
+from dlrm_tpu_torch.ops import embedding as emb_ops
+from dlrm_tpu_torch.parallel import host_tier
 from dlrm_tpu_torch.parallel.mesh import dcn_axis_of
 from dlrm_tpu_torch.parallel.placement import TablePlacement
+from dlrm_tpu_torch.train import optim
 from dlrm_tpu_torch.utils.telemetry import phase_scope
 
 # all_gather_into_tensor / reduce_scatter_tensor under their newer names
@@ -58,8 +77,6 @@ _all_gather = getattr(dist, "all_gather_single",
 _reduce_scatter = getattr(dist, "reduce_scatter_single",
                           dist.reduce_scatter_tensor)
 
-_HOST_ROWS = ("host-resident row-sharded tables need ROADMAP.md queue 1, "
-              "item 3c")
 _INT8 = "int8 sharded serving needs ROADMAP.md queue 1, item 3d"
 
 
@@ -110,17 +127,32 @@ def shard_tables(stacked, placement: TablePlacement, config: DLRMConfig):
 
 
 def shard_host_tables(stacked, placement: TablePlacement,
-                      config: DLRMConfig):
+                      config: DLRMConfig, shard=None, out=None):
     """The per-shard host stacks ``(N, host_local_rows, D)`` of the
-    host-resident row-sharded tables (``placement.rs_host``)."""
-    out = _zeros(stacked, (placement.num_shards, placement.host_local_rows,
-                           stacked.shape[1]))
+    host-resident row-sharded tables (``placement.rs_host``), padding and
+    the trash row zero.  ``shard``: only that shard's ``(host_local_rows,
+    D)`` stack, written into ``out`` when given (a host tensor, e.g. from
+    ``parallel.host_tier._host_empty``, so a stack on the card reaches
+    registered host memory with no other copy)."""
+    shape = (placement.host_local_rows, stacked.shape[1])
+    if shard is None:
+        out = _zeros(stacked, (placement.num_shards, *shape))
+    elif out is None:
+        out = _zeros(stacked, shape)
+    elif tuple(out.shape) != shape:
+        raise ValueError(f"out {tuple(out.shape)}: shard {shard}'s host "
+                         f"stack is {shape}")
+    else:
+        out.zero_()
     for k, t in enumerate(placement.row_sharded):
         if not placement.rs_host[k]:
             continue
         lo, go = placement.rs_local_offsets[k], config.table_offsets[t]
-        for shard, a, b in _blocks(placement, k):
-            out[shard, lo:lo + b - a] = stacked[go + a:go + b]
+        for s, a, b in _blocks(placement, k):
+            if shard is None:
+                out[s, lo:lo + b - a] = stacked[go + a:go + b]
+            elif s == shard:
+                out[lo:lo + b - a] = stacked[go + a:go + b]
     return out
 
 
@@ -296,29 +328,58 @@ def _local_rows_for_slots(ids_all: torch.Tensor, meta: dict) -> torch.Tensor:
     return own * valid + offs
 
 
+def _rs_trash(placement: TablePlacement) -> tuple:
+    """The trash row of the stack each row-sharded table lives in."""
+    return tuple(placement.host_local_rows - 1 if host
+                 else placement.trash_row for host in placement.rs_host)
+
+
+def _rs_split(placement: TablePlacement) -> Tuple[tuple, tuple]:
+    """(positions k of the device row-sharded tables, of the host ones)."""
+    dev = tuple(k for k, h in enumerate(placement.rs_host) if not h)
+    host = tuple(k for k, h in enumerate(placement.rs_host) if h)
+    return dev, host
+
+
 def _rs_translate(ids_rs: torch.Tensor, placement: TablePlacement,
                   my_idx: int):
     """Row-sharded tables: global ids (B, n_rs[, H]) -> (local row, owned)
-    for this rank's contiguous blocks; ids it does not own go to the trash
-    row."""
+    for this rank's contiguous blocks, rows of the stack each table lives
+    in (the device stack, or the host stack for ``rs_host`` tables); ids it
+    does not own go to that stack's trash row."""
     dev = ids_rs.device
     chunk = _index_tensor(placement.rs_rows_per_shard, dev)
     lo = _index_tensor(placement.rs_local_offsets, dev)
+    trash = _index_tensor(_rs_trash(placement), dev)
     if ids_rs.dim() == 3:
-        chunk, lo = chunk[:, None], lo[:, None]
+        chunk, lo, trash = chunk[:, None], lo[:, None], trash[:, None]
     owned = ids_rs // chunk == my_idx
-    local = torch.where(owned, lo + ids_rs - my_idx * chunk,
-                        placement.trash_row)
+    local = torch.where(owned, lo + ids_rs - my_idx * chunk, trash)
     return local, owned
 
 
-def _check_served(placement: TablePlacement, scales=None) -> None:
-    if placement.host_row_sharded:
-        raise NotImplementedError(
-            f"tables {list(placement.host_row_sharded)} are host-resident "
-            f"row-sharded: {_HOST_ROWS}")
+def _columns(x: torch.Tensor, ks: tuple) -> torch.Tensor:
+    """Columns ``ks`` of axis 1 (a copy)."""
+    return x.index_select(1, _index_tensor(ks, x.device))
+
+
+def _check_served(placement: TablePlacement, emb, emb_h=None,
+                  scales=None) -> None:
     if scales is not None:
         raise NotImplementedError(_INT8)
+    if not placement.host_row_sharded:
+        return
+    if emb_h is None:
+        raise ValueError(
+            f"placement has host-resident tables "
+            f"{list(placement.host_row_sharded)} but no emb_h stack was "
+            f"passed: the parameters are missing the host tier")
+    if tuple(emb_h.shape) != (placement.host_local_rows, emb.shape[1]) \
+            or emb_h.dtype != emb.dtype or emb_h.device.type != "cpu":
+        raise ValueError(f"emb_h {tuple(emb_h.shape)} {emb_h.dtype} on "
+                         f"{emb_h.device}: the placement needs the host "
+                         f"stack ({placement.host_local_rows}, "
+                         f"{emb.shape[1]}) {emb.dtype} in host memory")
 
 
 def _table_group(mesh, axis: str, placement: TablePlacement):
@@ -330,11 +391,11 @@ def _table_group(mesh, axis: str, placement: TablePlacement):
     return group, mesh.get_local_rank(axis)
 
 
-def _lookup_body(emb, cs, ids, meta, *, group, my_idx: int,
+def _lookup_body(emb, emb_h, cs, ids, meta, *, group, my_idx: int,
                  placement: TablePlacement, exchange_dtype=None):
-    """This rank's local stack ``emb`` (local_rows, D), column shards
-    ``cs`` (R_t, D/N), ids (b, T[, H]) -> pooled (b, T, D) in global table
-    order."""
+    """This rank's local stack ``emb`` (local_rows, D), host stack
+    ``emb_h`` (host_local_rows, D) or None, column shards ``cs`` (R_t,
+    D/N), ids (b, T[, H]) -> pooled (b, T, D) in global table order."""
     b, d = ids.shape[0], emb.shape[1]
     layout = _layout(placement)
     n = placement.num_shards
@@ -356,7 +417,21 @@ def _lookup_body(emb, cs, ids, meta, *, group, my_idx: int,
         rs = _index_tensor(placement.row_sharded, emb.device)
         local, owned = _rs_translate(ids_all.index_select(1, rs), placement,
                                      my_idx)
-        rows = emb.index_select(0, local.reshape(-1)).view(*local.shape, d)
+        dev_k, host_k = _rs_split(placement)
+        if dev_k:
+            # host tables' columns read device row 0 here, then the host
+            # gather writes them
+            on_dev = local.index_fill(1, _index_tensor(host_k, emb.device),
+                                      0) if host_k else local
+            rows = emb.index_select(0, on_dev.reshape(-1)).view(
+                *local.shape, d)
+        else:
+            rows = torch.empty((*local.shape, d), dtype=emb.dtype,
+                               device=emb.device)
+        if host_k:
+            with phase_scope("host_rs_gather"):
+                host_tier.host_gather(emb_h, _columns(local, host_k),
+                                      out=rows, cols=host_k)
         rows = rows * owned[..., None].to(rows.dtype)
         if rows.dim() == 4:
             rows = rows.sum(dim=2)
@@ -386,22 +461,25 @@ def _lookup_body(emb, cs, ids, meta, *, group, my_idx: int,
 
 def sharded_lookup(emb: torch.Tensor, ids: torch.Tensor, *, mesh,
                    placement: TablePlacement, axis: str = "d", cs=(),
-                   exchange_dtype=None, scales=None) -> torch.Tensor:
+                   emb_h=None, exchange_dtype=None,
+                   scales=None) -> torch.Tensor:
     """Pooled lookup of this rank's ``b`` batch rows: ``emb`` its local
     stack ``(local_rows, D)``, ``cs`` its column shards ``(R_t, D/N)`` in
-    ``placement.col_sharded`` order, ``ids`` (b, T[, H]) -> (b, T, D).
-    Every rank of the mesh's ``axis`` group calls it with the same ``b``.
-    Runs outside autograd.
+    ``placement.col_sharded`` order, ``emb_h`` its host stack
+    ``(host_local_rows, D)`` when the placement has host-resident tables
+    (read by ``host_tier.host_gather``), ``ids`` (b, T[, H]) -> (b, T,
+    D).  Every rank of the mesh's ``axis`` group calls it with the same
+    ``b``.  Runs outside autograd.
 
     ``exchange_dtype`` (e.g. ``torch.bfloat16``) carries the exchanges in
     that dtype: the result is the f32 lookup rounded once (one-hot).
-    ``scales`` (int8 tables) is refused, as are host-resident tables."""
-    _check_served(placement, scales)
+    ``scales`` (int8 tables) is refused."""
+    _check_served(placement, emb, emb_h, scales)
     group, my_idx = _table_group(mesh, axis, placement)
     meta = placement_arrays(placement, my_idx, emb.device)
     with torch.no_grad():
-        return _lookup_body(emb, cs, ids, meta, group=group, my_idx=my_idx,
-                            placement=placement,
+        return _lookup_body(emb, emb_h, cs, ids, meta, group=group,
+                            my_idx=my_idx, placement=placement,
                             exchange_dtype=exchange_dtype)
 
 
@@ -416,88 +494,352 @@ def _dcn_fold(ids, d_pooled, group, exchange_dtype=None):
     return ids, d.to(d_pooled.dtype)
 
 
-def _update_body(emb, cs, ids, d_pooled, lr: float, meta, *, group,
+# -- the gradient routed back to the owners ------------------------------------
+
+def _slot_grads(ids_all, d_pooled, meta, *, group, placement: TablePlacement,
+                exchange_dtype=None):
+    """Slot tables: (local rows (N*b, K[, H]), gradient rows (N*b, K[, H],
+    W)) of this rank's slots, routed back by the inverse all-to-all; a
+    padding slot is the trash row with zero rows.  ``d_pooled`` (b, T, W):
+    W is D, or 2D for the twin payload."""
+    b, w = d_pooled.shape[0], d_pooled.shape[-1]
+    n, k = placement.num_shards, placement.slots_per_shard
+    dt = d_pooled.dtype
+    layout = _layout(placement)
+    slot_rows = _regions(layout, b)[0]
+    wire = dt if exchange_dtype is None else exchange_dtype
+    _, slot_index = _exchange_index(layout, b, d_pooled.device)
+    slots = _index_tensor(placement.slot_table_list, d_pooled.device)
+    padded = bool((placement.slot_valid == 0).any())
+    with phase_scope("a2a_bwd"):
+        # the forward's receive layout is this send layout: row (shard,
+        # batch row, slot); padding slots send zeros
+        send = (torch.zeros if padded else torch.empty)(
+            (slot_rows, w), dtype=wire, device=d_pooled.device)
+        send.index_copy_(0, slot_index, _xc(
+            d_pooled.index_select(1, slots), exchange_dtype).view(-1, w))
+        back = torch.empty_like(send)
+        dist.all_to_all_single(back, send, group=group)
+    phys = _local_rows_for_slots(ids_all, meta)
+    back = back.view(n * b, k, w).to(dt)
+    if phys.dim() == 3:  # sum-pooled multi-hot: each hit gets it
+        back = back[:, :, None, :].expand(*phys.shape, w)
+    return phys, back
+
+
+def _rs_grads(ids_all, d_pooled, *, group, my_idx: int,
+              placement: TablePlacement, exchange_dtype=None):
+    """Row-sharded tables: (local rows (N*b, n_rs[, H]) in each table's
+    stack, gradient rows (N*b, n_rs[, H], W)) after the all-gather of
+    their columns; ids this rank does not own are its trash rows with
+    zero rows."""
+    w, dt = d_pooled.shape[-1], d_pooled.dtype
+    rs = _index_tensor(placement.row_sharded, d_pooled.device)
+    with phase_scope("rs_allgather_bwd"):
+        g = _gather_rows_of(_xc(d_pooled.index_select(1, rs),
+                                exchange_dtype), group).to(dt)
+    ids_rs = ids_all.index_select(1, rs)
+    local, owned = _rs_translate(ids_rs, placement, my_idx)
+    if ids_rs.dim() == 3:
+        g = g[:, :, None, :].expand(*ids_rs.shape, w)
+    return local, g * owned[..., None].to(dt)
+
+
+def _cs_grads(ids_all, cols, t: int, *, group, n: int, exchange_dtype=None):
+    """Column-sharded table t: (ids (N*b[, H]), this rank's lanes of their
+    gradient (N*b[, H], W/N)), routed by the inverse of the forward's
+    all-to-all from ``cols`` (b, W)."""
+    b, w = cols.shape
+    with phase_scope("cs_a2a_bwd"):
+        send = _xc(cols, exchange_dtype).reshape(b, n, w // n).transpose(
+            0, 1).contiguous()
+        g = torch.empty((n * b, w // n), dtype=send.dtype,
+                        device=cols.device)
+        dist.all_to_all_single(g, send.view(n * b, w // n), group=group)
+    ids_t = ids_all[:, t]
+    g = g.to(cols.dtype)
+    if ids_t.dim() == 2:
+        g = g[:, None, :].expand(*ids_t.shape, w // n)
+    return ids_t, g
+
+
+def _host_sgd(emb_h, local, g, lr: float) -> None:
+    """SGD on host rows: each distinct row gets the f32 sum of its hits'
+    ``-lr * g`` in one add (``host_tier.host_update_rows``)."""
+    with phase_scope("host_rs_update"):
+        host_tier.host_tier_scatter_add(
+            emb_h, local.reshape(-1),
+            (g.float() * -lr).reshape(-1, g.shape[-1]))
+
+
+def _update_body(emb, emb_h, cs, ids, d_pooled, lr: float, meta, *, group,
                  my_idx: int, placement: TablePlacement,
                  exchange_dtype=None) -> None:
     """SGD on this rank's tables, in place: ``d_pooled`` (b, T, D) is the
     gradient of the pooled rows of its ``ids`` (b, T[, H]).  Slot tables
     take the inverse all-to-all, row-sharded tables all-gather their
     gradient columns and add the rows the rank owns, column-sharded tables
-    take the inverse of their all-to-all; each then one ``index_add_``."""
-    b, d = d_pooled.shape[0], d_pooled.shape[-1]
-    n, k = placement.num_shards, placement.slots_per_shard
-    dt = d_pooled.dtype
-    wire = dt if exchange_dtype is None else exchange_dtype
-    layout = _layout(placement)
-    slot_rows, rs_rows, _ = _regions(layout, b)
+    take the inverse of their all-to-all; each then one ``index_add_``
+    (host rows: one add a distinct row)."""
+    d = d_pooled.shape[-1]
+    slot_rows, rs_rows, _ = _regions(_layout(placement), d_pooled.shape[0])
     ids_all = _gather_rows_of(ids, group).long()
     if slot_rows:
-        _, slot_index = _exchange_index(layout, b, emb.device)
-        slots = _index_tensor(placement.slot_table_list, emb.device)
-        padded = bool((placement.slot_valid == 0).any())
-        with phase_scope("a2a_bwd"):
-            # the forward's receive layout is this send layout: row
-            # (shard, batch row, slot); padding slots send zeros
-            send = (torch.zeros if padded else torch.empty)(
-                (slot_rows, d), dtype=wire, device=emb.device)
-            send.index_copy_(0, slot_index, _xc(
-                d_pooled.index_select(1, slots), exchange_dtype).view(-1, d))
-            back = torch.empty_like(send)
-            dist.all_to_all_single(back, send, group=group)
-        phys = _local_rows_for_slots(ids_all, meta)
-        back = back.view(n * b, k, d).to(dt)
-        if phys.dim() == 3:  # sum-pooled multi-hot: each hit gets it
-            back = back[:, :, None, :].expand(*phys.shape, d)
+        phys, back = _slot_grads(ids_all, d_pooled, meta, group=group,
+                                 placement=placement,
+                                 exchange_dtype=exchange_dtype)
         emb.index_add_(0, phys.reshape(-1),
                        (back.float() * -lr).to(emb.dtype).reshape(-1, d))
     if rs_rows:
-        rs = _index_tensor(placement.row_sharded, emb.device)
-        with phase_scope("rs_allgather_bwd"):
-            g = _gather_rows_of(_xc(d_pooled.index_select(1, rs),
-                                    exchange_dtype), group).to(dt)
-        ids_rs = ids_all.index_select(1, rs)
-        local, owned = _rs_translate(ids_rs, placement, my_idx)
-        if ids_rs.dim() == 3:
-            g = g[:, :, None, :].expand(*ids_rs.shape, d)
-        g = g * owned[..., None].to(dt)
-        emb.index_add_(0, local.reshape(-1),
-                       (g.float() * -lr).to(emb.dtype).reshape(-1, d))
+        local, g = _rs_grads(ids_all, d_pooled, group=group, my_idx=my_idx,
+                             placement=placement,
+                             exchange_dtype=exchange_dtype)
+        dev_k, host_k = _rs_split(placement)
+        if host_k:
+            _host_sgd(emb_h, _columns(local, host_k), _columns(g, host_k),
+                      lr)
+            if dev_k:
+                local, g = _columns(local, dev_k), _columns(g, dev_k)
+        if dev_k:
+            emb.index_add_(0, local.reshape(-1),
+                           (g.float() * -lr).to(emb.dtype).reshape(-1, d))
     for j, t in enumerate(placement.col_sharded):
-        wc = d // n
-        with phase_scope("cs_a2a_bwd"):
-            send = _xc(d_pooled[:, t], exchange_dtype).reshape(
-                b, n, wc).transpose(0, 1).contiguous()
-            g = torch.empty((n * b, wc), dtype=wire, device=emb.device)
-            dist.all_to_all_single(g, send.view(n * b, wc), group=group)
-        ids_t = ids_all[:, t]
-        g = g.to(dt)
-        if ids_t.dim() == 2:
-            g = g[:, None, :].expand(*ids_t.shape, wc)
-        cs[j].index_add_(0, ids_t.reshape(-1),
-                         (g.float() * -lr).to(cs[j].dtype).reshape(-1, wc))
+        ids_t, g = _cs_grads(ids_all, d_pooled[:, t], t, group=group,
+                             n=placement.num_shards,
+                             exchange_dtype=exchange_dtype)
+        cs[j].index_add_(0, ids_t.reshape(-1), (g.float() * -lr).to(
+            cs[j].dtype).reshape(-1, g.shape[-1]))
+
+
+def _fold_batch(ids, d_pooled, block_leading: bool, mesh, axis: str,
+                exchange_dtype):
+    """The update's batch: a block's leading micro-step axis folded into
+    the rows, then (2-D mesh) every DCN replica's rows gathered."""
+    if block_leading:
+        ids = ids.reshape(-1, *ids.shape[2:])
+        d_pooled = d_pooled.reshape(-1, *d_pooled.shape[2:])
+    dcn = dcn_axis_of(mesh, axis)
+    if dcn is not None:
+        ids, d_pooled = _dcn_fold(ids, d_pooled, mesh.get_group(dcn),
+                                  exchange_dtype)
+    return ids, d_pooled
+
+
+def _check_trainable(emb) -> None:
+    if emb.dtype == torch.int8:
+        raise ValueError("int8 tables are inference-only; train f32 or bf16 "
+                         "tables and quantize after")
 
 
 def sharded_update_sgd(emb: torch.Tensor, ids: torch.Tensor,
                        d_pooled: torch.Tensor, lr, *, mesh,
                        placement: TablePlacement, axis: str = "d", cs=(),
+                       emb_h=None, block_leading: bool = False,
                        exchange_dtype=None) -> None:
     """Apply the compressed embedding gradient ``d_pooled`` (b, T, D) of
     this rank's batch rows ``ids`` (b, T[, H]) to the sharded tables with
-    SGD, in place: ``emb`` the local stack, ``cs`` the column shards.  On
-    a 2-D mesh the DCN replicas' gradients are folded in first.  ``lr`` is
-    taken as the f32 value the JAX package computes with; padding slots and
-    ids a rank does not own add zeros to the trash row."""
-    _check_served(placement)
-    if emb.dtype == torch.int8:
-        raise ValueError("int8 tables are inference-only; train f32 or bf16 "
-                         "tables and quantize after")
+    SGD, in place: ``emb`` the local stack, ``cs`` the column shards,
+    ``emb_h`` the host stack (host-resident tables).  On a 2-D mesh the
+    DCN replicas' gradients are folded in first.  ``block_leading``: ids
+    and ``d_pooled`` are (K, b, ...), K micro-steps' gradients applied in
+    one pass.  ``lr`` is taken as the f32 value the JAX package computes
+    with; padding slots and ids a rank does not own add zeros to the trash
+    row of their stack.  Host rows sum their hits in f32 on the card and
+    take one add each, where the JAX package adds every hit."""
+    _check_served(placement, emb, emb_h)
+    _check_trainable(emb)
     group, my_idx = _table_group(mesh, axis, placement)
-    dcn = dcn_axis_of(mesh, axis)
-    if dcn is not None:
-        ids, d_pooled = _dcn_fold(ids, d_pooled, mesh.get_group(dcn),
-                                  exchange_dtype)
+    ids, d_pooled = _fold_batch(ids, d_pooled, block_leading, mesh, axis,
+                                exchange_dtype)
     meta = placement_arrays(placement, my_idx, emb.device)
     with torch.no_grad():
-        _update_body(emb, cs, ids, d_pooled, float(np.float32(lr)), meta,
-                     group=group, my_idx=my_idx, placement=placement,
+        _update_body(emb, emb_h, cs, ids, d_pooled, float(np.float32(lr)),
+                     meta, group=group, my_idx=my_idx, placement=placement,
                      exchange_dtype=exchange_dtype)
+
+
+# -- Adagrad ----------------------------------------------------------------
+
+def _cs_rowwise(cs_t, acc_t, u: emb_ops.SparseGrad, wc: int, dim: int,
+                lr: float, group, twin: bool) -> None:
+    """Row-wise Adagrad on one column-sharded table, sparse form: every
+    rank holds the same ids after the all-gather, so the same distinct ids
+    ``u.ids`` (U,) in the same order; one all-reduce of their lanes' sum
+    of squares (U,) completes the full-D sum, and every rank folds the
+    same row means into its copy of the ``(R_t,)`` accumulator."""
+    g = u.rows[:, :wc]
+    s2 = (g * g).sum(dim=1)
+    dist.all_reduce(s2, group=group)
+    acc_new = acc_t.index_select(0, u.ids) + s2 / dim
+    acc_t.index_copy_(0, u.ids, acc_new)
+    rs = optim._rss_scale(acc_new)[:, None]
+    # the single-device step's order of products (optim.apply_adagrad_rows)
+    step = u.rows[:, wc:] * rs if twin else g * rs * lr
+    cs_t.index_add_(0, u.ids, (-step).to(cs_t.dtype))
+
+
+def _update_body_adagrad(emb, acc, emb_h, acc_h, cs, acc_cs, ids, d_pooled,
+                         lr: float, meta, *, group, my_idx: int,
+                         placement: TablePlacement, twin: bool,
+                         rowwise: bool, exchange_dtype=None) -> None:
+    """Adagrad (``rowwise``: row-wise Adagrad) on this rank's tables, in
+    place, with :func:`_update_body`'s routing.  The device stack's keys
+    (slot and device row-shard rows) are deduplicated together, the host
+    stack's and each column shard's on their own; then one exact
+    dedup-then-apply step each.  ``twin``: ``d_pooled`` carries ``(g,
+    lr_k * g)`` on its feature axis; the accumulator takes the raw half,
+    the weights the scaled one with lr 1."""
+    width = d_pooled.shape[-1]
+    dim = width // 2 if twin else width
+    opt = "rowwise_adagrad" if rowwise else "adagrad"
+    slot_rows, rs_rows, _ = _regions(_layout(placement), d_pooled.shape[0])
+    ids_all = _gather_rows_of(ids, group).long()
+    keys, grads = [], []
+    if slot_rows:
+        phys, back = _slot_grads(ids_all, d_pooled, meta, group=group,
+                                 placement=placement,
+                                 exchange_dtype=exchange_dtype)
+        keys.append(phys.reshape(-1))
+        grads.append(back.reshape(-1, width))
+    if rs_rows:
+        local, g = _rs_grads(ids_all, d_pooled, group=group, my_idx=my_idx,
+                             placement=placement,
+                             exchange_dtype=exchange_dtype)
+        dev_k, host_k = _rs_split(placement)
+        if host_k:
+            hg = _columns(g, host_k).reshape(-1, width).float()
+            host_tier._host_tier_opt_apply(
+                emb_h, acc_h, _columns(local, host_k).reshape(-1),
+                hg[:, :dim], optimizer=opt, lr=lr,
+                scaled=hg[:, dim:] if twin else None)
+        if dev_k:
+            if host_k:
+                local, g = _columns(local, dev_k), _columns(g, dev_k)
+            keys.append(local.reshape(-1))
+            grads.append(g.reshape(-1, width))
+    if keys:
+        with phase_scope("adagrad_dedup"):
+            u = emb_ops.sum_duplicates(emb_ops.SparseGrad(
+                torch.cat(keys), torch.cat(grads).float()))
+        optim.apply_adagrad_rows(emb, acc, u.ids, u.rows[:, :dim], lr,
+                                 rowwise=rowwise,
+                                 scaled=u.rows[:, dim:] if twin else None)
+    n = placement.num_shards
+    for j, t in enumerate(placement.col_sharded):
+        # the all-to-all splits the feature axis over the ranks: the twin
+        # halves take separate exchanges (one would interleave their lanes)
+        ids_t, g = _cs_grads(ids_all, d_pooled[:, t, :dim], t, group=group,
+                             n=n, exchange_dtype=exchange_dtype)
+        if twin:
+            _, gs = _cs_grads(ids_all, d_pooled[:, t, dim:], t, group=group,
+                              n=n, exchange_dtype=exchange_dtype)
+            g = torch.cat([g, gs], dim=-1)
+        wc = dim // n
+        with phase_scope("cs_adagrad"):
+            u = emb_ops.sum_duplicates(emb_ops.SparseGrad(
+                ids_t.reshape(-1), g.reshape(-1, g.shape[-1]).float()))
+            if rowwise:
+                _cs_rowwise(cs[j], acc_cs[j], u, wc, dim, lr, group, twin)
+            else:
+                optim.apply_adagrad_rows(
+                    cs[j], acc_cs[j], u.ids, u.rows[:, :wc], lr,
+                    rowwise=False, scaled=u.rows[:, wc:] if twin else None)
+
+
+def sharded_update_adagrad(emb: torch.Tensor, acc: torch.Tensor,
+                           ids: torch.Tensor, d_pooled: torch.Tensor, lr, *,
+                           mesh, placement: TablePlacement, axis: str = "d",
+                           cs=(), acc_cs=(), emb_h=None, acc_h=None,
+                           block_leading: bool = False,
+                           d_pooled_scaled=None, rowwise: bool = False,
+                           exchange_dtype=None) -> None:
+    """Sparse Adagrad (``rowwise``: row-wise Adagrad) on the sharded tables
+    -- slot, device row-sharded, host row-sharded and column-sharded -- in
+    place.  The accumulators (``train.init_sharded_opt_state``) lie beside
+    their tables: ``acc`` ``(local_rows, D)`` or ``(local_rows,)``,
+    ``acc_h`` the host stack's in host memory, ``acc_cs`` per column
+    shard ``(R_t, D/N)`` (Adagrad is elementwise, so lane slices
+    accumulate on their own) or the full table's ``(R_t,)``, the same on
+    every rank (row-wise: the row mean needs every lane).
+
+    ``block_leading``: ids and ``d_pooled`` are (K, b, ...).  The K
+    micro-steps and (2-D mesh) the DCN replicas are folded into the batch
+    first, so a key's every contribution is summed before the
+    accumulator's update.  ``d_pooled_scaled``: each micro-step's gradient
+    times its own lr (a scheduled block); it rides beside ``d_pooled`` as
+    the twin payload, and the step applies it with lr 1."""
+    _check_served(placement, emb, emb_h)
+    _check_trainable(emb)
+    group, my_idx = _table_group(mesh, axis, placement)
+    twin = d_pooled_scaled is not None
+    if twin:
+        d_pooled = torch.cat([d_pooled, d_pooled_scaled.to(d_pooled.dtype)],
+                             dim=-1)
+        lr = 1.0
+    ids, d_pooled = _fold_batch(ids, d_pooled, block_leading, mesh, axis,
+                                exchange_dtype)
+    meta = placement_arrays(placement, my_idx, emb.device)
+    with torch.no_grad():
+        _update_body_adagrad(emb, acc, emb_h, acc_h, cs, acc_cs, ids,
+                             d_pooled, float(np.float32(lr)), meta,
+                             group=group, my_idx=my_idx, placement=placement,
+                             twin=twin, rowwise=rowwise,
+                             exchange_dtype=exchange_dtype)
+
+
+# -- the DCN replica check -------------------------------------------------------
+
+FOLD_CHUNK = 1 << 26  # elements folded at a time (256 MiB of f32)
+
+
+def _xor_fold(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """The XOR of every element's f32 bits, as a 0-d int32 tensor on
+    ``device``.  A chunk of ``FOLD_CHUNK`` elements at a time (a host
+    tensor's chunks are copied to ``device`` first), each folded by
+    halving: torch has no XOR reduction."""
+    flat = x.detach().reshape(-1)
+    word = torch.zeros((), dtype=torch.int32, device=device)
+    for lo in range(0, flat.numel(), FOLD_CHUNK):
+        bits = flat[lo:lo + FOLD_CHUNK].to(device, torch.float32).view(
+            torch.int32)
+        while bits.numel() > 1:
+            half = bits.numel() // 2
+            odd = bits[2 * half:]
+            bits = bits[:half] ^ bits[half:2 * half]
+            if odd.numel():
+                bits[:1] ^= odd
+        if bits.numel():
+            word ^= bits[0]
+    return word
+
+
+def make_dcn_replica_check(mesh, axis: str = "d"):
+    """A check that the DCN replicas of a 2-D mesh hold the same tables,
+    bit for bit (every replica applies the same folded update, so they
+    must); None on a 1-D mesh.
+
+    ``check(params) -> bool``: each rank XOR-folds the f32 bits of its
+    ``emb``, every ``emb_cs`` and its ``emb_h`` (host rows pass through
+    the card a chunk at a time) into one word, the words are all-gathered
+    over the DCN group and compared, and the verdicts of the table group
+    combined: every rank returns True only if every replica agrees.  The
+    fold is one pass over the rank's tables."""
+    dcn = dcn_axis_of(mesh, axis)
+    if dcn is None:
+        return None
+    dcn_group, table_group = mesh.get_group(dcn), mesh.get_group(axis)
+
+    def check(params) -> bool:
+        emb = params["emb"]
+        with torch.no_grad(), phase_scope("dcn_replica_check"):
+            word = _xor_fold(emb, emb.device)
+            for t in params.get("emb_cs", ()):
+                word ^= _xor_fold(t, emb.device)
+            if params.get("emb_h") is not None:
+                word ^= _xor_fold(params["emb_h"], emb.device)
+            words = _gather_rows_of(word.view(1), dcn_group)
+            agree = (words == words[0]).all().to(torch.int32).view(1)
+            dist.all_reduce(agree, op=dist.ReduceOp.MIN, group=table_group)
+        return bool(agree.item())
+
+    return check

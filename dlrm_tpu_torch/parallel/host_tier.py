@@ -880,34 +880,43 @@ def prime_host_prefetch(emb: TieredEmb, sparse) -> torch.Tensor:
 
 # -- the optimizers -----------------------------------------------------------
 
-def _adagrad_rows(acc_rows, g):
+def _adagrad_rows(acc_rows, g, scaled=None):
     """Elementwise Adagrad on distinct rows: (accumulator delta ``g^2``,
-    step rows ``g * rsqrt(acc + g^2 + eps)``, 0 where that sum is 0); the
-    caller applies the learning rate."""
+    step rows ``g * rsqrt(acc + g^2 + eps)``, 0 where that sum is 0; with
+    ``scaled``, ``scaled * rsqrt(...)``); the caller applies the learning
+    rate."""
     acc_new = acc_rows + g * g
-    return g * g, g * optim._rss_scale(acc_new)
+    return g * g, (g if scaled is None else scaled) * optim._rss_scale(
+        acc_new)
 
 
-def _rowwise_rows(acc_sel, g):
+def _rowwise_rows(acc_sel, g, scaled=None):
     """Row-wise Adagrad on distinct rows: ``acc_sel`` (M,) one scalar a row;
     (delta ``mean_D(g^2)`` (M,), step rows (M, D))."""
     g2m = (g * g).mean(dim=-1)
-    return g2m, g * optim._rss_scale(acc_sel + g2m)[:, None]
+    return g2m, (g if scaled is None else scaled) * optim._rss_scale(
+        acc_sel + g2m)[:, None]
 
 
 def _host_tier_opt_apply(emb_host, acc, flat_ids, g, *, optimizer: str,
-                         lr: float) -> None:
+                         lr: float, scaled=None) -> None:
     """Dedup-then-apply Adagrad on the host tier, in place: the hits of a
     row summed in f32 on the card, the distinct rows' accumulator gathered,
     the update computed on the card, then the accumulator and the table
     updated by ``host_update_rows`` (the accumulator's ``acc + g^2`` is
-    the same f32 sum the step used)."""
+    the same f32 sum the step used).  ``scaled`` (n, D): each hit's
+    gradient times its own micro-step's lr, summed beside ``g`` (the twin
+    payload of a scheduled block); the weights then take its sum, with
+    ``lr`` 1."""
     with phase_scope("host_tier_update"):
-        u = emb_ops.sum_duplicates(emb_ops.SparseGrad(flat_ids, g))
+        d = g.shape[1]
+        rows = g if scaled is None else torch.cat([g, scaled], dim=1)
+        u = emb_ops.sum_duplicates(emb_ops.SparseGrad(flat_ids, rows))
         acc_rows = host_tier_gather(acc, u.ids)
         rows_fn = _rowwise_rows if optimizer == "rowwise_adagrad" \
             else _adagrad_rows
-        d_acc, step = rows_fn(acc_rows, u.rows)
+        d_acc, step = rows_fn(acc_rows, u.rows[:, :d],
+                              None if scaled is None else u.rows[:, d:])
         _host_update(acc, u.ids, d_acc)
         _host_update(emb_host, u.ids, step * -lr)
 

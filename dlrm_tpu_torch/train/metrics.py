@@ -185,20 +185,21 @@ def evaluate(params: dict, data: Iterable, config, *,
 def make_sharded_eval_forward(config, mesh, placement, axis: str = "d"
                               ) -> Callable:
     """The sharded forward of this rank's rows: ``fwd(dense_params, emb,
-    cs, dense, sparse) -> (b,) predictions``, the sharded lookup
-    (``parallel/embedding.sharded_lookup``) then the model's
+    cs, dense, sparse, emb_h=None) -> (b,) predictions``, the sharded
+    lookup (``parallel/embedding.sharded_lookup``; ``emb_h`` the host
+    stack of host-resident tables) then the model's
     ``forward_from_pooled``.  Every rank of the mesh calls it with the
     same number of rows."""
     from dlrm_tpu_torch.models.dlrm import forward_from_pooled
     from dlrm_tpu_torch.parallel.embedding import sharded_lookup
     from dlrm_tpu_torch.utils.telemetry import phase_scope
 
-    def fwd(dense_params, emb, cs, dense, sparse):
+    def fwd(dense_params, emb, cs, dense, sparse, emb_h=None):
         with torch.no_grad():
             with phase_scope("lookup"):
                 pooled = sharded_lookup(
                     emb, sparse, mesh=mesh, placement=placement, axis=axis,
-                    cs=cs, exchange_dtype=config.exchange_dtype)
+                    cs=cs, emb_h=emb_h, exchange_dtype=config.exchange_dtype)
             return forward_from_pooled(dense_params, pooled, dense, config)
 
     return fwd
@@ -221,6 +222,7 @@ def sharded_evaluate(params: dict, data: Iterable, config, *, mesh,
     fwd = make_sharded_eval_forward(config, mesh, placement, axis)
     dense_params = {"bottom": params["bottom"], "top": params["top"]}
     emb, cs = params["emb"], tuple(params.get("emb_cs", ()))
+    emb_h = params.get("emb_h")
     ranks = mesh.mesh.numel()
 
     def local_batches():
@@ -240,7 +242,7 @@ def sharded_evaluate(params: dict, data: Iterable, config, *, mesh,
 
     def predict_batch(batch):
         preds = fwd(dense_params, emb, cs, batch["dense"].to(emb.device),
-                    batch["sparse"].to(emb.device))
+                    batch["sparse"].to(emb.device), emb_h)
         return preds[:batch["labels"].shape[0]]
 
     return _accumulate(local_batches(), predict_batch, record=record,

@@ -75,9 +75,17 @@ def clip_by_global_norm(max_norm: float, grads: Sequence[torch.Tensor]
     and the small tables' gradient with the hits of a row already summed
     (there it is a dense ``(rows, D)`` slice; rows without a hit add 0)."""
     sq = sum(g.float().square().sum() for g in grads)
-    gnorm = torch.sqrt(sq)
-    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+    scale, gnorm = clip_scale(max_norm, sq)
     return [(g.float() * scale).to(g.dtype) for g in grads], gnorm
+
+
+def clip_scale(max_norm: float, sq: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(``min(1, max_norm / norm)``, the norm) of a global norm given as its
+    f32 sum of squares ``sq``, 0-d (the sharded step sums it over ranks)."""
+    gnorm = torch.sqrt(sq)
+    return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12),
+                       max=1.0), gnorm
 
 
 def _rss_scale(acc_new: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,10 @@ duplicate ids.  Table gradients are never densified.  The parameters (and
 the optimizer state) are updated in place, which stands in for the JAX
 package's buffer donation.
 
-``sharded_train_step`` is the hybrid-parallel SGD step of one rank of a
-gang (``parallel/embedding.py``, ``parallel/mesh.py``).
+``sharded_train_step``, ``sharded_train_step_opt``, ``sharded_train_block``
+and ``sharded_train_block_opt`` are the hybrid-parallel steps of one rank
+of a gang (``parallel/embedding.py``, ``parallel/mesh.py``), with the
+optimizer state of ``init_sharded_opt_state``.
 
 ``train_step_opt`` adds the optimizers of ``train/optim.py`` and global-norm
 clipping.  ``train_block`` / ``train_block_opt`` fuse K micro-steps: the
@@ -395,38 +397,50 @@ def broadcast_dense(params: dict) -> None:
         p.copy_(q.view_as(p))
 
 
-def sharded_train_step(params: dict, dense, sparse, labels, *,
-                       config: DLRMConfig, lr: float, mesh, placement,
-                       axis: str = "d") -> torch.Tensor:
-    """One hybrid-parallel SGD step on this rank's parameters, in place;
-    returns the global batch's loss (0-d, no host sync).
+def _sharded_parts(params: dict):
+    """(dense parameters, local stack, column shards, host stack or None)
+    of a rank's sharded parameters."""
+    dense_params, emb = _split_trainable(params)
+    return (dense_params, emb, tuple(params.get("emb_cs", ())),
+            params.get("emb_h"))
 
-    ``params``: ``{"bottom", "top", "emb": (local_rows, D), "emb_cs":
-    ((R_t, D/N), ...)}``, the rank's shard (``parallel.embedding``), the
-    dense parameters the same on every rank (:func:`broadcast_dense`).
-    ``dense`` / ``sparse`` / ``labels`` are the global batch, the same on
-    every rank, which takes its rows (``parallel.mesh.local_batch_rows``;
-    the batch must divide by the mesh's ranks) to the parameters'
-    device.
+
+def _local_rows(mesh, emb, *batch, leading: int = 0):
+    """This rank's rows of a global batch (axis ``leading``: 1 for a
+    block's (K, B, ...)) on the tables' device."""
+    from dlrm_tpu_torch.parallel.mesh import local_batch_rows
+
+    lo, hi = local_batch_rows(mesh, batch[0].shape[leading])
+    return [t.narrow(leading, lo, hi - lo).to(emb.device) for t in batch]
+
+
+def _sharded_grads(params: dict, dense, sparse, labels, *,
+                   config: DLRMConfig, mesh, placement, axis: str,
+                   grad_clip_norm=None):
+    """One rank's share of a sharded step's gradients, on its local rows
+    (``dense``, ``sparse``, ``labels`` on the tables' device): (the global
+    loss, the dense gradients summed over every rank, as one flat buffer,
+    ``d_pooled`` (b, T, D) of this rank's rows).
 
     The loss and the gradients are those of the global mean: the local
     backward carries ``1 / ranks``, so ``d_pooled`` carries ``1 / B``, and
     the dense gradients and the loss are summed over every rank in one
-    all-reduce of one flat buffer.  The lookup runs outside autograd."""
+    all-reduce of one flat buffer.  The lookup runs outside autograd, as
+    of the tables now.
+
+    ``grad_clip_norm``: the global norm is the JAX package's sharded one,
+    over the dense gradients and ``d_pooled`` (pooled rows, not hits): the
+    squares of ``d_pooled`` ride in the same all-reduce, and both are
+    scaled after it."""
     import torch.distributed as dist
     from dlrm_tpu_torch.parallel import embedding as pemb
-    from dlrm_tpu_torch.parallel.mesh import local_batch_rows
     from dlrm_tpu_torch.utils.telemetry import phase_scope
 
-    dense_params, emb = _split_trainable(params)
-    cs = tuple(params.get("emb_cs", ()))
-    lo, hi = local_batch_rows(mesh, dense.shape[0])
-    dense, sparse, labels = (t[lo:hi].to(emb.device)
-                             for t in (dense, sparse, labels))
+    dense_params, emb, cs, emb_h = _sharded_parts(params)
     with phase_scope("lookup"):
         pooled = pemb.sharded_lookup(
             emb, sparse, mesh=mesh, placement=placement, axis=axis, cs=cs,
-            exchange_dtype=config.exchange_dtype)
+            emb_h=emb_h, exchange_dtype=config.exchange_dtype)
     pooled.requires_grad_()
     live = emb_ops.tree_map(lambda p: p.detach().requires_grad_(),
                             dense_params)
@@ -435,19 +449,67 @@ def sharded_train_step(params: dict, dense, sparse, labels, *,
     share = torch.full((), 1.0 / mesh.mesh.numel(), dtype=loss.dtype,
                        device=loss.device)
     grads = torch.autograd.grad(loss, leaves + [pooled], grad_outputs=share)
+    d_pooled = grads[-1]
     with torch.no_grad():
-        flat = torch.cat([g.reshape(-1) for g in grads[:-1]]
-                         + [(loss * share).reshape(1)])
+        tail = [(loss * share).reshape(1)]
+        if grad_clip_norm is not None:
+            tail.append(d_pooled.float().square().sum().reshape(1))
+        flat = torch.cat([g.reshape(-1) for g in grads[:-1]] + tail)
         with phase_scope("dense_allreduce"):
             dist.all_reduce(flat)
-        for p, g in zip(emb_ops.tree_leaves(dense_params),
-                        torch.split(flat[:-1], [p.numel() for p in leaves])):
-            p.sub_(g.view_as(p) * lr)
+        n_dense = flat.numel() - len(tail)
+        if grad_clip_norm is not None:
+            with phase_scope("grad_clip"):
+                scale, _ = optim.clip_scale(
+                    grad_clip_norm,
+                    flat[:n_dense].float().square().sum() + flat[-1])
+                flat[:n_dense] = flat[:n_dense] * scale
+                d_pooled = (d_pooled.float() * scale).to(d_pooled.dtype)
+    return flat[n_dense], flat[:n_dense], d_pooled
+
+
+def _dense_apply(params: dict, flat, optimizer: str, accs, lr: float
+                 ) -> None:
+    """The dense step from the flat all-reduced gradient, in place."""
+    leaves = emb_ops.tree_leaves(model_lib.split_params(params)[0])
+    grads = [g.view_as(p) for p, g in zip(
+        leaves, torch.split(flat, [p.numel() for p in leaves]))]
+    with torch.no_grad():
+        optim.apply_dense(optimizer, leaves, grads,
+                          None if accs is None else emb_ops.tree_leaves(accs),
+                          lr)
+
+
+def sharded_train_step(params: dict, dense, sparse, labels, *,
+                       config: DLRMConfig, lr: float, mesh, placement,
+                       axis: str = "d") -> torch.Tensor:
+    """One hybrid-parallel SGD step on this rank's parameters, in place;
+    returns the global batch's loss (0-d, no host sync).
+
+    ``params``: ``{"bottom", "top", "emb": (local_rows, D), "emb_cs":
+    ((R_t, D/N), ...), "emb_h": (host_local_rows, D)}`` (``emb_cs`` and
+    ``emb_h`` where the placement has such tables), the rank's shard
+    (``parallel.embedding``), the dense parameters the same on every rank
+    (:func:`broadcast_dense`).  ``dense`` / ``sparse`` / ``labels`` are
+    the global batch, the same on every rank, which takes its rows
+    (``parallel.mesh.local_batch_rows``; the batch must divide by the
+    mesh's ranks) to the parameters' device.  The gradients are those of
+    the global mean (:func:`_sharded_grads`)."""
+    from dlrm_tpu_torch.parallel import embedding as pemb
+    from dlrm_tpu_torch.utils.telemetry import phase_scope
+
+    _, emb, cs, emb_h = _sharded_parts(params)
+    dense, sparse, labels = _local_rows(mesh, emb, dense, sparse, labels)
+    loss, flat, d_pooled = _sharded_grads(
+        params, dense, sparse, labels, config=config, mesh=mesh,
+        placement=placement, axis=axis)
+    _dense_apply(params, flat, "sgd", None, lr)
     with phase_scope("sparse_update"):
-        pemb.sharded_update_sgd(emb, sparse, grads[-1], lr, mesh=mesh,
+        pemb.sharded_update_sgd(emb, sparse, d_pooled, lr, mesh=mesh,
                                 placement=placement, axis=axis, cs=cs,
+                                emb_h=emb_h,
                                 exchange_dtype=config.exchange_dtype)
-    return flat[-1]
+    return loss
 
 
 def make_sharded_train_step(config: DLRMConfig, lr: float, mesh, placement,
@@ -457,6 +519,247 @@ def make_sharded_train_step(config: DLRMConfig, lr: float, mesh, placement,
     return functools.partial(sharded_train_step, config=config,
                              lr=_f32(lr), mesh=mesh, placement=placement,
                              axis=axis)
+
+
+def init_sharded_opt_state(params: dict, *, config: DLRMConfig,
+                           optimizer: str) -> dict:
+    """Optimizer state of a rank's sharded parameters:
+
+    * ``dense``: None (sgd) or an accumulator per dense parameter, as
+      :func:`init_opt_state`'s;
+    * ``count``: the steps taken (an int; a schedule is read at it);
+    * ``emb_acc``: None (sgd); ``(local_rows, D)`` f32 (adagrad) or
+      ``(local_rows,)`` (rowwise_adagrad) beside the local stack;
+    * ``emb_acc_cs``: one per column shard, ``(R_t, D/N)`` (adagrad: lane
+      slices accumulate on their own) or ``(R_t,)`` (rowwise_adagrad: a
+      row's mean over every lane, the same on every rank); ``()`` for sgd;
+    * ``emb_acc_h``: None, or the host stack's, ``(host_local_rows, D)``
+      or ``(host_local_rows,)``, in host memory registered with the card
+      (``parallel.host_tier._host_empty``) when the tables are on CUDA.
+
+    The JAX package's ``sharded_opt_shardings`` (its sharding tree) is
+    this layout: every tensor here is this rank's."""
+    from dlrm_tpu_torch.parallel.host_tier import _host_empty
+
+    optim.check_optimizer(optimizer)
+    dense_params, emb, cs, emb_h = _sharded_parts(params)
+    state = {"dense": optim.init_dense_state(optimizer, dense_params),
+             "count": 0, "emb_acc": None, "emb_acc_cs": (),
+             "emb_acc_h": None}
+    if optimizer == "sgd":
+        return state
+    rowwise = optimizer == "rowwise_adagrad"
+
+    def zeros(t, full):
+        return torch.zeros(t.shape[:1] if rowwise else full,
+                           dtype=torch.float32, device=t.device)
+
+    state["emb_acc"] = zeros(emb, emb.shape)
+    state["emb_acc_cs"] = tuple(zeros(c, c.shape) for c in cs)
+    if emb_h is not None:
+        state["emb_acc_h"] = _host_empty(
+            emb_h.shape[:1] if rowwise else emb_h.shape, torch.float32,
+            emb.device).zero_()
+    return state
+
+
+def _sharded_sparse_apply(params: dict, opt_state: dict, sparse, d_pooled,
+                          lr: float, *, config: DLRMConfig, optimizer: str,
+                          mesh, placement, axis: str,
+                          block_leading: bool = False,
+                          d_pooled_scaled=None) -> None:
+    from dlrm_tpu_torch.parallel import embedding as pemb
+    from dlrm_tpu_torch.utils.telemetry import phase_scope
+
+    _, emb, cs, emb_h = _sharded_parts(params)
+    with phase_scope("sparse_update"):
+        if optimizer == "sgd":
+            pemb.sharded_update_sgd(
+                emb, sparse, d_pooled, lr, mesh=mesh, placement=placement,
+                axis=axis, cs=cs, emb_h=emb_h, block_leading=block_leading,
+                exchange_dtype=config.exchange_dtype)
+        else:
+            pemb.sharded_update_adagrad(
+                emb, opt_state["emb_acc"], sparse, d_pooled, lr, mesh=mesh,
+                placement=placement, axis=axis, cs=cs,
+                acc_cs=opt_state["emb_acc_cs"], emb_h=emb_h,
+                acc_h=opt_state["emb_acc_h"], block_leading=block_leading,
+                d_pooled_scaled=d_pooled_scaled,
+                rowwise=optimizer == "rowwise_adagrad",
+                exchange_dtype=config.exchange_dtype)
+
+
+def sharded_train_step_opt(params: dict, opt_state: dict, dense, sparse,
+                           labels, *, config: DLRMConfig, optimizer: str,
+                           lr, mesh, placement, axis: str = "d",
+                           grad_clip_norm=None) -> torch.Tensor:
+    """One hybrid-parallel step with ``sgd``, ``adagrad`` or
+    ``rowwise_adagrad`` on this rank's parameters and optimizer state
+    (:func:`init_sharded_opt_state`), both in place; the global batch as
+    :func:`sharded_train_step` takes it; returns the global loss.
+
+    ``lr``: a float, or a schedule read at ``opt_state['count']``.
+    ``grad_clip_norm``: the JAX package's sharded clip, over the dense
+    gradients and the pooled rows' gradient (:func:`_sharded_grads`).  The
+    tables take ``parallel.embedding``'s exact dedup-then-apply update on
+    every rank's rows."""
+    optim.check_optimizer(optimizer)
+    lr_t = _f32(lr(opt_state["count"]) if callable(lr) else lr)
+    _, emb, _, _ = _sharded_parts(params)
+    dense, sparse, labels = _local_rows(mesh, emb, dense, sparse, labels)
+    loss, flat, d_pooled = _sharded_grads(
+        params, dense, sparse, labels, config=config, mesh=mesh,
+        placement=placement, axis=axis, grad_clip_norm=grad_clip_norm)
+    _dense_apply(params, flat, optimizer, opt_state["dense"], lr_t)
+    _sharded_sparse_apply(params, opt_state, sparse, d_pooled, lr_t,
+                          config=config, optimizer=optimizer, mesh=mesh,
+                          placement=placement, axis=axis)
+    opt_state["count"] += 1
+    return loss
+
+
+def make_sharded_train_step_opt(config: DLRMConfig, *, optimizer: str, lr,
+                                mesh, placement, axis: str = "d",
+                                grad_clip_norm=None) -> Callable:
+    """``step(params, opt_state, dense, sparse, labels) -> loss`` of
+    :func:`sharded_train_step_opt`."""
+    return functools.partial(sharded_train_step_opt, config=config,
+                             optimizer=optimizer, lr=lr, mesh=mesh,
+                             placement=placement, axis=axis,
+                             grad_clip_norm=grad_clip_norm)
+
+
+def _sharded_block(params: dict, opt_state: Optional[dict], dense, sparse,
+                   labels, *, config: DLRMConfig, optimizer: str, lrs,
+                   scheduled: bool, mesh, placement, axis: str,
+                   grad_clip_norm) -> torch.Tensor:
+    """K sharded micro-steps (K: the leading axis of the global batches),
+    every table read as of block entry, the dense parameters updated every
+    micro-step at ``lrs[k]``; the K pooled gradients then applied in one
+    sparse update (scheduled: each scaled by its micro-step's lr, applied
+    with lr 1; Adagrad: as the twin payload)."""
+    _, emb, _, _ = _sharded_parts(params)
+    dense, sparse, labels = _local_rows(mesh, emb, dense, sparse, labels,
+                                        leading=1)
+    losses, d_all, scaled = [], [], []
+    accs = None if opt_state is None else opt_state["dense"]
+    for k in range(dense.shape[0]):
+        loss, flat, d_pooled = _sharded_grads(
+            params, dense[k], sparse[k], labels[k], config=config,
+            mesh=mesh, placement=placement, axis=axis,
+            grad_clip_norm=grad_clip_norm)
+        _dense_apply(params, flat, optimizer, accs, lrs[k])
+        losses.append(loss)
+        d_all.append(d_pooled)
+        if scheduled:
+            scaled.append(d_pooled * lrs[k])
+    if optimizer == "sgd":
+        d_stack, lr, twin = torch.stack(scaled if scheduled else d_all), \
+            (1.0 if scheduled else lrs[0]), None
+    else:
+        d_stack, lr = torch.stack(d_all), lrs[0]
+        twin = torch.stack(scaled) if scheduled else None
+    _sharded_sparse_apply(params, opt_state, sparse, d_stack, lr,
+                          config=config, optimizer=optimizer, mesh=mesh,
+                          placement=placement, axis=axis, block_leading=True,
+                          d_pooled_scaled=twin)
+    return torch.stack(losses)
+
+
+def sharded_train_block(params: dict, dense, sparse, labels, *,
+                        config: DLRMConfig, lr, mesh, placement,
+                        axis: str = "d", grad_clip_norm=None
+                        ) -> torch.Tensor:
+    """K hybrid-parallel SGD micro-steps on this rank's parameters, in
+    place, with one coalesced sparse update at block end; returns the K
+    global losses.  ``dense`` (K, B, 13), ``sparse`` (K, B, T[, H]),
+    ``labels`` (K, B): global batches, as :func:`sharded_train_step` takes
+    them.  ``lr``: a float, or K per-micro-step values.
+
+    Every micro-step's lookup reads EVERY table as of block entry (the
+    single-device :func:`train_block` freezes only its big tables), the
+    dense parameters take a step every micro-step, and the K gradients of
+    the pooled rows are applied in one pass; K=1 is
+    :func:`sharded_train_step`.  ``grad_clip_norm`` clips each micro-step
+    as :func:`sharded_train_step_opt` does."""
+    scheduled = np.ndim(lr) != 0
+    lrs = ([_f32(x) for x in lr] if scheduled
+           else [_f32(lr)] * dense.shape[0])
+    return _sharded_block(params, None, dense, sparse, labels, config=config,
+                          optimizer="sgd", lrs=lrs, scheduled=scheduled,
+                          mesh=mesh, placement=placement, axis=axis,
+                          grad_clip_norm=grad_clip_norm)
+
+
+def make_sharded_train_block(config: DLRMConfig, lr, mesh, placement,
+                             axis: str = "d", grad_clip_norm=None
+                             ) -> Callable:
+    """``step(params, (K,B,13), (K,B,T[,H]), (K,B)) -> (K,) losses`` of
+    :func:`sharded_train_block`.  A schedule ``lr`` is read at ``step.step
+    + k`` for micro-step k, and ``step.step`` advances by K a call (set it
+    to resume)."""
+    if not callable(lr):
+        return functools.partial(sharded_train_block, config=config, lr=lr,
+                                 mesh=mesh, placement=placement, axis=axis,
+                                 grad_clip_norm=grad_clip_norm)
+
+    def run(p, d, s, l):
+        k = d.shape[0]
+        lrs = [lr(run.step + i) for i in range(k)]
+        run.step += k
+        return sharded_train_block(p, d, s, l, config=config, lr=lrs,
+                                   mesh=mesh, placement=placement, axis=axis,
+                                   grad_clip_norm=grad_clip_norm)
+
+    run.step = 0
+    return run
+
+
+def sharded_train_block_opt(params: dict, opt_state: dict, dense, sparse,
+                            labels, *, config: DLRMConfig, lr, mesh,
+                            placement, axis: str = "d", unroll: bool = True,
+                            optimizer: str = "adagrad", grad_clip_norm=None
+                            ) -> torch.Tensor:
+    """K hybrid-parallel micro-steps with Adagrad or row-wise Adagrad on
+    this rank's parameters and optimizer state, in place (see
+    :func:`sharded_train_block`; SGD blocks go there); returns the K
+    losses.  The dense parameters take a true Adagrad step every
+    micro-step; the tables one dedup-then-apply update at block end, in
+    which a key's gradients from every micro-step and every rank are
+    summed before the accumulator's update.
+
+    ``lr``: a float, or a schedule read at ``opt_state['count'] + k`` (the
+    update then carries the twin payload ``(g, lr_k * g)``).  ``unroll``
+    is the JAX package's compile knob and selects nothing here."""
+    del unroll
+    if optimizer not in ("adagrad", "rowwise_adagrad"):
+        raise ValueError(f"sharded_train_block_opt runs adagrad or "
+                         f"rowwise_adagrad, got {optimizer!r}; SGD blocks "
+                         f"use sharded_train_block")
+    k = dense.shape[0]
+    count = opt_state["count"]
+    scheduled = callable(lr)
+    lrs = [_f32(lr(count + i) if scheduled else lr) for i in range(k)]
+    losses = _sharded_block(params, opt_state, dense, sparse, labels,
+                            config=config, optimizer=optimizer, lrs=lrs,
+                            scheduled=scheduled, mesh=mesh,
+                            placement=placement, axis=axis,
+                            grad_clip_norm=grad_clip_norm)
+    opt_state["count"] = count + k
+    return losses
+
+
+def make_sharded_train_block_opt(config: DLRMConfig, *, optimizer: str, lr,
+                                 mesh, placement, axis: str = "d",
+                                 unroll: bool = True, grad_clip_norm=None
+                                 ) -> Callable:
+    """``step(params, opt_state, (K,B,13), (K,B,T[,H]), (K,B)) -> (K,)
+    losses`` of :func:`sharded_train_block_opt`; the schedule's count
+    lives in ``opt_state``."""
+    return functools.partial(sharded_train_block_opt, config=config, lr=lr,
+                             mesh=mesh, placement=placement, axis=axis,
+                             unroll=unroll, optimizer=optimizer,
+                             grad_clip_norm=grad_clip_norm)
 
 
 def batch_to_device(batch: Dict[str, Any], device: torch.device

@@ -119,17 +119,25 @@ def test_world_size_one_is_the_single_device_lookup(solo, n_hot, xd, rng):
 
 
 def test_refusals(solo, rng):
-    """Host-resident tables and int8 scales are later slices; a plan for
-    another number of shards does not fit the group."""
+    """Int8 scales are a later slice; a plan for another number of shards
+    does not fit the group.  Host-resident tables, refused before they
+    were served, now serve and train: the lookup with the host stack is
+    the plain one, and the update moves the host rows."""
     config = tiny()
     emb = torch.zeros((config.total_rows, 8))
     ids = torch.from_numpy(ids_for(rng, config, 1))
     host = plan_placement(SIZES, 1, host_tables=(1,))
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        pemb.sharded_lookup(emb, ids, mesh=solo, placement=host)
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        pemb.sharded_update_sgd(emb, ids, torch.zeros(BATCH, 6, 8), 0.1,
-                                mesh=solo, placement=host)
+    full = torch.from_numpy(rng.normal(size=(config.total_rows, 8)).astype(
+        np.float32))
+    sh = pemb.shard_tables(full, host, config)[0]
+    emb_h = pemb.shard_host_tables(full, host, config, shard=0)
+    torch.testing.assert_close(
+        pemb.sharded_lookup(sh, ids, mesh=solo, placement=host, emb_h=emb_h),
+        temb.lookup(full, ids, config.table_offsets), atol=1e-6, rtol=0)
+    before = emb_h.clone()
+    pemb.sharded_update_sgd(sh, ids, torch.ones(BATCH, 6, 8), 0.1,
+                            mesh=solo, placement=host, emb_h=emb_h)
+    assert not torch.equal(emb_h, before) and not emb_h[-1].any()
     p = plan_placement(SIZES, 1)
     with pytest.raises(NotImplementedError, match="item 3d"):
         pemb.sharded_lookup(emb, ids, mesh=solo, placement=p,

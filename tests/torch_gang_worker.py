@@ -13,19 +13,36 @@ travel through stdout, where gloo's log lines interleave.
 The spec (JSON): ``config`` (DLRMConfig fields; ``exchange_dtype`` "bf16"
 or null), ``placement`` (``plan_placement`` keywords), ``mesh`` (null for
 1-D, ``[dcn, ici]`` for 2-D), ``arrays`` (an .npz with the JAX package's
-sharded parameters under ``emb``, ``emb_cs.<j>``, ``bottom.<i>.<w|b>``,
-``top.<i>.<w|b>``, and the task's inputs), ``task`` and its fields:
+sharded parameters under ``emb``, ``emb_cs.<j>``, ``emb_h`` (host tables),
+``bottom.<i>.<w|b>``, ``top.<i>.<w|b>``, its sharded optimizer state under
+``opt.*`` (:func:`jax_opt_arrays`), and the task's inputs), ``task`` and
+its fields:
 
 * ``lookup``: ``cases``, names of global id arrays; each rank writes its
   pooled rows under ``<case>`` (f32) and ``<case>.bf16`` (bf16 exchange).
 * ``train``: ``lr`` and ``steps``; global batches ``dense.<s>``,
   ``sparse.<s>``, ``labels.<s>``.  Ranks other than 0 first add 1 to their
   dense parameters, which ``broadcast_dense`` must undo; each rank writes
-  ``losses``, its ``emb``, ``emb_cs.<j>`` and dense leaves, and
+  ``losses``, its ``emb``, ``emb_cs.<j>``, ``emb_h`` and dense leaves, and
   ``refused`` if a global batch of ``world + 1`` rows was refused.
 * ``eval``: batches ``dense.<s>`` ... (``batches`` of them, the last may
   be ragged); each rank writes its metrics, and the sums of a few large
   counters over the gang (``big``).
+* ``train_opt``: ``optimizer``, ``lr`` (a number, or ``{"base",
+  "schedule"}`` for ``make_schedule``), ``clip`` (null or a norm) and
+  ``steps`` of ``make_sharded_train_step_opt`` from the optimizer state
+  of the arrays; each rank writes what ``train`` writes and its optimizer
+  state (``opt.*``).
+* ``block``: ``lr`` and ``blocks`` of ``make_sharded_train_block`` over
+  stacked global batches ``dense.<s>`` (K, B, 13) ...; ``losses`` (blocks
+  x K) and the parameters.
+* ``block_opt``: ``optimizer``, ``lr``, ``clip`` and ``blocks`` of
+  ``make_sharded_train_block_opt``; the parameters and optimizer state.
+* ``dcn_check`` (2-D mesh): ``train_opt`` first, then
+  ``make_dcn_replica_check`` on the trained parameters (``agree``), again
+  after the rank at ``(h, d) = (1, 0)`` flips the lowest bit of the first
+  element of its ``emb_h`` (``agree_flipped``), and after it flips it back
+  (``agree_restored``).
 """
 
 from __future__ import annotations
@@ -87,6 +104,8 @@ def jax_sharded_arrays(sh_params: dict) -> dict:
     """The JAX package's sharded parameters (numpy) as the arrays of a
     spec."""
     arrays = {"emb": np.asarray(sh_params["emb"])}
+    if sh_params.get("emb_h") is not None:
+        arrays["emb_h"] = np.asarray(sh_params["emb_h"])
     for j, a in enumerate(sh_params.get("emb_cs", ())):
         arrays[f"emb_cs.{j}"] = np.asarray(a)
     for part in ("bottom", "top"):
@@ -94,6 +113,49 @@ def jax_sharded_arrays(sh_params: dict) -> dict:
             for k in ("w", "b"):
                 arrays[f"{part}.{i}.{k}"] = np.asarray(layer[k])
     return arrays
+
+
+def jax_opt_arrays(np_opt: dict) -> dict:
+    """A sharded optimizer state as numpy (the layout
+    ``sharded_opt_state_from_numpy`` takes) as the arrays of a spec."""
+    arrays = {"opt.count": np.int64(np_opt["count"])}
+    if np_opt.get("dense") is not None:
+        for part in ("bottom", "top"):
+            for i, layer in enumerate(np_opt["dense"][part]):
+                for k in ("w", "b"):
+                    arrays[f"opt.dense.{part}.{i}.{k}"] = np.asarray(
+                        layer[k])
+    for key in ("emb_acc", "emb_acc_h"):
+        a = np_opt.get(key)
+        if a is not None and not isinstance(a, tuple):
+            arrays[f"opt.{key}"] = np.asarray(a)
+    for j, a in enumerate(np_opt.get("emb_acc_cs", ())):
+        arrays[f"opt.emb_acc_cs.{j}"] = np.asarray(a)
+    return arrays
+
+
+def opt_from_arrays(arrays) -> dict:
+    """Inverse of :func:`jax_opt_arrays` (a dict or an ``np.load``)."""
+    keys = list(arrays.keys())
+
+    def mlp(part):
+        n = sum(1 for k in keys if k.startswith(f"opt.dense.{part}.")
+                and k.endswith(".w"))
+        return [{k: arrays[f"opt.dense.{part}.{i}.{k}"] for k in ("w", "b")}
+                for i in range(n)]
+
+    dense = None
+    if any(k.startswith("opt.dense.") for k in keys):
+        dense = {"bottom": mlp("bottom"), "top": mlp("top")}
+    n_cs = sum(1 for k in keys if k.startswith("opt.emb_acc_cs."))
+    return {"dense": dense,
+            "count": int(arrays["opt.count"]) if "opt.count" in keys else 0,
+            "emb_acc": arrays["opt.emb_acc"] if "opt.emb_acc" in keys
+            else None,
+            "emb_acc_cs": tuple(arrays[f"opt.emb_acc_cs.{j}"]
+                                for j in range(n_cs)),
+            "emb_acc_h": arrays["opt.emb_acc_h"] if "opt.emb_acc_h" in keys
+            else None}
 
 
 # -- one rank ---------------------------------------------------------------------
@@ -120,8 +182,25 @@ def _params(arrays, placement, rank: int) -> dict:
     np_params = {"bottom": mlp("bottom"), "top": mlp("top"),
                  "emb": arrays["emb"],
                  "emb_cs": tuple(arrays[f"emb_cs.{j}"] for j in
-                                 range(len(placement.col_sharded)))}
+                                 range(len(placement.col_sharded))),
+                 "emb_h": arrays["emb_h"] if "emb_h" in arrays.files
+                 else None}
     return sharded_params_from_numpy(np_params, placement, rank)
+
+
+def _lr(spec_lr):
+    """A spec's ``lr``: a number, or a schedule."""
+    from dlrm_tpu_torch.train.optim import make_schedule
+
+    if isinstance(spec_lr, dict):
+        return make_schedule(spec_lr["base"], **spec_lr["schedule"])
+    return spec_lr
+
+
+def _opt_arrays(opt_state: dict) -> dict:
+    from dlrm_tpu_torch.io.convert import sharded_opt_state_to_numpy
+
+    return jax_opt_arrays(sharded_opt_state_to_numpy([opt_state]))
 
 
 def _batch(arrays, s: int):
@@ -142,7 +221,8 @@ def main(argv=None) -> int:
     import torch
     import torch.distributed as dist
     from dlrm_tpu_torch.parallel import mesh as pmesh
-    from dlrm_tpu_torch.parallel.embedding import sharded_lookup
+    from dlrm_tpu_torch.parallel.embedding import (make_dcn_replica_check,
+                                                   sharded_lookup)
     from dlrm_tpu_torch.parallel.placement import plan_placement
 
     torch.set_num_threads(2)
@@ -167,7 +247,8 @@ def main(argv=None) -> int:
             for suffix, xd in (("", None), (".bf16", torch.bfloat16)):
                 out[case + suffix] = sharded_lookup(
                     params["emb"], ids, mesh=mesh, placement=placement,
-                    cs=params["emb_cs"], exchange_dtype=xd).float().numpy()
+                    cs=params["emb_cs"], emb_h=params.get("emb_h"),
+                    exchange_dtype=xd).float().numpy()
     elif task == "train":
         from dlrm_tpu_torch.ops.embedding import tree_leaves
         from dlrm_tpu_torch.train.train import (broadcast_dense,
@@ -201,8 +282,46 @@ def main(argv=None) -> int:
         auc.pos[:] = 2.0 ** 40 + args.rank
         big = _reduce_counts(2 ** 60 + args.rank, 2 ** 61 + 1, auc, 0.1)
         out["big"] = np.asarray(big[:2] + (auc.pos[0],), np.int64)
-    if task == "train":
+    elif task in ("train_opt", "block", "block_opt", "dcn_check"):
+        from dlrm_tpu_torch.io.convert import sharded_opt_state_from_numpy
+        from dlrm_tpu_torch.train import train as T
+
+        optimizer = spec.get("optimizer", "sgd")
+        opt_state = sharded_opt_state_from_numpy(
+            opt_from_arrays(arrays), placement, optimizer, shard)
+        lr, clip = _lr(spec["lr"]), spec.get("clip")
+        if task == "block":
+            step = T.make_sharded_train_block(config, lr, mesh, placement,
+                                              grad_clip_norm=clip)
+            run = lambda b: step(params, *b)  # noqa: E731
+        elif task == "block_opt":
+            step = T.make_sharded_train_block_opt(
+                config, optimizer=optimizer, lr=lr, mesh=mesh,
+                placement=placement, grad_clip_norm=clip)
+            run = lambda b: step(params, opt_state, *b)  # noqa: E731
+        else:
+            step = T.make_sharded_train_step_opt(
+                config, optimizer=optimizer, lr=lr, mesh=mesh,
+                placement=placement, grad_clip_norm=clip)
+            run = lambda b: step(params, opt_state, *b)  # noqa: E731
+        n = spec.get("blocks", spec.get("steps"))
+        out["losses"] = np.asarray([
+            run(_batch(arrays, s)).detach().reshape(-1).numpy()
+            for s in range(n)], np.float32).reshape(-1)
+        out.update(_opt_arrays(opt_state))
+        if task == "dcn_check":
+            check = make_dcn_replica_check(mesh)
+            out["agree"] = np.int64(check(params))
+            me = (mesh.get_local_rank("h"), shard)
+            bits = params["emb_h"].view(torch.int32).view(-1)
+            for key in ("agree_flipped", "agree_restored"):
+                if me == (1, 0):
+                    bits[0] ^= 1
+                out[key] = np.int64(check(params))
+    if task in ("train", "train_opt", "block", "block_opt", "dcn_check"):
         out["emb"] = params["emb"].numpy()
+        if params.get("emb_h") is not None:
+            out["emb_h"] = params["emb_h"].numpy()
         for j, a in enumerate(params["emb_cs"]):
             out[f"emb_cs.{j}"] = a.numpy()
         for part in ("bottom", "top"):
