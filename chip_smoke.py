@@ -57,25 +57,38 @@ result):
      host row-sharded and column-sharded rows), times and peaks in turns, a
      profile (the host-tier kernels, NCCL, dedup, idle share), the replica
      check with the host stack passing through the card;
-  8. the optimizers at full width: 4 Adagrad and 4 row-wise Adagrad steps at
+  8. the sharded CLI at full width under NCCL at world size 1, through
+     `python -m dlrm_tpu_torch` subprocesses held against the same work in
+     this process: `train --sharded true` (row-wise Adagrad, tables 2, 11
+     and 20 row-sharded, 15 column-sharded) for 2 steps and a resume to 4
+     against 4 sharded steps from the same draw, the checkpoint's
+     placement; the checkpoint restored in process (GB/s); `eval
+     --ckpt-dir` on the mesh and unsharded against `sharded_evaluate`;
+     `predict --sharded true` in f32 and int8 against sharded serving on
+     the same codes, the int8 serving's device peak; `train --distributed
+     --mesh-shape 1x1 --paranoid 1 --host-tables 2,11,20 --exchange-dtype
+     bf16`: the replica check's lines and the host tier's exact size; each
+     process's wall time and peak resident set, the save and restore
+     rates;
+  9. the optimizers at full width: 4 Adagrad and 4 row-wise Adagrad steps at
      B=32768 with a step of each held against the plain formula on the rows
      it touched, row-wise fused against gram from a clone, a clipped SGD
      step, K=4 blocks of each optimizer against 4 sequential steps, then
      the step times of the three optimizers at K=1 and K=4 in turns, a
      `torch.profiler` breakdown of the Adagrad step and the time of an
      `evaluate` batch;
-  9. checkpoints at full width: row-wise Adagrad at B=32768, 2 steps, a
+ 10. checkpoints at full width: row-wise Adagrad at B=32768, 2 steps, a
      save through `CheckpointManager`, 2 more steps, a restore (the page
      cache dropped where the kernel shows it dropped) into the same tensors,
      which must give back the whole saved state, and the same 2 steps
      again, all under deterministic sums: the same loss bits and the same
      bits of every tensor; bytes, seconds, GB/s and the host's peak
      resident set of the save and of the restore;
- 10. telemetry at full width: the instrumented SGD step against
+ 11. telemetry at full width: the instrumented SGD step against
      `train_step` from the same state (1e-5), the ms of every phase beside
      the unprofiled step, and the CUDA time under each phase scope of a
      profiled step;
- 11. int8 serving at full width: the serving phase's tables (the same
+ 12. int8 serving at full width: the serving phase's tables (the same
      seed) quantized on the card, codes and scales held bit for bit to the
      host quantizer on the first and last 4096 rows of every table, the
      footprint read; 8 batches of 16384 through `score_batch` on the int8
@@ -83,7 +96,7 @@ result):
      within 5e-3; int8 against f32 serving times in turns, a
      `torch.profiler` breakdown of an int8 batch, and `predict
      --quantize-tables int8` in a subprocess against the port in process;
- 12. data: Criteo text written from a seed at the full Kaggle table sizes,
+ 13. data: Criteo text written from a seed at the full Kaggle table sizes,
      `python -m dlrm_tpu_torch preprocess` (the native engine) against the
      numpy path byte for byte, `train --data --validate-data --prefetch 2`
      at full width in a subprocess against the same steps in process with
@@ -92,7 +105,7 @@ result):
      the tables, then the SGD step fed from `DACLoader` through
      `device_prefetch` and through plain copies, in turns, and a profile of
      each (host-to-device copy time, its stream, idle share);
- 13. two-tier tables at full width (Kaggle fs=128 f32 under
+ 14. two-tier tables at full width (Kaggle fs=128 f32 under
      `--hbm-budget-gb 4`: tables 2, 11 and 20, 13.07 GB, in host memory
      registered with the card at its exact size, which is checked, the
      budget checked against MemAvailable): the host-tier
@@ -111,10 +124,10 @@ result):
      --hbm-budget-gb 4` (row-wise Adagrad, a resume), `eval --ckpt-dir` on
      its checkpoint and `train --hbm-budget-gb 4 --host-prefetch` in
      subprocesses against the same work in process, with peak VmRSS;
- 14. small inputs: the forward, and 3 training steps, on the card against
+ 15. small inputs: the forward, and 3 training steps, on the card against
      the same on the CPU for every interaction, f32, bf16 and multi-hot;
      3 steps and a K=3 block of every optimizer likewise;
- 15. the entry points: `python -m dlrm_tpu_torch predict`, `train` and
+ 16. the entry points: `python -m dlrm_tpu_torch predict`, `train` and
      `eval` in subprocesses on the card, held against the port in
      process; `train --ckpt-dir` and its resume, `eval --ckpt-dir`,
      `export --quantize int8` with `predict --ckpt-dir` on the artifact
@@ -122,7 +135,7 @@ result):
      width (Kaggle fs=128, row-wise Adagrad, B=32768), each full-width
      process's peak resident set read and bounded far below the tables'
      bytes; `instrument`, `train --profile-dir` and `bench` at full width;
- 16. a `{"kernels": [...]}` line (the two interaction kernels and the two
+ 17. a `{"kernels": [...]}` line (the two interaction kernels and the two
      host-tier kernels), then the result line.
 It needs a CUDA device and the repository around it; without either it
 fails.
@@ -3077,6 +3090,305 @@ def _tier_entry_points(config, plan, tmap) -> None:
               f"set {r.peak_rss}, more than {bound} B")
 
 
+# -- the sharded CLI -----------------------------------------------------------
+
+SHARD_CLI_TAIL = 107  # a ragged last batch for eval and predict
+
+
+def _shard_local(p, config, rows: torch.Tensor) -> tuple:
+    """Logical rows ``rows`` (on the card) of a one-shard placement ->
+    (their rows in the local stack, those rows, and per column-sharded
+    table the table's own row ids)."""
+    starts = torch.tensor(config.table_offsets, device=rows.device)
+    table = torch.searchsorted(starts, rows, right=True) - 1
+    first = torch.zeros(config.num_tables, dtype=torch.int64)
+    for t in p.slot_table_list:
+        first[t] = int(p.table_local_offsets[t])
+    for k, t in enumerate(p.row_sharded):
+        first[t] = p.rs_local_offsets[k]
+    cs = torch.isin(table, torch.tensor(p.col_sharded, device=rows.device))
+    local = (rows - starts[table] + first.to(rows.device)[table])[~cs]
+    per_cs = [(rows - starts[table])[table == t] for t in p.col_sharded]
+    return local, per_cs
+
+
+def _rate_lines(stderr: str) -> list:
+    """The CLI's save and restore status lines."""
+    return [line for line in stderr.splitlines()
+            if line.startswith(("saved step", "resumed from step"))]
+
+
+def phase_sharded_cli() -> None:
+    """The sharded CLI at full width (Kaggle fs=128, f32, fused) on the
+    card under NCCL at world size 1, through `python -m dlrm_tpu_torch`
+    subprocesses, each held against the same work in this process: `train
+    --sharded true` (tables 2, 11 and 20 row-sharded, 15 column-sharded,
+    row-wise Adagrad, B=32768) for 2 steps and a resume to 4 against 4
+    sharded steps in process from the same draw (loss 1e-5, accumulators
+    1e-6, touched and edge rows and dense parameters 1e-3: Adagrad from
+    zero, ROADMAP.md §3), the checkpoint's placement; the step-4 checkpoint
+    restored in process (GB/s); `eval --ckpt-dir` on the mesh and unsharded
+    in one process against `sharded_evaluate` (1e-6); `predict --sharded
+    true` in f32 and with `--quantize-tables int8` against sharded serving
+    in process on the same codes (1e-6), the int8 serving's device peak
+    below the codes' bytes plus 1 GiB; `train --distributed --mesh-shape
+    1x1 --paranoid 1 --host-tables 2,11,20 --exchange-dtype bf16` (SGD):
+    the replica check's status lines, the host tier's rows and the peak
+    resident set of its exact size.  Each process's wall time and peak
+    resident set, and the CLI's save and restore rates."""
+    import torch.distributed as dist
+    from dlrm_tpu_torch import kaggle_config
+    from dlrm_tpu_torch.data.criteo import DACLoader, load
+    from dlrm_tpu_torch.data.synthetic import batch_stream
+    from dlrm_tpu_torch.io import checkpoint as ck
+    from dlrm_tpu_torch.ops.quant import _quant_rows
+    from dlrm_tpu_torch.parallel import embedding as pemb
+    from dlrm_tpu_torch.parallel import mesh as pmesh
+    from dlrm_tpu_torch.parallel.placement import plan_placement
+    from dlrm_tpu_torch.train import train as T
+    from dlrm_tpu_torch.train.metrics import (make_sharded_eval_forward,
+                                              sharded_evaluate)
+
+    config = kaggle_config(feature_size=128, interaction_impl="fused")
+    record = {"table_sizes": list(config.table_sizes), "num_shards": 1,
+              "max_rows_per_shard": SHARD_MAX_ROWS,
+              "col_sharded_tables": list(SHARD_COLS), "host_tables": []}
+    p = plan_placement(**record)
+    check(p.row_sharded == (2, 11, 20) and p.col_sharded == SHARD_COLS,
+          f"placement {p}")
+    model = ["--config", "kaggle", "--feature-size", "128", "--interaction",
+             "fused", "--device", DEV.type]
+    shards = ["--sharded", "true", "--max-rows-per-shard",
+              str(SHARD_MAX_ROWS), "--col-sharded-tables",
+              ",".join(map(str, SHARD_COLS))]
+    bsz, n = str(TRAIN_BATCH), BATCH + SHARD_CLI_TAIL
+    table_bytes = config.total_rows * config.feature_size * 4
+    rss, rates = {}, []
+    dev = pmesh.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                                 device=DEV)
+    check(dist.get_backend() == ("nccl" if DEV.type == "cuda" else "gloo"),
+          f"process group {dist.get_backend()} on {dev}")
+    try:
+        mesh = pmesh.make_mesh()
+        with _scratch() as tmp:
+            d, data = str(tmp / "ck"), str(tmp / "data.bin")
+            need = 2 * table_bytes + 2 * GIB
+            free = shutil.disk_usage(tmp).free
+            check(free > need, f"sharded CLI: {free} B free under {tmp}, "
+                  f"the run needs {need} B")
+            _write_dac(data, n, np.random.default_rng(29), config.table_sizes)
+            train = ["train", *model, *shards, "--batch-size", bsz,
+                     "--optimizer", "rowwise_adagrad", "--lr", str(FULL_LR),
+                     "--ckpt-dir", d, "--save-interval", "2",
+                     "--max-to-keep", "1"]
+            lines = []
+            for steps in (2, 4):
+                res = _cli(train + ["--steps", str(steps)])
+                lines.append(_line(train, res))
+                rss[f"train --sharded true --steps {steps}"] = res
+                rates += _rate_lines(res.stderr)
+            check(lines[0]["steps"] == 2 and lines[1]["steps"] == 2
+                  and "resumed from step 2" in res.stderr
+                  and "row-sharded tables: [2, 11, 20]" in res.stderr
+                  and "column-sharded tables: [15]" in res.stderr
+                  and ck.all_steps(d) == [4]
+                  and ck.checkpoint_placement(d) == record,
+                  f"train --sharded true --ckpt-dir: {lines}, checkpoints "
+                  f"{ck.all_steps(d)}, {res.stderr[-800:]}")
+
+            params = pemb.draw_sharded_params(
+                torch.Generator(DEV).manual_seed(config.seed), p, config, 0,
+                DEV)
+            T.broadcast_dense(params)
+            opt = T.init_sharded_opt_state(params, config=config,
+                                           optimizer="rowwise_adagrad")
+            step = T.make_sharded_train_step_opt(
+                config, optimizer="rowwise_adagrad", lr=FULL_LR, mesh=mesh,
+                placement=p, local_batch=True)
+            stream = list(batch_stream(config, TRAIN_BATCH, 2, seed=0))
+            with counted("the CLI's 4 sharded steps in process", 4, 4):
+                for b in stream + stream:
+                    loss = float(step(params, opt, *_to_dev(b)))
+            tree, at = ck.open_checkpoint(d)
+            rows = torch.unique(torch.cat([_all_ids(stream, config),
+                                           _edge_rows(config).to(DEV)]))
+            local, per_cs = _shard_local(p, config, rows)
+            sp, so = tree["params"], tree["opt"]
+            order = local.cpu().numpy()
+            diffs = {
+                "loss": abs(loss - lines[1]["final_loss"]),
+                "tables": max([(torch.from_numpy(sp["emb"].array()[0, order])
+                                - params["emb"][local].cpu()).abs().max()
+                               .item()] + [
+                    (torch.from_numpy(leaf.array()[0, ids.cpu().numpy()])
+                     - cs[ids].cpu()).abs().max().item()
+                    for leaf, cs, ids in zip(sp["emb_cs"], params["emb_cs"],
+                                             per_cs)]),
+                "dense": _max_dense_diff(ck.read_tree(
+                    {"bottom": sp["bottom"], "top": sp["top"]}), params),
+                "accumulators": max(
+                    [(torch.from_numpy(so["emb_acc"].array()[0][:, 0])
+                      - opt["emb_acc"].cpu()).abs().max().item()] + [
+                        (torch.from_numpy(leaf.array()[:]) - a.cpu()).abs()
+                        .max().item()
+                        for leaf, a in zip(so["emb_acc_cs"],
+                                           opt["emb_acc_cs"])])}
+            check(at == 4 and so["count"] == 4 and diffs["loss"] <= 1e-5
+                  and diffs["accumulators"] <= 1e-6
+                  and max(diffs["tables"], diffs["dense"]) <= 1e-3,
+                  f"train --sharded true at full width vs in process: step "
+                  f"{at}, {diffs}")
+            print(f"train --sharded true --ckpt-dir at full width (row-wise "
+                  f"Adagrad, lr {FULL_LR}, NCCL world size 1), 2 steps then "
+                  f"a resume to 4, vs 4 sharded steps in process from the "
+                  f"same draw over {rows.numel()} touched and edge rows "
+                  f"|diff| " + ", ".join(f"{k} {v:.3g}"
+                                         for k, v in diffs.items()))
+
+            group = ck.ShardGroup(0, 1, True, True, record)
+            payload = ck.sharded_payload(params, opt)
+            with _PeakRss() as peak:
+                t0 = time.perf_counter()
+                ck.restore_sharded(d, group=group, out=payload)
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+            nbytes = ck.payload_bytes(payload)
+            got = torch.from_numpy(sp["emb"].array()[0, order])
+            check(torch.equal(got, params["emb"][local].cpu()),
+                  "the restored stack differs from the checkpoint's rows")
+            print(f"sharded restore in process (each slab straight into its "
+                  f"tensor): {nbytes} B in {restore_s:.2f} s = "
+                  f"{nbytes / restore_s / 1e9:.2f} GB/s; host resident set "
+                  f"peak {peak.peak / 1e9:.2f} GB")
+            del opt, payload
+            torch.cuda.empty_cache()
+
+            batches = -(-n // BATCH)
+            with counted("sharded_evaluate of the checkpoint", batches, 0):
+                want = sharded_evaluate(
+                    params, DACLoader(load(data), BATCH,
+                                      drop_remainder=False),
+                    config, mesh=mesh, placement=p)
+            ev = ["eval", *model, "--ckpt-dir", d, "--data", data,
+                  "--batch-size", str(BATCH)]
+            for what, extra in (("on the mesh", ["--sharded", "true"]),
+                                ("unsharded in one process", [])):
+                res = _cli(ev + extra)
+                line = _line(ev, res)
+                rss[f"eval --ckpt-dir {what}"] = res
+                ediff = max(abs(line[k] - want[k])
+                            for k in ("loss", "auc", "accuracy"))
+                check(line["examples"] == n and ediff <= 1e-6,
+                      f"eval --ckpt-dir {what}: {line} vs sharded_evaluate "
+                      f"{want}")
+                print(f"eval --ckpt-dir {what} vs sharded_evaluate in "
+                      f"process over {n} rows: |diff| {ediff:.3g}")
+
+            fwd = make_sharded_eval_forward(config, mesh, p)
+            dense = {"bottom": params["bottom"], "top": params["top"]}
+            loader = list(DACLoader(load(data), BATCH, drop_remainder=False))
+
+            def serve(emb, cs, scales=None, cs_scales=()):
+                with torch.no_grad():
+                    return np.concatenate([fwd(
+                        dense, emb, cs, *_to_dev(b)[:2], None, scales,
+                        cs_scales).float().cpu().numpy() for b in loader])
+
+            with counted("sharded serving (f32) in process", batches, 0):
+                want_f32 = serve(params["emb"], params["emb_cs"])
+            codes = torch.empty(params["emb"].shape, dtype=torch.int8,
+                                device=DEV)
+            scales = torch.empty(params["emb"].shape[0], device=DEV)
+            cs_codes, cs_scales = [], []
+            with torch.no_grad():
+                for c in range(0, codes.shape[0], 1 << 20):
+                    codes[c:c + (1 << 20)], scales[c:c + (1 << 20)] = \
+                        _quant_rows(params["emb"][c:c + (1 << 20)])
+                for q, s in map(_quant_rows, params["emb_cs"]):
+                    cs_codes.append(q)
+                    cs_scales.append(s)
+            # the f32 tables leave the card: only codes, scales and the
+            # dense towers serve (the collection drops what reference
+            # cycles, such as a restore's recursive reader, still hold)
+            del params["emb"], params["emb_cs"], q, s
+            gc.collect()
+            torch.cuda.empty_cache()
+            int8_bytes = sum(x.numel() * x.element_size() for x in
+                             [codes, scales, *cs_codes, *cs_scales])
+            torch.cuda.reset_peak_memory_stats(DEV)
+            with counted("sharded serving (int8) in process", batches, 0):
+                want_q = serve(codes, tuple(cs_codes), scales,
+                               tuple(cs_scales))
+            q_peak = torch.cuda.max_memory_allocated(DEV)
+            check(q_peak < int8_bytes + GIB, f"int8 sharded serving: device "
+                  f"peak {q_peak} B, codes and scales {int8_bytes} B")
+            pr = ["predict", *model, "--ckpt-dir", d, "--data", data,
+                  "--batch-size", str(BATCH), "--sharded", "true"]
+            for what, extra, want_s in (
+                    ("f32", [], want_f32),
+                    ("int8", ["--quantize-tables", "int8"], want_q)):
+                out = str(tmp / f"scores_{what}.npy")
+                res = _cli(pr + extra + ["--out", out])
+                line = _line(pr, res)
+                rss[f"predict --sharded true ({what})"] = res
+                sdiff = float(np.abs(np.load(out) - want_s).max())
+                check(line["examples"] == n and sdiff <= 1e-6,
+                      f"predict --sharded true ({what}): {line}, |diff| "
+                      f"{sdiff}")
+                print(f"predict --sharded true ({what}) vs sharded serving "
+                      f"in process on the same codes over {n} rows: |diff| "
+                      f"{sdiff:.3g}")
+            print(f"int8 sharded serving in process: device peak {q_peak} B "
+                  f"(codes and scales {int8_bytes} B); int8 vs f32 scores "
+                  f"|diff| {float(np.abs(want_q - want_f32).max()):.3g}")
+            del codes, scales, cs_codes, cs_scales, params, dense
+            torch.cuda.empty_cache()
+
+        host = plan_placement(config.table_sizes, 1,
+                              host_tables=(2, 11, 20))
+        host_bytes = host.host_local_rows * config.feature_size * 4
+        args = ["train", *model, "--distributed", "--coordinator",
+                f"127.0.0.1:{_free_port()}", "--num-processes", "1",
+                "--process-id", "0", "--sharded", "true", "--mesh-shape",
+                "1x1", "--paranoid", "1", "--host-tables", "2,11,20",
+                "--exchange-dtype", "bf16", "--steps", "2", "--batch-size",
+                bsz, "--log-every", "1"]
+        res = _cli(args)
+        line = _line(args, res)
+        rss["train --distributed --mesh-shape 1x1 --host-tables"] = res
+        vm = res.peak_rss.get("VmRSS", 0)
+        check(line["steps"] == 2 and np.isfinite(line["final_loss"])
+              and len(_loss_lines(res.stderr)) == 2
+              and "--paranoid: the DCN table replicas agree at step 1"
+              in res.stderr and "replicas agree at step 2" in res.stderr
+              and f"host-resident row-sharded tables: [2, 11, 20] "
+              f"({host.host_local_rows:,} rows a shard in host memory)"
+              in res.stderr and host_bytes <= vm <= host_bytes + 7 * GIB,
+              f"train --distributed --paranoid --host-tables: {line}, peak "
+              f"VmRSS {vm} B for a {host_bytes} B host tier, "
+              f"{res.stderr[-800:]}")
+        print(f"train --distributed --mesh-shape 1x1 --paranoid 1 "
+              f"--host-tables 2,11,20 --exchange-dtype bf16 (SGD, 2 steps): "
+              f"losses {_loss_lines(res.stderr)}, the replica check at each "
+              f"step, a {host_bytes} B host tier of "
+              f"{host.host_local_rows:,} rows, peak VmRSS {vm} B")
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    print("sharded CLI's save and restore (one process, all its state): "
+          + "; ".join(rates))
+    print("sharded CLI, each process's wall time and peak resident set (GB;"
+          " sampled every 2 ms): " + "; ".join(
+              f"{k} {r.seconds:.2f} s, " + ", ".join(
+                  f"{m} {v / 1e9:.3f}" for m, v in r.peak_rss.items())
+              for k, r in rss.items()))
+    for k, r in rss.items():
+        if "--host-tables" not in k:
+            check(0 < r.peak_rss.get("VmRSS", 0) < table_bytes / 2,
+                  f"{k}: peak resident set {r.peak_rss}, the tables are "
+                  f"{table_bytes} B")
+
+
 INT8_BYTES = 4_456_660_164    # Kaggle fs=128: 33,762,577 rows x (128 + 4) B
 INT8_BOUND = 5e-3             # the JAX package's bound (tests/test_quant.py)
 
@@ -3998,7 +4310,7 @@ def main() -> int:
     kern = {}
     for phase in (phase_card, phase_kernels, phase_serving, phase_training,
                   phase_evaluation, phase_sharded, phase_sharded_optim,
-                  phase_optimizers,
+                  phase_sharded_cli, phase_optimizers,
                   phase_checkpoint,
                   phase_telemetry, phase_int8_serving, phase_data,
                   phase_two_tier, phase_small_inputs, phase_small_optimizers,

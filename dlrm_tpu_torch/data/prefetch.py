@@ -1,6 +1,13 @@
 """Batches copied to the device ahead of the step that takes them: the
-counterpart of ``dlrm_tpu/data/prefetch.py`` (one process; the
-multi-process arm comes with the multi-GPU port).
+counterpart of ``dlrm_tpu/data/prefetch.py``.
+
+In a gang of processes (the sharded path) each process is fed only its own
+rows of every global batch (``run._batch_iter(rows=)``, from
+``parallel.mesh.local_batch_rows``), and the sharded steps take those rows
+as they come (``local_batch``); so this moves only the rank's rows to its
+device, and nothing is assembled: the JAX package's
+``_put_process_local``, which builds a global array from each process's
+rows, has no counterpart here.
 
 A background thread pulls batches (dicts of numpy arrays or CPU tensors)
 from the source and, on a CUDA device, issues their host-to-device copies

@@ -391,6 +391,36 @@ def sharded_opt_state_to_numpy(rank_states: Sequence[dict]) -> dict:
     return out
 
 
+def sharded_quant_from_numpy(codes, scales, cs_codes=(), cs_scales=(), *,
+                             placement, rank: int, device="cpu") -> dict:
+    """The JAX package's int8 shard stacks (numpy, ``pack=1``) -> rank
+    ``rank``'s, as ``parallel.embedding.sharded_lookup`` serves them.
+
+    ``codes`` ``(N, local_rows, D)`` int8 and ``scales`` ``(N,
+    local_rows, 1)`` (its ``quantize_sharded_stack``), ``cs_codes`` one
+    ``(N, R_t, D/N)`` per column-sharded table and ``cs_scales`` their
+    ``(N, R_t)`` (its ``quantize_col_shards``).  Returns ``{"emb":
+    (local_rows, D) int8, "emb_scales": (local_rows,), "emb_cs": ((R_t,
+    D/N) int8, ...), "emb_cs_scales": ((R_t,), ...)}`` on ``device``."""
+    n, rows = placement.num_shards, placement.local_rows
+    codes = _check_stacked(codes, n, (rows,), "codes")
+    scales = _check_stacked(scales, n, (rows, 1), "scales")
+    if len(cs_codes) != len(placement.col_sharded) or \
+            len(cs_scales) != len(cs_codes):
+        raise ValueError(f"{len(cs_codes)} column-shard codes and "
+                         f"{len(cs_scales)} scales, the placement has "
+                         f"{len(placement.col_sharded)} column-sharded "
+                         f"tables")
+    return {"emb": _to_torch(codes[rank], torch.int8, device),
+            "emb_scales": _to_torch(scales[rank, :, 0], torch.float32,
+                                    device),
+            "emb_cs": tuple(_to_torch(np.asarray(c)[rank], torch.int8, device)
+                            for c in cs_codes),
+            "emb_cs_scales": tuple(_to_torch(np.asarray(c)[rank],
+                                             torch.float32, device)
+                                   for c in cs_scales)}
+
+
 def save_npz(path: str, np_params: dict) -> None:
     """Write a numpy pytree as one .npz (keys ``bottom.{i}.w``, ``emb``,
     ...); bf16 arrays are widened to f32."""

@@ -9,7 +9,11 @@ all-zero row gets scale 1.  Codes and scales equal the JAX package's bit
 for bit; the worst elementwise error is ``max|row| / 254``.
 
 ``QuantEmb`` holds one ``(total_rows, D)`` int8 tensor and one
-``(total_rows,)`` f32 scale tensor.  ``ops.embedding.mixed_lookup`` and
+``(total_rows,)`` f32 scale tensor.  The sharded tables quantize on the
+host too (:func:`quantize_sharded_stack`, :func:`quantize_col_shards`), a
+row at a time, so a logical row gets the same codes and scale wherever its
+shard keeps it; ``parallel.embedding.sharded_lookup(scales=, cs_scales=)``
+serves them.  ``ops.embedding.mixed_lookup`` and
 ``models.dlrm.forward`` dispatch on it, so ``evaluate`` and
 ``run.score_batch`` serve a quantized model with no other change.  Training
 refuses it.
@@ -72,6 +76,47 @@ def _quant_rows_np(x: np.ndarray):
                      np.float32(1.0)).astype(np.float32)
     q = np.clip(np.round(x / scale[..., None]), -127, 127)
     return q.astype(np.int8), scale
+
+
+def quantize_rows_host(x):
+    """Quantize every row (the last axis) of a host array: ``x`` numpy, or
+    a CPU tensor, which gives tensors back -> (int8 codes of ``x``'s
+    shape, f32 scales of ``x.shape[:-1]``), ``CHUNK_ROWS`` rows at a time.
+    The arithmetic of :func:`_quant_rows` on the host's cores (torch's CPU
+    kernels use every core; numpy one), the bits of
+    :func:`_quant_rows_np`."""
+    tensor = isinstance(x, torch.Tensor)
+    shape = tuple(x.shape)
+    flat = x.reshape(-1, shape[-1])
+    codes = torch.empty(flat.shape, dtype=torch.int8)
+    scales = torch.empty(flat.shape[0], dtype=torch.float32)
+    for s in range(0, flat.shape[0], CHUNK_ROWS):
+        part = flat[s:s + CHUNK_ROWS]
+        part = part if tensor else torch.from_numpy(np.ascontiguousarray(
+            part, dtype=np.float32))
+        codes[s:s + CHUNK_ROWS], scales[s:s + CHUNK_ROWS] = _quant_rows(part)
+    codes, scales = codes.view(shape), scales.view(shape[:-1])
+    return (codes, scales) if tensor else (codes.numpy(), scales.numpy())
+
+
+def quantize_sharded_stack(sharded):
+    """Quantize per-shard table stacks on the host: ``(N, local_rows, D)``
+    (or one rank's ``(local_rows, D)``) -> (int8 codes of the same shape,
+    f32 scales ``(N, local_rows)``), one scale a logical row, so a row gets
+    the codes it gets unsharded; padding and trash rows are zero and get
+    scale 1.  The JAX package's function at ``pack=1`` without its scales'
+    last axis.  Numpy or CPU tensors, chunk by chunk: no f32 temporary of
+    the stack's size."""
+    return quantize_rows_host(sharded)
+
+
+def quantize_col_shards(cs_arrays) -> tuple:
+    """Quantize column shards on the host: one ``(N, R_t, D/N)`` array (or
+    one rank's ``(R_t, D/N)``) a table -> (the int8 codes, the ``(N,
+    R_t)`` scales), one pair a table.  A scale covers one shard's lanes of
+    a row, as in the JAX package: finer than the whole row's."""
+    pairs = [quantize_rows_host(a) for a in cs_arrays]
+    return tuple(q for q, _ in pairs), tuple(s for _, s in pairs)
 
 
 def _check_stack(emb, config) -> None:

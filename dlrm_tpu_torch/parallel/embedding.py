@@ -49,8 +49,21 @@ over every rank's batch rows, every micro-step of a block and every DCN
 replica -- before ``acc += g^2``.  Padding slots and ids a rank does not
 own carry zero rows to the trash row of their stack, which stays 0.
 :func:`make_dcn_replica_check` checks that the DCN replicas of a 2-D mesh
-hold the same bits.  Int8 tables are not served here yet (``ROADMAP.md``
-queue 1, item 3d).
+hold the same bits.
+
+Int8 serving: ``sharded_lookup(scales=, cs_scales=)`` takes int8 stacks
+(``ops/quant.quantize_sharded_stack`` and ``quantize_col_shards``) and
+dequantizes every gathered row on its owning rank, before pooling, masking
+and the exchange, which then carries f32 (or ``exchange_dtype``); the host
+stack stays in full precision, as in the JAX package.
+
+The layout also crosses files a table at a time: :func:`table_rows` reads
+rows of one logical table out of the per-shard arrays of any placement
+(numpy, or a checkpoint's leaves read a slice at a time), and
+:func:`place_rows` writes them into one rank's tensors of another, so a
+rank never holds more than one table's rows on the host.
+:func:`draw_sharded_params` draws a rank's shard straight from the
+initialiser's stream, the bits ``shard_tables(init_params(...))`` gives.
 """
 
 from __future__ import annotations
@@ -76,9 +89,6 @@ _all_gather = getattr(dist, "all_gather_single",
                       dist.all_gather_into_tensor)
 _reduce_scatter = getattr(dist, "reduce_scatter_single",
                           dist.reduce_scatter_tensor)
-
-_INT8 = "int8 sharded serving needs ROADMAP.md queue 1, item 3d"
-
 
 # -- layout: the stack <-> per-shard stacks ------------------------------------
 
@@ -228,6 +238,137 @@ def placement_arrays(placement: TablePlacement, rank: int,
                             ("slot_offsets", placement.slot_local_offsets))}
 
 
+def _as_rows(t):
+    """A tensor of one value a row ``(rows,)`` as ``(rows, 1)``: a row-wise
+    accumulator placed like its table."""
+    return t.unsqueeze(-1) if t.dim() == 1 else t
+
+
+def table_rows(arrays: dict, placement: TablePlacement, t: int, a: int,
+               b: int) -> np.ndarray:
+    """Rows ``[a, b)`` of logical table ``t`` as a numpy ``(b - a, W)``
+    array, read out of the per-shard arrays of ``placement``: ``arrays``
+    holds ``emb`` ``(N, local_rows, W)``, ``emb_h`` ``(N, host_local_rows,
+    W)`` (host-resident tables; None without) and ``emb_cs`` one ``(N,
+    R_t, W/N)`` array per column-sharded table, or ``(R_t,)`` (a row-wise
+    accumulator, the same on every rank).  Any array that takes
+    ``[shard, rows]`` indices serves: numpy, or ``io.checkpoint.Leaf
+    .array()``, which reads only the rows asked for."""
+    ks = placement.row_sharded
+    if t in placement.col_sharded:
+        arr = arrays["emb_cs"][placement.col_sharded.index(t)]
+        if len(arr.shape) == 1:
+            return np.asarray(arr[a:b])[:, None]
+        x = np.asarray(arr[:, a:b])                # (N, b - a, W/N)
+        return x.transpose(1, 0, 2).reshape(b - a, -1)
+    if t not in ks:
+        lo = int(placement.table_local_offsets[t])
+        return np.asarray(arrays["emb"][int(placement.table_shard[t]),
+                                        lo + a:lo + b])
+    k = ks.index(t)
+    src = arrays["emb_h"] if placement.rs_host[k] else arrays["emb"]
+    lo, parts = placement.rs_local_offsets[k], []
+    for shard, ba, bb in _blocks(placement, k):
+        i0, i1 = max(a, ba), min(b, bb)
+        if i1 > i0:
+            parts.append(np.asarray(src[shard, lo + i0 - ba:lo + i1 - ba]))
+    return np.concatenate(parts)
+
+
+def place_rows(rows, t: int, a: int, placement: TablePlacement, index: int,
+               out: dict) -> None:
+    """Write rows ``[a, a + n)`` of logical table ``t`` (``rows`` ``(n,
+    W)``, numpy or a tensor) into shard ``index``'s tensors of
+    ``placement``, those of its rows that shard holds: ``out`` has ``emb``
+    ``(local_rows, W)``, ``emb_h`` ``(host_local_rows, W)`` or None, and
+    ``emb_cs``, per column-sharded table ``(R_t, W/N)`` (its lanes) or
+    ``(R_t,)`` (every rank's copy).  A tensor ``(rows,)`` takes ``W =
+    1``."""
+    n = rows.shape[0]
+
+    def put(dst, lo, part):  # one copy, across devices and dtypes
+        part = torch.as_tensor(part)
+        _as_rows(dst)[lo:lo + part.shape[0]].copy_(part)
+
+    if t in placement.col_sharded:
+        dst = out["emb_cs"][placement.col_sharded.index(t)]
+        wc = _as_rows(dst).shape[1]
+        lanes = slice(None) if rows.shape[1] == wc \
+            else slice(index * wc, (index + 1) * wc)
+        put(dst, a, rows[:, lanes])
+        return
+    if t not in placement.row_sharded:
+        if int(placement.table_shard[t]) == index:
+            put(out["emb"], int(placement.table_local_offsets[t]) + a, rows)
+        return
+    k = placement.row_sharded.index(t)
+    chunk = placement.rs_rows_per_shard[k]
+    ba, bb = index * chunk, min((index + 1) * chunk, placement.table_sizes[t])
+    i0, i1 = max(a, ba), min(a + n, bb)
+    if i1 > i0:
+        dst = out["emb_h"] if placement.rs_host[k] else out["emb"]
+        put(dst, placement.rs_local_offsets[k] + i0 - ba, rows[i0 - a:i1 - a])
+
+
+def empty_shard(placement: TablePlacement, index: int, width: int, dtype,
+                device, cs_width=None, host: bool = True) -> dict:
+    """Zero tensors of shard ``index`` of ``placement``: ``emb``
+    ``(local_rows, width)`` on ``device``, ``emb_h`` ``(host_local_rows,
+    width)`` in host memory (registered with the card for a CUDA
+    ``device``; None without host tables, or ``host`` false) and
+    ``emb_cs``, one ``(R_t, cs_width)`` per column-sharded table (default
+    ``width / N``)."""
+    device = torch.device(device)
+    cs_width = width // placement.num_shards if cs_width is None \
+        else cs_width
+    out = {"emb": torch.zeros((placement.local_rows, width), dtype=dtype,
+                              device=device),
+           "emb_h": None,
+           "emb_cs": tuple(torch.zeros((placement.table_sizes[t], cs_width),
+                                       dtype=dtype, device=device)
+                           for t in placement.col_sharded)}
+    if placement.host_row_sharded and host:
+        out["emb_h"] = host_tier._host_empty(
+            (placement.host_local_rows, width), dtype, device).zero_()
+    return out
+
+
+def draw_sharded_params(generator: torch.Generator,
+                        placement: TablePlacement, config: DLRMConfig,
+                        index: int, device=None) -> dict:
+    """Shard ``index``'s parameters drawn straight from the initialiser:
+    the dense towers (``models.dlrm.init_dense``), then every table's
+    draws, table by table in chunks of ``models.dlrm.INIT_CHUNK_ROWS``
+    rows, as ``models.dlrm.init_tables`` draws them (so the bits equal
+    ``shard_tables(init_params(...))``'s), each chunk drawn into one
+    staging buffer on the generator's device and only the rows this shard
+    holds kept (host-resident ones in registered host memory).  No device
+    ever holds the whole stack.  Returns ``{"bottom", "top", "emb",
+    "emb_cs"}`` and ``"emb_h"`` with host tables, as
+    ``train.sharded_train_step`` takes them."""
+    from dlrm_tpu_torch.models.dlrm import INIT_CHUNK_ROWS, init_dense
+
+    device = generator.device if device is None else torch.device(device)
+    params = init_dense(generator, config, device)
+    out = empty_shard(placement, index, config.feature_size,
+                      config.embedding_dtype, device)
+    staging = torch.empty((INIT_CHUNK_ROWS, config.feature_size),
+                          dtype=config.embedding_dtype,
+                          device=generator.device)
+    for t, rows in enumerate(config.table_sizes):
+        scale = rows ** -0.5
+        for lo in range(0, rows, INIT_CHUNK_ROWS):
+            buf = staging[:min(INIT_CHUNK_ROWS, rows - lo)]
+            buf.uniform_(-1.0, 1.0, generator=generator).mul_(scale)
+            place_rows(buf, t, lo, placement, index, out)
+    if staging.is_cuda:
+        torch.cuda.synchronize(staging.device)
+    params.update(emb=out["emb"], emb_cs=out["emb_cs"])
+    if out["emb_h"] is not None:
+        params["emb_h"] = out["emb_h"]
+    return params
+
+
 # -- the exchange ---------------------------------------------------------------
 
 def _xc(x: torch.Tensor, exchange_dtype) -> torch.Tensor:
@@ -363,10 +504,26 @@ def _columns(x: torch.Tensor, ks: tuple) -> torch.Tensor:
     return x.index_select(1, _index_tensor(ks, x.device))
 
 
-def _check_served(placement: TablePlacement, emb, emb_h=None,
-                  scales=None) -> None:
-    if scales is not None:
-        raise NotImplementedError(_INT8)
+def _check_quant(placement: TablePlacement, emb, cs, scales,
+                 cs_scales) -> None:
+    """int8 stacks go with their scales, one f32 a logical row."""
+    if scales is None:
+        if emb.dtype == torch.int8:
+            raise ValueError("int8 table stack without scales: pass the "
+                             "scales of ops.quant.quantize_sharded_stack")
+        return
+    if emb.dtype != torch.int8 or any(c.dtype != torch.int8 for c in cs):
+        raise ValueError(f"scales go with int8 tables (ops.quant"
+                         f".quantize_sharded_stack), not {emb.dtype}")
+    want = [(placement.local_rows,)] + [(placement.table_sizes[t],)
+                                        for t in placement.col_sharded]
+    got = [tuple(scales.shape)] + [tuple(c.shape) for c in cs_scales]
+    if got != want or scales.dtype != torch.float32:
+        raise ValueError(f"scales {got} {scales.dtype}: the placement needs "
+                         f"{want} float32, one a logical row")
+
+
+def _check_served(placement: TablePlacement, emb, emb_h=None) -> None:
     if not placement.host_row_sharded:
         return
     if emb_h is None:
@@ -374,8 +531,9 @@ def _check_served(placement: TablePlacement, emb, emb_h=None,
             f"placement has host-resident tables "
             f"{list(placement.host_row_sharded)} but no emb_h stack was "
             f"passed: the parameters are missing the host tier")
+    float_emb = emb_h.dtype if emb.dtype == torch.int8 else emb.dtype
     if tuple(emb_h.shape) != (placement.host_local_rows, emb.shape[1]) \
-            or emb_h.dtype != emb.dtype or emb_h.device.type != "cpu":
+            or emb_h.dtype != float_emb or emb_h.device.type != "cpu":
         raise ValueError(f"emb_h {tuple(emb_h.shape)} {emb_h.dtype} on "
                          f"{emb_h.device}: the placement needs the host "
                          f"stack ({placement.host_local_rows}, "
@@ -391,22 +549,36 @@ def _table_group(mesh, axis: str, placement: TablePlacement):
     return group, mesh.get_local_rank(axis)
 
 
+def _deq(rows: torch.Tensor, scales, idx: torch.Tensor) -> torch.Tensor:
+    """Gathered rows ``(n, W)`` at local rows ``idx`` (n,), dequantized
+    with their scales when ``scales`` is given (int8 serving); else as
+    they are.  The int8 operand widens inside the multiply, exactly."""
+    if scales is None:
+        return rows
+    return rows * scales.index_select(0, idx)[:, None]
+
+
 def _lookup_body(emb, emb_h, cs, ids, meta, *, group, my_idx: int,
-                 placement: TablePlacement, exchange_dtype=None):
+                 placement: TablePlacement, exchange_dtype=None,
+                 scales=None, cs_scales=()):
     """This rank's local stack ``emb`` (local_rows, D), host stack
     ``emb_h`` (host_local_rows, D) or None, column shards ``cs`` (R_t,
-    D/N), ids (b, T[, H]) -> pooled (b, T, D) in global table order."""
+    D/N), ids (b, T[, H]) -> pooled (b, T, D) in global table order.
+    ``scales`` / ``cs_scales``: int8 ``emb`` and ``cs``, dequantized as
+    they are gathered; the pooled rows are then f32."""
     b, d = ids.shape[0], emb.shape[1]
     layout = _layout(placement)
     n = placement.num_shards
     slot_rows, rs_rows, cs_rows = _regions(layout, b)
-    wire = emb.dtype if exchange_dtype is None else exchange_dtype
+    val = torch.float32 if scales is not None else emb.dtype
+    wire = val if exchange_dtype is None else exchange_dtype
     buf = torch.empty((slot_rows + rs_rows + cs_rows, d), dtype=wire,
                       device=emb.device)
     ids_all = _gather_rows_of(ids, group).long()
     if slot_rows:
         phys = _local_rows_for_slots(ids_all, meta)
-        rows = emb.index_select(0, phys.reshape(-1))
+        flat = phys.reshape(-1)
+        rows = _deq(emb.index_select(0, flat), scales, flat)
         if phys.dim() == 3:  # pool the hot axis before the exchange
             rows = rows.view(*phys.shape, d).sum(dim=2)
         with phase_scope("a2a_fwd"):
@@ -423,15 +595,26 @@ def _lookup_body(emb, emb_h, cs, ids, meta, *, group, my_idx: int,
             # gather writes them
             on_dev = local.index_fill(1, _index_tensor(host_k, emb.device),
                                       0) if host_k else local
-            rows = emb.index_select(0, on_dev.reshape(-1)).view(
+            flat = on_dev.reshape(-1)
+            rows = _deq(emb.index_select(0, flat), scales, flat).view(
                 *local.shape, d)
         else:
-            rows = torch.empty((*local.shape, d), dtype=emb.dtype,
+            rows = torch.empty((*local.shape, d), dtype=val,
                                device=emb.device)
         if host_k:
             with phase_scope("host_rs_gather"):
+                # the host stack stays in full precision: under int8 its
+                # rows land in f32 columns, through a buffer of its dtype
+                # when that differs
+                into = rows if rows.dtype == emb_h.dtype else \
+                    torch.empty(rows.shape, dtype=emb_h.dtype,
+                                device=emb.device)
                 host_tier.host_gather(emb_h, _columns(local, host_k),
-                                      out=rows, cols=host_k)
+                                      out=into, cols=host_k)
+                if into is not rows:
+                    cols = _index_tensor(host_k, emb.device)
+                    rows.index_copy_(1, cols, into.index_select(
+                        1, cols).to(rows.dtype))
         rows = rows * owned[..., None].to(rows.dtype)
         if rows.dim() == 4:
             rows = rows.sum(dim=2)
@@ -443,7 +626,9 @@ def _lookup_body(emb, emb_h, cs, ids, meta, *, group, my_idx: int,
                             group=group)
     for j, t in enumerate(placement.col_sharded):
         ids_t = ids_all[:, t]
-        rows = cs[j].index_select(0, ids_t.reshape(-1))
+        flat = ids_t.reshape(-1)
+        rows = _deq(cs[j].index_select(0, flat),
+                    cs_scales[j] if scales is not None else None, flat)
         if ids_t.dim() == 2:
             rows = rows.view(*ids_t.shape, -1).sum(dim=1)
         start = slot_rows + rs_rows + j * b
@@ -456,13 +641,13 @@ def _lookup_body(emb, emb_h, cs, ids, meta, *, group, my_idx: int,
         pieces = buf.view(-1, d // n) if cs_rows else buf
         pooled = pieces.index_select(0, pooled_index).view(
             b, placement.num_tables, d)
-    return pooled.to(emb.dtype)
+    return pooled.to(val)
 
 
 def sharded_lookup(emb: torch.Tensor, ids: torch.Tensor, *, mesh,
                    placement: TablePlacement, axis: str = "d", cs=(),
                    emb_h=None, exchange_dtype=None,
-                   scales=None) -> torch.Tensor:
+                   scales=None, cs_scales=()) -> torch.Tensor:
     """Pooled lookup of this rank's ``b`` batch rows: ``emb`` its local
     stack ``(local_rows, D)``, ``cs`` its column shards ``(R_t, D/N)`` in
     ``placement.col_sharded`` order, ``emb_h`` its host stack
@@ -473,14 +658,25 @@ def sharded_lookup(emb: torch.Tensor, ids: torch.Tensor, *, mesh,
 
     ``exchange_dtype`` (e.g. ``torch.bfloat16``) carries the exchanges in
     that dtype: the result is the f32 lookup rounded once (one-hot).
-    ``scales`` (int8 tables) is refused."""
-    _check_served(placement, emb, emb_h, scales)
+
+    ``scales`` ``(local_rows,)`` and ``cs_scales`` (per column shard
+    ``(R_t,)``): int8 serving.  ``emb`` and ``cs`` hold int8 codes
+    (``ops.quant.quantize_sharded_stack``, ``quantize_col_shards``); each
+    gathered row is multiplied by its scale on this rank before pooling
+    and the exchange, and the result is f32.  ``emb_h`` stays in full
+    precision."""
+    if ids.dim() < 2 or ids.shape[1] != placement.num_tables:
+        raise ValueError(f"ids of shape {tuple(ids.shape)} do not match "
+                         f"{placement.num_tables} tables")
+    _check_quant(placement, emb, tuple(cs), scales, tuple(cs_scales))
+    _check_served(placement, emb, emb_h)
     group, my_idx = _table_group(mesh, axis, placement)
     meta = placement_arrays(placement, my_idx, emb.device)
     with torch.no_grad():
         return _lookup_body(emb, emb_h, cs, ids, meta, group=group,
                             my_idx=my_idx, placement=placement,
-                            exchange_dtype=exchange_dtype)
+                            exchange_dtype=exchange_dtype, scales=scales,
+                            cs_scales=tuple(cs_scales))
 
 
 def _dcn_fold(ids, d_pooled, group, exchange_dtype=None):
@@ -646,8 +842,8 @@ def sharded_update_sgd(emb: torch.Tensor, ids: torch.Tensor,
     with; padding slots and ids a rank does not own add zeros to the trash
     row of their stack.  Host rows sum their hits in f32 on the card and
     take one add each, where the JAX package adds every hit."""
-    _check_served(placement, emb, emb_h)
     _check_trainable(emb)
+    _check_served(placement, emb, emb_h)
     group, my_idx = _table_group(mesh, axis, placement)
     ids, d_pooled = _fold_batch(ids, d_pooled, block_leading, mesh, axis,
                                 exchange_dtype)
@@ -768,8 +964,8 @@ def sharded_update_adagrad(emb: torch.Tensor, acc: torch.Tensor,
     accumulator's update.  ``d_pooled_scaled``: each micro-step's gradient
     times its own lr (a scheduled block); it rides beside ``d_pooled`` as
     the twin payload, and the step applies it with lr 1."""
-    _check_served(placement, emb, emb_h)
     _check_trainable(emb)
+    _check_served(placement, emb, emb_h)
     group, my_idx = _table_group(mesh, axis, placement)
     twin = d_pooled_scaled is not None
     if twin:

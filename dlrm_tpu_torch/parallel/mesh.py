@@ -24,14 +24,17 @@ per-rank rules:
   placement along ``"d"``, its ``(local_rows, D)`` stack and its ``(R_t,
   D / N)`` column shards.
 
-The backend follows the device: NCCL for ``cuda``, gloo for the CPU.  A
-mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with the dim names
-``("d",)`` or ``("h", "d")``.
+The backend follows the device: NCCL for ``cuda``, gloo for the CPU, and
+neither stands in for the other.  A mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` with the dim names ``("d",)``
+or ``("h", "d")``.  :func:`make_hybrid_mesh` orders a 2-D mesh by host,
+the DCN granule where GPUs have no slice.
 """
 
 from __future__ import annotations
 
 import os
+import socket
 from typing import Optional, Tuple
 
 import torch
@@ -85,6 +88,25 @@ def init_distributed(coordinator_address: Optional[str] = None,
     return device
 
 
+def init_single_process(device="cuda") -> torch.device:
+    """A process group of this process alone (world size 1), with the
+    device's backend and an in-memory store (no address): what a sharded
+    run of one process joins.  Returns the device it drives; a group
+    already initialized is checked as :func:`init_distributed` does."""
+    device = torch.device(device)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if dist.is_initialized():
+        return init_distributed(device=device)
+    kw = {}
+    if device.type == "cuda":
+        device = _rank_device(device, 0)
+        torch.cuda.set_device(device)
+        kw["device_id"] = device
+    dist.init_process_group(backend, store=dist.HashStore(), world_size=1,
+                            rank=0, **kw)
+    return device
+
+
 def _rank_device(device: torch.device, rank: int) -> torch.device:
     if device.type != "cuda" or device.index is not None:
         return device
@@ -129,6 +151,33 @@ def make_mesh_2d(dcn: int, ici: int, dcn_axis: str = "h",
                          f"{dist.get_world_size()} process(es)")
     return init_device_mesh(device_type, (dcn, ici),
                             mesh_dim_names=(dcn_axis, ici_axis))
+
+
+def make_hybrid_mesh(ici_axis: str = "d", dcn_axis: str = "h",
+                     host: Optional[str] = None) -> DeviceMesh:
+    """2-D ``(hosts, ranks a host)`` mesh: the fast axis ``ici_axis``
+    inside a host, ``dcn_axis`` across hosts.  Every rank names its host
+    (``host``, default ``socket.gethostname()``); the names are gathered,
+    hosts take the order of their first rank, and each host's ranks stand
+    in rank order.  The tables shard over ``ici_axis`` only, so the
+    embedding exchange stays inside a host; only the compressed updates
+    of :func:`dcn_axis_of`'s axis cross hosts.  Every host must hold the
+    same number of ranks.  The counterpart of the JAX package's
+    ``make_hybrid_mesh``, whose granule is the TPU slice (or the process
+    where devices have no slice); GPUs have no slice, and one process
+    drives one card, so the granule is the host."""
+    device_type = _mesh_device_type()
+    names = [None] * dist.get_world_size()
+    dist.all_gather_object(names,
+                           socket.gethostname() if host is None else host)
+    hosts = list(dict.fromkeys(names))
+    groups = [[r for r, h in enumerate(names) if h == name]
+              for name in hosts]
+    if len({len(g) for g in groups}) != 1:
+        raise ValueError(f"hosts hold {[len(g) for g in groups]} ranks: a "
+                         f"hybrid mesh needs the same number on every host")
+    return DeviceMesh(device_type, torch.tensor(groups),
+                      mesh_dim_names=(dcn_axis, ici_axis))
 
 
 def dcn_axis_of(mesh: DeviceMesh, axis: str = "d") -> Optional[str]:

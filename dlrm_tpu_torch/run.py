@@ -1,14 +1,20 @@
-"""Command-line entry point: the single-device subset of ``dlrm_tpu/run.py``.
+"""Command-line entry point: the counterpart of ``dlrm_tpu/run.py``.
 
   preprocess  Criteo text (.txt or .gz) -> binary records + vocabulary
-  train       training on one device (synthetic or Criteo data): SGD,
-              Adagrad or row-wise Adagrad, gradient clipping, coalesced
-              K-step blocks, evaluation during and after, batches copied to
-              the device ahead of the step (``--prefetch``), checkpoints
-              and resume (``--ckpt-dir``), a profiler trace of three steps
+  train       training (synthetic or Criteo data): SGD, Adagrad or row-wise
+              Adagrad, gradient clipping, coalesced K-step blocks,
+              evaluation during and after, batches copied to the device
+              ahead of the step (``--prefetch``), checkpoints and resume
+              (``--ckpt-dir``), a profiler trace of three steps
               (``--profile-dir``), two-tier tables with the biggest in
-              pinned host memory (``--hbm-budget-gb``, ``--host-prefetch``)
-  eval        accuracy / AUC / loss of saved parameters
+              pinned host memory (``--hbm-budget-gb``, ``--host-prefetch``);
+              the tables sharded over a gang of processes, one a device
+              (``--sharded``, ``--distributed``, ``--mesh-shape``,
+              ``--max-rows-per-shard``, ``--col-sharded-tables``,
+              ``--host-tables``, ``--exchange-dtype``, ``--paranoid``)
+  eval        accuracy / AUC / loss of saved parameters (a sharded run's
+              on the gang's mesh with ``--sharded true`` or
+              ``--distributed``)
   predict     batch CTR scoring of a binarized dataset -> .npy
   export      saved parameters -> PyTorch-layout HDF5, or a ready-to-serve
               int8 checkpoint (``--quantize int8``)
@@ -22,8 +28,18 @@ Run as ``python -m dlrm_tpu_torch <subcommand> ...``.  ``eval``,
 written by ``dlrm_tpu_torch.io.convert.save_npz`` (``--params``) or a
 PyTorch-layout HDF5 model (``--hdf5``); ``eval`` and ``predict`` serve int8
 tables with ``--quantize-tables int8``.  Every flag of the JAX package's CLI
-is parsed; one this package does not serve yet exits non-zero, naming the
-ROADMAP.md item that brings it, unless it is left at its default.
+is parsed; the two that select TPU layout or a JAX backend exit non-zero
+unless left at their default.
+
+A sharded run is one process a device: ``--distributed`` joins a gang
+(``--coordinator host:port --num-processes N --process-id R``, or the
+``torchrun`` environment), and ``--sharded true`` alone makes a gang of
+this one process.  The backend follows ``--device``: NCCL on ``cuda``,
+gloo on ``cpu``; one never stands in for the other.  Only the lead process
+(rank 0) prints status lines and the result line.  A sharded run's
+checkpoint serves in one process, its tables unsharded onto the device a
+table at a time, or on a gang's mesh (``--sharded true`` / ``--distributed``
+of ``eval`` and ``predict``), restored onto that gang's number of ranks.
 """
 
 from __future__ import annotations
@@ -31,41 +47,21 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import sys
 import time
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from dlrm_tpu_torch.parallel.placement import _TPU_LAYOUT
 
-_Q = "ROADMAP.md queue 1, "
-_MULTI = _Q + "item 3, 'Multi-GPU'"
-
-# Flags of the JAX package's CLI that this package does not serve yet:
-# flag -> (default, why).  A flag at its default passes.
+# Flags of the JAX package's CLI that this package does not serve: flag ->
+# (default, why).  A flag at its default passes.
 _NOT_YET = {
-    "mesh_shape": (None, f"--mesh-shape needs the multi-GPU port ({_MULTI})"),
-    "paranoid": (None, f"--paranoid needs the multi-GPU port ({_MULTI})"),
-    "max_rows_per_shard": (None, f"--max-rows-per-shard needs the multi-GPU "
-                                 f"port ({_MULTI})"),
-    "col_sharded_tables": (None, f"--col-sharded-tables needs the multi-GPU "
-                                 f"port ({_MULTI})"),
-    "host_tables": (None, f"--host-tables needs the multi-GPU port "
-                          f"({_MULTI})"),
-    "exchange_dtype": (None, f"--exchange-dtype needs the multi-GPU port "
-                             f"({_MULTI})"),
-    "distributed": (False, f"--distributed needs the multi-GPU port "
-                           f"({_MULTI})"),
-    "coordinator": (None, f"--coordinator needs the multi-GPU port "
-                          f"({_MULTI})"),
-    "num_processes": (None, f"--num-processes needs the multi-GPU port "
-                            f"({_MULTI})"),
-    "process_id": (None, f"--process-id needs the multi-GPU port "
-                         f"({_MULTI})"),
     "chunk_budget_mb": (None, f"--chunk-budget-mb {_TPU_LAYOUT}"),
     "platform": (None, "--platform selects a JAX backend; pass --device"),
 }
@@ -75,17 +71,62 @@ def _refuse_unported(args) -> None:
     for flag, (default, why) in _NOT_YET.items():
         if getattr(args, flag, default) != default:
             raise SystemExit(why)
-    # --sharded auto or false passes: one device is what this package
-    # trains on
-    if getattr(args, "sharded", None):
-        if getattr(args, "hbm_budget_gb", None) is not None:
-            raise SystemExit(
-                "--hbm-budget-gb is the single-device two-tier layout and "
-                "does not compose with the sharded path; pass --sharded "
-                "false for two-tier on one device")
-        raise SystemExit(f"--sharded true needs the multi-GPU port "
-                         f"({_MULTI}); this package trains on one device "
-                         "(--sharded false)")
+
+
+# -- the gang ------------------------------------------------------------------
+
+class _Gang(NamedTuple):
+    """The process group a run joined: its size, this process's rank, and
+    the device this rank drives."""
+
+    world: int
+    rank: int
+    device: torch.device
+
+    @property
+    def lead(self) -> bool:
+        return self.rank == 0
+
+
+@contextlib.contextmanager
+def _process_group(args, device: torch.device, join: bool):
+    """The run's gang: ``--distributed`` joins one (``parallel.mesh
+    .init_distributed``, from ``--coordinator``, ``--num-processes`` and
+    ``--process-id``, or the ``torchrun`` environment), ``join`` alone
+    makes a gang of this process (``init_single_process``); NCCL on
+    ``cuda``, gloo on the CPU.  Yields a :class:`_Gang`, or None without
+    either; the group made here is destroyed on the way out."""
+    import torch.distributed as dist
+    from dlrm_tpu_torch.parallel import mesh as pmesh
+
+    if not (getattr(args, "distributed", False) or join):
+        yield None
+        return
+    made = not dist.is_initialized()
+    try:
+        if args.distributed:
+            dev = pmesh.init_distributed(args.coordinator, args.num_processes,
+                                         args.process_id, device=device)
+        else:
+            dev = pmesh.init_single_process(device)
+    except ValueError as e:  # flags that do not make a gang
+        raise SystemExit(f"--distributed: {e}") from None
+    try:
+        yield _Gang(dist.get_world_size(), dist.get_rank(), dev)
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _say_for(lead: bool):
+    """Status lines to stderr, from the lead process only."""
+    if lead:
+        return lambda *a: print(*a, file=sys.stderr)
+    return lambda *a: None
+
+
+def _tables(flag: Optional[str]) -> tuple:
+    return tuple(int(x) for x in flag.split(",")) if flag else ()
 
 
 # -- config plumbing -----------------------------------------------------------
@@ -134,6 +175,8 @@ def _build_config(args, device: torch.device):
     if args.table_sizes:
         over["table_sizes"] = tuple(
             int(s) for s in args.table_sizes.split(","))
+    if getattr(args, "exchange_dtype", None) == "bf16":
+        over["exchange_dtype"] = torch.bfloat16
     return _interaction(dataclasses.replace(c, **over) if over else c, args,
                         device)
 
@@ -170,17 +213,23 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
                    "its table's size before the run, and stop naming the "
                    "first record and column outside it")
     p.add_argument("--exchange-dtype", default=None, choices=["f32", "bf16"],
-                   help="not served yet (multi-GPU)")
+                   help="wire dtype of the sharded embedding exchanges: "
+                   "bf16 halves their bytes at one rounding an exchange")
     p.add_argument("--platform", default=None,
                    help="not served (a JAX backend); use --device")
 
 
 def _add_dist_flags(p: argparse.ArgumentParser) -> None:
-    for flag, kw in (("--distributed", {"action": "store_true"}),
-                     ("--coordinator", {}),
-                     ("--num-processes", {"type": int}),
-                     ("--process-id", {"type": int})):
-        p.add_argument(flag, help="not served yet (multi-GPU)", **kw)
+    for flag, kw, what in (
+            ("--distributed", {"action": "store_true"},
+             "join a gang of processes, one a device (NCCL on cuda, gloo "
+             "on the CPU); the run is sharded over it"),
+            ("--coordinator", {}, "host:port (or a tcp:// or file:// URL) "
+             "of rank 0's store; without it --distributed reads the "
+             "torchrun environment"),
+            ("--num-processes", {"type": int}, "the gang's size"),
+            ("--process-id", {"type": int}, "this process's rank")):
+        p.add_argument(flag, help=what, **kw)
 
 
 def _strict_bool(s: str) -> bool:
@@ -205,19 +254,22 @@ def _device(args) -> torch.device:
 def _batch_iter(config, *, data: Optional[str], batch_size: int,
                 steps: Optional[int], seed: int = 0,
                 synthetic: str = "uniform", keep_remainder: bool = False,
-                **shuffle):
+                rows=None, **shuffle):
     """The batch stream of a subcommand, the same batches as the JAX
     package's for the same flags: ``data`` (epoch after epoch with the
     loader's shuffles until ``steps``, one epoch without it; the ragged
     tail batch included with ``keep_remainder``), or the synthetic stream
-    ``synthetic`` from ``seed``."""
+    ``synthetic`` from ``seed``.  ``rows=(lo, hi)``: only this process's
+    rows of every batch (a gang's feeding, ``parallel.mesh
+    .local_batch_rows``), the batches' cadence and contents those of the
+    whole stream."""
     from dlrm_tpu_torch.data import synthetic as synth
     from dlrm_tpu_torch.data.criteo import DACLoader, load
 
     if data:
         loader = DACLoader(load(data), batch_size,
                            drop_remainder=not keep_remainder, seed=seed,
-                           **shuffle)
+                           local_rows=rows, **shuffle)
         if len(loader) == 0:
             raise SystemExit(
                 f"dataset {data} has fewer records than one batch "
@@ -237,8 +289,8 @@ def _batch_iter(config, *, data: Optional[str], batch_size: int,
         return gen()
     if synthetic == "skewed":
         truth = synth.ClickthroughModel(config, seed=12345)
-        return truth.stream(batch_size, steps, seed + 1)
-    return synth.batch_stream(config, batch_size, steps, seed)
+        return truth.stream(batch_size, steps, seed + 1, rows=rows)
+    return synth.batch_stream(config, batch_size, steps, seed, rows=rows)
 
 
 def _check_data(args, config) -> None:
@@ -333,14 +385,11 @@ def _open_ckpt(args, config):
     metadata) of the latest checkpoint of ``--ckpt-dir``: the run's
     ``bf16_tables`` applied, its ``table_sizes`` checked, an optimizer
     state's wrapping taken off.  A two-tier run's tree holds ``emb_dev``
-    and ``emb_host`` in place of ``emb``."""
+    and ``emb_host`` in place of ``emb``; a sharded run's its per-shard
+    stacks (``emb``, ``emb_cs``, ``emb_h``: :func:`_saved_placement`)."""
     from dlrm_tpu_torch.io.checkpoint import open_checkpoint
 
     meta = _read_run_meta(args.ckpt_dir)
-    if meta.get("sharded"):
-        raise SystemExit(f"{args.ckpt_dir} holds a sharded run's "
-                         f"checkpoint, which needs the multi-GPU port "
-                         f"({_MULTI})")
     if meta.get("bf16_tables"):
         config = dataclasses.replace(config, embedding_dtype=torch.bfloat16)
     _check_meta_sizes(meta, config)
@@ -350,12 +399,49 @@ def _open_ckpt(args, config):
     return tree, config, meta
 
 
+def _saved_placement(ckpt_dir):
+    """(placement record, ``TablePlacement``) of the latest checkpoint of
+    a sharded run."""
+    from dlrm_tpu_torch.io.checkpoint import checkpoint_placement
+    from dlrm_tpu_torch.parallel.placement import plan_placement
+
+    record = checkpoint_placement(ckpt_dir)
+    if record is None:
+        raise SystemExit(f"{ckpt_dir}: run_meta.json says sharded, but its "
+                         "checkpoint holds no placement")
+    return record, plan_placement(**record)
+
+
+def _saved_tables(tree) -> dict:
+    """A sharded checkpoint's table leaves as arrays read a slice at a
+    time (``parallel.embedding.table_rows`` takes them)."""
+    return {"emb": tree["emb"].array(),
+            "emb_h": tree["emb_h"].array() if "emb_h" in tree else None,
+            "emb_cs": [leaf.array() for leaf in tree.get("emb_cs", ())]}
+
+
+def _logical_chunks(tree, placement, config):
+    """(first row in the logical stack, rows ``(n, D)`` numpy) of a sharded
+    checkpoint's tables, table by table, ``models.dlrm.INIT_CHUNK_ROWS``
+    rows at a time: the unshard that never holds more than a chunk."""
+    from dlrm_tpu_torch.models.dlrm import INIT_CHUNK_ROWS
+    from dlrm_tpu_torch.parallel.embedding import table_rows
+
+    src = _saved_tables(tree)
+    for t, rows in enumerate(config.table_sizes):
+        off = config.table_offsets[t]
+        for a in range(0, rows, INIT_CHUNK_ROWS):
+            b = min(a + INIT_CHUNK_ROWS, rows)
+            yield off + a, table_rows(src, placement, t, a, b)
+
+
 def _file_params(args, device: torch.device):
     """(numpy parameter pytree, config) from ``--hdf5`` (the file's model;
     the flags choose only the interaction), ``--params`` (under the config
     of the flags) or ``--ckpt-dir`` (leaves read a slice of rows at a time, a
-    two-tier run's tiers merged on the host a table at a time; an int8
-    artifact is refused)."""
+    two-tier run's tiers merged on the host a table at a time, a sharded
+    run's tables unsharded a chunk at a time; an int8 artifact is
+    refused)."""
     from dlrm_tpu_torch.io.convert import load_npz
 
     if args.ckpt_dir:
@@ -368,6 +454,12 @@ def _file_params(args, device: torch.device):
             emb = merge_tiers(tree["emb_dev"].array(),
                               tree["emb_host"].array(),
                               _tier_plan(meta, config), config).numpy()
+        elif meta.get("sharded"):
+            emb = np.empty((config.total_rows, config.feature_size),
+                           np.float32)
+            for lo, rows in _logical_chunks(
+                    tree, _saved_placement(args.ckpt_dir)[1], config):
+                emb[lo:lo + rows.shape[0]] = rows
         else:
             emb = tree["emb"].array()
         return {"bottom": [{k: v.array() for k, v in l.items()}
@@ -404,6 +496,9 @@ def _serving_params(args, device: torch.device):
     quantize = args.quantize_tables == "int8"
     if args.ckpt_dir:
         tree, config, meta = _open_ckpt(args, _build_config(args, device))
+        if meta.get("sharded"):
+            return _unsharded_params(args, tree, config, device,
+                                     quantize), config
         if meta.get("quantized") or not quantize:
             _check_data(args, config)
             check_dense(tree, config)
@@ -432,6 +527,122 @@ def _serving_params(args, device: torch.device):
         return {**dense_from_numpy(np_params, config, device),
                 "emb": qemb.to(device)}, config
     return params_from_numpy(np_params, config, device), config
+
+
+def _unsharded_params(args, tree, config, device, quantize: bool) -> dict:
+    """A sharded run's checkpoint served by one process: the tables
+    unsharded straight into the one-device stack on ``device``, a chunk
+    at a time (with ``quantize``, each chunk quantized on the host: only
+    codes and scales reach the device)."""
+    from dlrm_tpu_torch.io.checkpoint import read_tree
+    from dlrm_tpu_torch.io.convert import check_dense
+    from dlrm_tpu_torch.ops.quant import (QuantEmb, check_quant_storage,
+                                          quantize_rows_host)
+
+    _check_data(args, config)
+    check_dense(tree, config)
+    dense = read_tree({"bottom": tree["bottom"], "top": tree["top"]},
+                      device)
+    shape = (config.total_rows, config.feature_size)
+    if quantize:
+        emb = QuantEmb(torch.empty(shape, dtype=torch.int8, device=device),
+                       torch.empty(shape[0], dtype=torch.float32,
+                                   device=device))
+    else:
+        emb = torch.empty(shape, dtype=config.embedding_dtype, device=device)
+    placement = _saved_placement(args.ckpt_dir)[1]
+    for lo, rows in _logical_chunks(tree, placement, config):
+        hi = lo + rows.shape[0]
+        if quantize:
+            codes, scales = quantize_rows_host(rows)
+            emb.codes[lo:hi] = torch.from_numpy(codes).to(device)
+            emb.scales[lo:hi] = torch.from_numpy(scales).to(device)
+        else:
+            emb[lo:hi] = torch.from_numpy(rows).to(device, emb.dtype)
+    if quantize:
+        check_quant_storage(emb, config)
+    return {**dense, "emb": emb}
+
+
+def _mesh_params(args, config, gang: _Gang, quantize: bool):
+    """A sharded run's checkpoint restored onto this gang (its world size
+    the number of table shards; the run's placement flags kept) for
+    serving on the mesh.  Returns (this rank's parameters, mesh,
+    placement, config).  f32: ``io.checkpoint.read_sharded``, a rank's
+    slabs straight into its tensors under the saved placement, table by
+    table under another.  ``quantize``: each rank reads its tables a chunk
+    at a time on the host and quantizes them there (a logical row's codes
+    and scale, a column shard's lanes their own), so only the int8 codes,
+    their scales and the dense towers reach the device; host-resident
+    tables stay in full precision, in host memory."""
+    from dlrm_tpu_torch.io.checkpoint import (Shard, ShardGroup, read_sharded,
+                                              read_tree)
+    from dlrm_tpu_torch.models.dlrm import INIT_CHUNK_ROWS
+    from dlrm_tpu_torch.ops.quant import quantize_rows_host
+    from dlrm_tpu_torch.parallel import embedding as pemb
+    from dlrm_tpu_torch.parallel.mesh import make_mesh
+    from dlrm_tpu_torch.parallel.placement import plan_placement
+
+    tree, config, meta = _open_ckpt(args, config)
+    if not meta.get("sharded"):
+        raise SystemExit(
+            f"{args.cmd} on a mesh (--sharded true / --distributed) serves "
+            "a SHARDED run's checkpoint (--ckpt-dir of train --sharded "
+            "true); serve this one in one process")
+    _check_data(args, config)
+    saved, old = _saved_placement(args.ckpt_dir)
+    record = {**saved, "num_shards": gang.world}
+    placement = plan_placement(**record)
+    mesh = make_mesh()
+    index, device = mesh.get_local_rank("d"), gang.device
+    d = config.feature_size
+    dense = read_tree({"bottom": tree["bottom"], "top": tree["top"]},
+                      device)
+    if not quantize:
+        out = pemb.empty_shard(placement, index, d, config.embedding_dtype,
+                               device)
+        state = {**dense, "emb": Shard(out["emb"]),
+                 "emb_cs": tuple(Shard(c) for c in out["emb_cs"])}
+        if out["emb_h"] is not None:
+            state["emb_h"] = Shard(out["emb_h"])
+        read_sharded(tree, saved, ShardGroup(index, gang.world, False,
+                                             gang.lead, record), state)
+        params = {**dense, "emb": out["emb"], "emb_cs": out["emb_cs"]}
+        if out["emb_h"] is not None:
+            params["emb_h"] = out["emb_h"]
+        return params, mesh, placement, config
+    codes = pemb.empty_shard(placement, index, d, torch.int8, device,
+                             host=False)
+    host = None
+    if placement.host_row_sharded:
+        host = pemb.empty_shard(placement, index, d, config.embedding_dtype,
+                                device)["emb_h"]
+    scales = {"emb": torch.ones((placement.local_rows, 1),
+                                dtype=torch.float32, device=device),
+              "emb_h": None,
+              "emb_cs": tuple(torch.ones(placement.table_sizes[t],
+                                         dtype=torch.float32, device=device)
+                              for t in placement.col_sharded)}
+    src, wc = _saved_tables(tree), d // placement.num_shards
+    for t, rows in enumerate(config.table_sizes):
+        on_host = t in placement.host_row_sharded
+        for a in range(0, rows, INIT_CHUNK_ROWS):
+            x = pemb.table_rows(src, old, t, a, min(a + INIT_CHUNK_ROWS, rows))
+            if on_host:  # full precision, in host memory
+                pemb.place_rows(x, t, a, placement, index,
+                                {"emb": None, "emb_h": host, "emb_cs": ()})
+                continue
+            if t in placement.col_sharded:  # a scale for this rank's lanes
+                x = x[:, index * wc:(index + 1) * wc]
+            q, sc = quantize_rows_host(x)
+            pemb.place_rows(q, t, a, placement, index, codes)
+            pemb.place_rows(sc[:, None], t, a, placement, index, scales)
+    params = {**dense, "emb": codes["emb"], "emb_cs": codes["emb_cs"],
+              "emb_scales": scales["emb"].view(-1),
+              "emb_cs_scales": scales["emb_cs"]}
+    if host is not None:
+        params["emb_h"] = host
+    return params, mesh, placement, config
 
 
 # -- subcommands ---------------------------------------------------------------
@@ -477,20 +688,69 @@ def cmd_validate(args) -> int:
     return 0 if ok else 1
 
 
+def _mesh_scorer(params: dict, mesh, placement, config, device):
+    """``score(batch) -> (B,) f32 numpy`` on a mesh of one rank: a ragged
+    batch padded to the mesh's ranks by repeating its last row, the
+    padded scores dropped."""
+    from dlrm_tpu_torch.train.metrics import make_sharded_eval_forward
+
+    fwd = make_sharded_eval_forward(config, mesh, placement)
+    dense_params = {"bottom": params["bottom"], "top": params["top"]}
+    ranks = mesh.mesh.numel()
+
+    def score(batch):
+        dense, sparse = (torch.as_tensor(batch[k]) for k in
+                         ("dense", "sparse"))
+        b = dense.shape[0]
+        pad = -b % ranks
+        if pad:
+            dense = torch.cat([dense, dense[-1:].expand(pad, -1)])
+            sparse = torch.cat([sparse, sparse[-1:].expand(
+                pad, *sparse.shape[1:])])
+        with torch.inference_mode():
+            preds = fwd(dense_params, params["emb"],
+                        tuple(params.get("emb_cs", ())), dense.to(device),
+                        sparse.to(device), params.get("emb_h"),
+                        params.get("emb_scales"),
+                        tuple(params.get("emb_cs_scales", ())))
+        return preds[:b].float().cpu().numpy()
+
+    return score
+
+
 def cmd_predict(args) -> int:
     """Batch serving: write CTR scores for every row of a dataset to a
-    .npy, in input order, and print one JSON line."""
+    .npy, in input order, and print one JSON line.  ``--sharded true``
+    (or ``--distributed`` of one process) serves a sharded run's
+    checkpoint on a mesh of this process; the scores go to one file, so a
+    gang of more processes is refused, as in the JAX package."""
     _refuse_unported(args)
     if args.data is None:
         raise SystemExit("predict needs --data")
     device = _device(args)
     t0 = time.time()
-    params, config = _serving_params(args, device)
-    # one epoch in file order, the ragged tail included: every row scored
-    scores = [score_batch(params, batch, config, device)
-              for batch in _batch_iter(config, data=args.data,
-                                       batch_size=args.batch_size,
-                                       steps=None, keep_remainder=True)]
+    with _process_group(args, device, join=bool(args.sharded)) as gang:
+        if gang is not None:
+            if gang.world > 1:
+                raise SystemExit(
+                    "predict is single-process (scores stream to one "
+                    ".npy); run it on one host — a sharded checkpoint "
+                    "still serves on-mesh there")
+            device = gang.device
+            params, mesh, placement, config = _mesh_params(
+                args, _build_config(args, device), gang,
+                args.quantize_tables == "int8")
+            score = _mesh_scorer(params, mesh, placement, config, device)
+        else:
+            params, config = _serving_params(args, device)
+            score = functools.partial(score_batch, params, config=config,
+                                      device=device)
+        # one epoch in file order, the ragged tail included: every row
+        # scored
+        scores = [score(batch)
+                  for batch in _batch_iter(config, data=args.data,
+                                           batch_size=args.batch_size,
+                                           steps=None, keep_remainder=True)]
     out = np.concatenate(scores) if scores else np.zeros((0,), np.float32)
     n = out.shape[0]
     np.save(args.out, out)
@@ -501,11 +761,14 @@ def cmd_predict(args) -> int:
     return 0
 
 
-def _train_plan(args) -> argparse.Namespace:
+def _train_plan(args, world: int = 1) -> argparse.Namespace:
     """Check the train flags against each other and derive the plan: the
     learning rate (``--lr``, or the schedule of ``--lr-schedule`` over it),
-    the block size and the clip; resolves ``--epochs`` into
-    ``args.steps``."""
+    the block size, the clip and the sharding (``sharded``; the 2-D mesh's
+    ``dcn_n`` x ``ici_n``, or None; ``n_shards``, the table group's size);
+    resolves ``--epochs`` into ``args.steps``.  ``world``: the gang's
+    size, which plays the JAX package's device count (one process drives
+    one device)."""
     from dlrm_tpu_torch.train import optim
 
     if args.data is None and args.steps is None:
@@ -540,6 +803,45 @@ def _train_plan(args) -> argparse.Namespace:
     if args.grad_clip_norm is not None and tiered:
         raise SystemExit("--grad-clip-norm supports the per-step and block "
                          "paths only; drop --hbm-budget-gb")
+    sharded = args.sharded if args.sharded is not None else world > 1
+    if tiered and sharded:
+        raise SystemExit(
+            "--hbm-budget-gb is the single-chip two-tier layout and does "
+            "not compose with the sharded path (auto-enabled here: "
+            f"{world} devices). Pass --sharded false for two-tier on one "
+            "device, or use --host-tables N,M for host-resident tables "
+            "under sharding")
+    if world > 1:
+        if not sharded:
+            raise SystemExit("--distributed (multi-process) requires the "
+                             "sharded path; drop --sharded=false")
+        if args.batch_size % world:
+            raise SystemExit(f"--batch-size {args.batch_size} must divide "
+                             f"evenly over the {world}-device global mesh")
+    dcn_n = ici_n = None
+    if args.mesh_shape:
+        if not sharded:
+            raise SystemExit("--mesh-shape requires the sharded path")
+        try:
+            dcn_n, ici_n = (int(x) for x in
+                            args.mesh_shape.lower().split("x"))
+        except ValueError:
+            raise SystemExit(f"--mesh-shape {args.mesh_shape!r}: want "
+                             "DCNxICI, e.g. 2x4") from None
+        if dcn_n < 1 or ici_n < 1:
+            raise SystemExit(f"--mesh-shape {args.mesh_shape}: both "
+                             "dimensions must be >= 1")
+        # one process a device: the mesh takes every rank of the gang
+        if dcn_n * ici_n != world:
+            raise SystemExit(f"--mesh-shape {args.mesh_shape} needs "
+                             f"{dcn_n * ici_n} devices, have {world}")
+        if args.batch_size % (dcn_n * ici_n):
+            raise SystemExit(
+                f"--batch-size {args.batch_size} must divide evenly over "
+                f"the {dcn_n * ici_n}-device hybrid mesh")
+    if args.paranoid and not (sharded and ici_n):
+        raise SystemExit("--paranoid guards the hybrid (DCNxICI) mesh; it "
+                         "needs --mesh-shape")
     if args.host_prefetch:
         if not tiered:
             raise SystemExit("--host-prefetch is a two-tier feature; it needs "
@@ -555,22 +857,33 @@ def _train_plan(args) -> argparse.Namespace:
             raise SystemExit("--host-prefetch does not compose with "
                              "--update-interval > 1 (the block is the "
                              "prefetch batching)")
-    return argparse.Namespace(lr=lr, block=block, clip=args.grad_clip_norm)
+    return argparse.Namespace(lr=lr, block=block, clip=args.grad_clip_norm,
+                              sharded=sharded, dcn_n=dcn_n, ici_n=ici_n,
+                              n_shards=ici_n if ici_n else world)
+
+
+def _rate(nbytes: int, seconds: float) -> str:
+    return (f"{nbytes / 1e9:.2f} GB in {seconds:.2f} s "
+            f"({nbytes / 1e9 / max(seconds, 1e-9):.2f} GB/s)")
 
 
 def _resume(mgr, say, state: dict):
     """The newest checkpoint of ``mgr`` read into the tensors of ``state``
     in place; returns (the restored payload, its step), or (None, 0)
-    without a checkpoint (or a manager)."""
+    without a checkpoint (or a manager).  Says how long it took."""
+    from dlrm_tpu_torch.io.checkpoint import payload_bytes
+
+    t0 = time.perf_counter()
     restored = mgr.restore_latest(out=state) if mgr is not None else None
     if restored is None:
         return None, 0
-    say(f"resumed from step {restored[1]}")
+    say(f"resumed from step {restored[1]}: this process's "
+        f"{_rate(payload_bytes(state), time.perf_counter() - t0)}")
     return restored
 
 
 def _build_step(args, config, plan, params: dict, mgr=None,
-                say=lambda *a: None) -> argparse.Namespace:
+                say=lambda *a: None, shard=None) -> argparse.Namespace:
     """The step of a training run, from the newest checkpoint of ``mgr``
     when there is one.  Returns a namespace: ``step(batch) -> (loss, steps
     advanced)`` on tensors of the parameters' device, ``align(step)`` (or
@@ -592,6 +905,9 @@ def _build_step(args, config, plan, params: dict, mgr=None,
 
     if isinstance(params["emb"], TieredEmb):
         return _build_tiered_step(args, config, plan, params, mgr, say)
+    if shard is not None:
+        return _build_sharded_step(args, config, plan, params, shard, mgr,
+                                   say)
     lr, block, clip = plan.lr, plan.block, plan.clip
     keys = ("dense", "sparse", "labels")
     v = argparse.Namespace(align=None, lookahead=False, uses_opt=(
@@ -689,6 +1005,117 @@ def _build_tiered_step(args, config, plan, params: dict, mgr=None,
     return v
 
 
+def _build_sharded_step(args, config, plan, params: dict, shard, mgr=None,
+                        say=lambda *a: None) -> argparse.Namespace:
+    """:func:`_build_step` for a rank's sharded parameters on the mesh of
+    ``shard`` (:func:`_shard_setup`), as the JAX package picks: SGD at a
+    constant lr takes the sharded step, or the sharded block (which
+    carries the clip and a schedule itself, aligned to the loop's step)
+    under ``--update-interval``; any other optimizer, or a clip or a
+    schedule at K=1, takes the optimizer-state step or block, whose
+    checkpoints hold ``{"params", "opt"}``.  Batches are this rank's rows
+    (``local_batch``).  Checkpoints are sharded
+    (``io.checkpoint.sharded_payload``): the resume reads each rank's
+    slabs into the live tensors, and the optimizer state's ``count``."""
+    from dlrm_tpu_torch.io.checkpoint import sharded_payload
+    from dlrm_tpu_torch.train import train as T
+
+    lr, block, clip = plan.lr, plan.block, plan.clip
+    keys = ("dense", "sparse", "labels")
+    kw = {"mesh": shard.mesh, "placement": shard.placement,
+          "local_batch": True}
+    v = argparse.Namespace(align=None, lookahead=False, uses_opt=(
+        args.optimizer != "sgd"
+        or (block == 1 and (callable(lr) or clip is not None))))
+    if not v.uses_opt:
+        v.payload = lambda: sharded_payload(params)
+        _, v.start_step = _resume(mgr, say, v.payload())
+        if block > 1:
+            fn = T.make_sharded_train_block(config, lr, grad_clip_norm=clip,
+                                            **kw)
+            if hasattr(fn, "step"):
+                v.align = lambda s: setattr(fn, "step", s)
+        else:
+            fn = T.make_sharded_train_step(config, lr, **kw)
+        call = lambda b: fn(params, *(b[k] for k in keys))
+    else:
+        opt = T.init_sharded_opt_state(params, config=config,
+                                       optimizer=args.optimizer)
+        v.payload = lambda: sharded_payload(params, opt)
+        restored, v.start_step = _resume(mgr, say, v.payload())
+        if restored is not None:
+            opt["count"] = restored["opt"]["count"]
+        if block > 1:
+            fn = T.make_sharded_train_block_opt(
+                config, optimizer=args.optimizer, lr=lr,
+                unroll=not args.block_scan, grad_clip_norm=clip, **kw)
+        else:
+            fn = T.make_sharded_train_step_opt(
+                config, optimizer=args.optimizer, lr=lr,
+                grad_clip_norm=clip, **kw)
+        call = lambda b: fn(params, opt, *(b[k] for k in keys))
+    if block > 1:
+        v.step = lambda b: (call(b)[-1], int(b["dense"].shape[0]))
+    else:
+        v.step = lambda b: (call(b), 1)
+    return v
+
+
+def _shard_setup(args, config, plan, gang: _Gang,
+                 say) -> argparse.Namespace:
+    """The sharded layout of a training run: the mesh (``--mesh-shape``'s
+    2-D DCN x ICI, else 1-D over the gang), the placement of
+    ``--max-rows-per-shard``, ``--col-sharded-tables`` and
+    ``--host-tables`` (lane packing is TPU layout: always 1), announced;
+    this rank's table shard, the rows of each global batch it is fed
+    (None for one process) and its part in sharded checkpoints."""
+    from dlrm_tpu_torch.io.checkpoint import ShardGroup
+    from dlrm_tpu_torch.parallel import mesh as pmesh
+    from dlrm_tpu_torch.parallel.placement import plan_placement
+
+    mesh = (pmesh.make_mesh_2d(plan.dcn_n, plan.ici_n) if plan.ici_n
+            else pmesh.make_mesh())
+    record = {"table_sizes": list(config.table_sizes),
+              "num_shards": plan.n_shards,
+              "max_rows_per_shard": args.max_rows_per_shard,
+              "col_sharded_tables": list(_tables(args.col_sharded_tables)),
+              "host_tables": list(_tables(args.host_tables))}
+    try:
+        placement = plan_placement(**record)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if placement.row_sharded:
+        say(f"row-sharded tables: {list(placement.row_sharded)}")
+    if placement.host_row_sharded:
+        say("host-resident row-sharded tables: "
+            f"{list(placement.host_row_sharded)} "
+            f"({placement.host_local_rows:,} rows a shard in host memory)")
+    if placement.col_sharded:
+        say(f"column-sharded tables: {list(placement.col_sharded)}")
+    index = mesh.get_local_rank("d")
+    dcn = pmesh.dcn_axis_of(mesh)
+    writes = dcn is None or mesh.get_local_rank(dcn) == 0
+    rows = (pmesh.local_batch_rows(mesh, args.batch_size)
+            if gang.world > 1 else None)
+    return argparse.Namespace(
+        mesh=mesh, placement=placement, index=index, rows=rows,
+        group=ShardGroup(index, plan.n_shards, writes, gang.lead, record))
+
+
+def _shard_params(config, shard, generator, device) -> dict:
+    """This rank's sharded parameters drawn straight into their places
+    (``parallel.embedding.draw_sharded_params``: the bits of
+    ``init_params``, no card holding the whole stack), the dense towers
+    then broadcast from rank 0."""
+    from dlrm_tpu_torch.parallel.embedding import draw_sharded_params
+    from dlrm_tpu_torch.train.train import broadcast_dense
+
+    params = draw_sharded_params(generator, shard.placement, config,
+                                 shard.index, device)
+    broadcast_dense(params)
+    return params
+
+
 def _tier_params(args, config, generator, device, say) -> dict:
     """``--hbm-budget-gb``: the run's tier plan, announced; the parameters
     drawn straight into their tiers (the host tier into pinned host
@@ -709,24 +1136,35 @@ def _tier_params(args, config, generator, device, say) -> dict:
     return ht.draw_tiered_params(generator, tiers, config, device)
 
 
-def _write_run_meta(args, config, v) -> None:
+def _write_run_meta(args, config, v, plan=None) -> None:
     """``run_meta.json`` beside the checkpoints: the JAX package's keys
-    that mean something on one device, so that ``eval``, ``predict`` and
+    that mean something in this package, so that ``eval``, ``predict`` and
     ``export --ckpt-dir`` rebuild the run's model (a two-tier run's tier
-    plan from its ``hbm_budget_gb``)."""
+    plan from its ``hbm_budget_gb``; a sharded run's placement, ``pack``
+    always 1).  The lead process writes it."""
     meta = {"sharded": False, "optimizer": args.optimizer,
             "two_tier": args.hbm_budget_gb is not None,
             "hbm_budget_gb": args.hbm_budget_gb,
             "wrapped_opt": bool(v.uses_opt),
             "table_sizes": list(config.table_sizes),
             "bf16_tables": config.embedding_dtype == torch.bfloat16}
+    if plan is not None and plan.sharded:
+        meta.update(
+            sharded=True, num_shards=plan.n_shards,
+            mesh_shape=[plan.dcn_n, plan.ici_n] if plan.ici_n else None,
+            pack=1, max_rows_per_shard=args.max_rows_per_shard,
+            col_sharded_tables=list(_tables(args.col_sharded_tables)),
+            host_tables=list(_tables(args.host_tables)),
+            exchange_dtype=None if config.exchange_dtype is None
+            else str(config.exchange_dtype).removeprefix("torch."))
     path = os.path.join(os.path.abspath(args.ckpt_dir), "run_meta.json")
     with open(path, "w") as f:
         json.dump(meta, f)
 
 
 def run_training(args, config, params: dict, say=lambda *a: None,
-                 plan: Optional[argparse.Namespace] = None) -> dict:
+                 plan: Optional[argparse.Namespace] = None,
+                 shard: Optional[argparse.Namespace] = None) -> dict:
     """The loop of ``train`` on ``params`` (in place, on their device):
     steps or blocks over the batch stream, a status line through ``say``
     every ``--log-every`` steps, evaluation every ``--eval-every`` steps
@@ -742,35 +1180,64 @@ def run_training(args, config, params: dict, say=lambda *a: None,
     run's third to its sixth is written there.  Two-tier parameters
     (``params["emb"]`` a ``TieredEmb``) take the tiered steps, and
     evaluation reads both tiers in place.  ``plan``: the run's
-    :func:`_train_plan`, when the caller made it already."""
+    :func:`_train_plan`, when the caller made it already.
+
+    ``shard`` (:func:`_shard_setup`): ``params`` are this rank's sharded
+    parameters; every rank of the gang runs the loop on its rows of each
+    batch, saves and restores its slabs of the sharded checkpoints,
+    evaluates on the mesh (``sharded_evaluate``; a gang of more than one
+    process on full batches only) and, under ``--paranoid N``, checks
+    every N steps that the DCN replicas hold the same tables."""
     from dlrm_tpu_torch.data.prefetch import device_prefetch
     from dlrm_tpu_torch.io.checkpoint import CheckpointManager
-    from dlrm_tpu_torch.train.metrics import evaluate
+    from dlrm_tpu_torch.train.metrics import evaluate, sharded_evaluate
     from dlrm_tpu_torch.train.train import batch_to_device
     from dlrm_tpu_torch.utils.telemetry import trace
 
     plan = _train_plan(args) if plan is None else plan
     device = params["emb"].device
+    rows = None if shard is None else shard.rows
     mgr = None
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir,
                                 save_interval=args.save_interval,
-                                max_to_keep=args.max_to_keep)
-    v = _build_step(args, config, plan, params, mgr, say)
-    if mgr is not None:
-        _write_run_meta(args, config, v)
+                                max_to_keep=args.max_to_keep,
+                                shards=None if shard is None
+                                else shard.group)
+    v = _build_step(args, config, plan, params, mgr, say, shard)
+    if mgr is not None and (shard is None or shard.group.lead):
+        _write_run_meta(args, config, v, plan)
+    replica_check = None
+    if shard is not None and args.paranoid:
+        from dlrm_tpu_torch.parallel.embedding import make_dcn_replica_check
+        replica_check = make_dcn_replica_check(shard.mesh)
 
     def run_eval():
         # the training file when there is no --eval-data; an all-synthetic
-        # evaluation needs a bound: 10 batches, from a seed of its own
+        # evaluation needs a bound: 10 batches, from a seed of its own.  A
+        # gang's ranks are fed their rows of full batches
         eval_data = args.eval_data or args.data
         eval_steps = args.eval_steps
         if eval_data is None and eval_steps is None:
             eval_steps = 10
-        return evaluate(params, _batch_iter(
+        data = _batch_iter(
             config, data=eval_data, batch_size=args.batch_size,
             steps=eval_steps, seed=10_000, synthetic=args.synthetic,
-            keep_remainder=True), config)
+            keep_remainder=rows is None, rows=rows)
+        if shard is not None:
+            return sharded_evaluate(params, data, config, mesh=shard.mesh,
+                                    placement=shard.placement,
+                                    local_batch=rows is not None)
+        return evaluate(params, data, config)
+
+    def save(at: int) -> None:
+        from dlrm_tpu_torch.io.checkpoint import payload_bytes
+
+        t0 = time.perf_counter()
+        payload = v.payload()
+        mgr.save(at, payload, force=True)
+        say(f"saved step {at}: this process's "
+            f"{_rate(payload_bytes(payload), time.perf_counter() - t0)}")
 
     eval_record: List[dict] = []
     losses: List[float] = []
@@ -782,7 +1249,8 @@ def run_training(args, config, params: dict, say=lambda *a: None,
     source = _batch_iter(
         config, data=args.data, batch_size=args.batch_size, steps=remaining,
         seed=args.seed, synthetic=args.synthetic, shuffle=args.shuffle,
-        shuffle_rows=args.shuffle_rows, shuffle_window=args.shuffle_window)
+        shuffle_rows=args.shuffle_rows, shuffle_window=args.shuffle_window,
+        rows=rows)
     if plan.block > 1:
         source = _block_iter(source, plan.block)
     if v.lookahead:
@@ -818,14 +1286,23 @@ def run_training(args, config, params: dict, say=lambda *a: None,
                 eval_record.append(m)
                 say(f"eval @ step {step}: acc={m['accuracy']:.4f} "
                     f"auc={m['auc']:.4f} loss={m['loss']:.5f}")
+            if replica_check is not None and _crossed(prev, step,
+                                                      args.paranoid):
+                if not replica_check(params):
+                    raise RuntimeError(
+                        f"--paranoid: DCN table replicas DIVERGED at step "
+                        f"{step} — a sparse update was not DCN-invariant "
+                        "(see parallel/embedding._dcn_fold)")
+                say(f"--paranoid: the DCN table replicas agree at step "
+                    f"{step}")
             if mgr is not None and _crossed(prev, step, mgr.save_interval):
-                mgr.save(step, v.payload())
+                save(step)
         if capturing:
             capture.close()
             say("profile written (stream ended mid-capture)")
     if mgr is not None:
         if mgr.latest_step() != step:
-            mgr.save(step, v.payload(), force=True)
+            save(step)
         mgr.close()
     # a run shorter than --log-every still reports its final loss
     if step > start_step and not _crossed(prev, step, args.log_every):
@@ -841,43 +1318,86 @@ def run_training(args, config, params: dict, say=lambda *a: None,
 
 
 def cmd_train(args) -> int:
-    """Training on one device from parameters drawn from the config's
-    seed (split into two tiers under ``--hbm-budget-gb``), or resumed from
-    ``--ckpt-dir``; prints status lines to stderr and one JSON line at the
-    end."""
+    """Training from parameters drawn from the config's seed (split into
+    two tiers under ``--hbm-budget-gb``; drawn straight into this rank's
+    shard on the sharded path), or resumed from ``--ckpt-dir``; prints
+    status lines to stderr and one JSON line at the end (a gang's lead
+    process only)."""
     from dlrm_tpu_torch.models.dlrm import init_params
 
     _refuse_unported(args)
-    plan = _train_plan(args)
     device = _device(args)
-    config = _build_config(args, device)
-    _check_data(args, config)
-    say = lambda *a: print(*a, file=sys.stderr)
-    say(f"device: {device} ({config.interaction_impl} interaction)")
-    generator = torch.Generator(device).manual_seed(config.seed)
-    if args.hbm_budget_gb is not None:
-        params = _tier_params(args, config, generator, device, say)
-    else:
-        params = init_params(generator, config, device)
-    result = run_training(args, config, params, say=say, plan=plan)
-    print(json.dumps({**result, "device": device.type}))
+    with _process_group(args, device, join=bool(args.sharded)) as gang:
+        plan = _train_plan(args, 1 if gang is None else gang.world)
+        if gang is not None:
+            device = gang.device
+        config = _build_config(args, device)
+        _check_data(args, config)
+        say = _say_for(gang is None or gang.lead)
+        say(f"device: {device} ({config.interaction_impl} interaction)"
+            + (f", sharded over {gang.world} process(es)"
+               + (f", mesh {plan.dcn_n}x{plan.ici_n} (dcn x ici)"
+                  if plan.ici_n else "") if plan.sharded else ""))
+        generator = torch.Generator(device).manual_seed(config.seed)
+        shard = None
+        if plan.sharded:
+            shard = _shard_setup(args, config, plan, gang, say)
+            params = _shard_params(config, shard, generator, device)
+        elif args.hbm_budget_gb is not None:
+            params = _tier_params(args, config, generator, device, say)
+        else:
+            params = init_params(generator, config, device)
+        result = run_training(args, config, params, say=say, plan=plan,
+                              shard=shard)
+        if gang is None or gang.lead:
+            print(json.dumps({**result, "device": device.type}))
     return 0
 
 
 def cmd_eval(args) -> int:
     """Accuracy, AUC and mean loss of saved parameters over ``--data``
     (every row: the ragged tail batch counts), or over 10 synthetic batches
-    without it; prints one JSON line."""
+    without it; prints one JSON line.  ``--sharded true`` or
+    ``--distributed``: a sharded run's checkpoint restored onto the gang
+    and evaluated on its mesh (``sharded_evaluate``; int8 too), the
+    metrics of every row printed by the lead process."""
     from dlrm_tpu_torch.train.metrics import evaluate
 
     _refuse_unported(args)
     device = _device(args)
-    params, config = _serving_params(args, device)
     eval_steps = args.eval_steps or (None if args.data else 10)
-    data = _batch_iter(config, data=args.data, batch_size=args.batch_size,
-                       steps=eval_steps, keep_remainder=True)
-    print(json.dumps({**evaluate(params, data, config),
-                      "device": device.type}))
+    with _process_group(args, device, join=bool(args.sharded)) as gang:
+        if gang is None:
+            params, config = _serving_params(args, device)
+            data = _batch_iter(config, data=args.data,
+                               batch_size=args.batch_size, steps=eval_steps,
+                               keep_remainder=True)
+            print(json.dumps({**evaluate(params, data, config),
+                              "device": device.type}))
+            return 0
+        from dlrm_tpu_torch.parallel.mesh import local_batch_rows
+        from dlrm_tpu_torch.train.metrics import sharded_evaluate
+
+        device = gang.device
+        params, mesh, placement, config = _mesh_params(
+            args, _build_config(args, device), gang,
+            args.quantize_tables == "int8")
+        rows = None
+        if gang.world > 1:
+            if args.batch_size % gang.world:
+                raise SystemExit(f"--distributed eval: --batch-size "
+                                 f"{args.batch_size} must be divisible by "
+                                 f"the {gang.world}-device mesh")
+            rows = local_batch_rows(mesh, args.batch_size)
+        # one process pads a ragged tail batch to the mesh; a gang feeds
+        # each rank its rows of full batches
+        data = _batch_iter(config, data=args.data, batch_size=args.batch_size,
+                           steps=eval_steps, keep_remainder=rows is None,
+                           rows=rows)
+        m = sharded_evaluate(params, data, config, mesh=mesh,
+                             placement=placement, local_batch=rows is not None)
+        if gang.lead:
+            print(json.dumps({**m, "device": device.type}))
     return 0
 
 
@@ -988,6 +1508,10 @@ _HDF5_HELP = ("PyTorch-layout HDF5 model (io/hdf5.py), instead of --params; "
 _CKPT_HELP = ("checkpoint directory of train --ckpt-dir (its newest "
               "checkpoint, under the run's run_meta.json) or of export "
               "--quantize int8, instead of --params")
+_SHARDED_SERVE_HELP = (
+    "true: serve a sharded run's --ckpt-dir on a mesh of this process "
+    "(with --distributed, of the gang), restored onto its ranks; else it "
+    "is unsharded onto one device")
 _QUANT_HELP = ("post-training table quantization for serving (symmetric "
                "per-row int8, quantized on the host: about 4x smaller than "
                "f32 on the device)")
@@ -1084,8 +1608,10 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--max-to-keep", type=int, default=3,
                     help="checkpoints kept, the newest")
     tr.add_argument("--sharded", type=_strict_bool, default=None,
-                    help="false: one device, what this package trains on "
-                    "(true is not served yet: multi-GPU)")
+                    help="true: shard the tables over the gang's processes "
+                    "(a gang of this one process without --distributed); "
+                    "false: one device.  Default: sharded over a gang of "
+                    "more than one process")
     tr.add_argument("--hbm-budget-gb", type=float, default=None,
                     help="two-tier tables: keep the smallest tables on the "
                     "device within this many GiB and the rest in pinned "
@@ -1095,13 +1621,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="two-tier SGD at a constant lr: gather the next "
                     "batch's host-tier rows right after this step's "
                     "host-tier update")
-    for flag, kw in (
-            ("--paranoid", {"type": int}),
-            ("--mesh-shape", {}),
-            ("--max-rows-per-shard", {"type": int}),
-            ("--col-sharded-tables", {}),
-            ("--host-tables", {})):
-        tr.add_argument(flag, help="not served yet", **kw)
+    tr.add_argument("--paranoid", type=int, default=None,
+                    help="every N steps, check that the DCN replicas of a "
+                    "--mesh-shape run hold the same tables, bit for bit")
+    tr.add_argument("--mesh-shape", default=None,
+                    help="DCNxICI 2-D mesh over the gang (e.g. 2x4): the "
+                    "tables shard over ICI, the batch over both")
+    tr.add_argument("--max-rows-per-shard", type=int, default=None,
+                    help="row-shard tables with more rows over every shard")
+    tr.add_argument("--col-sharded-tables", default=None,
+                    help="comma-separated tables split by features over "
+                    "the shards")
+    tr.add_argument("--host-tables", default=None,
+                    help="comma-separated tables row-sharded into host "
+                    "memory, read and updated in place by the card")
     _add_dist_flags(tr)
     tr.set_defaults(fn=cmd_train)
 
@@ -1118,6 +1651,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="evaluate on this many batches")
     ev.add_argument("--quantize-tables", default=None, choices=["int8"],
                     help=_QUANT_HELP)
+    ev.add_argument("--sharded", type=_strict_bool, default=None,
+                    help=_SHARDED_SERVE_HELP)
     _add_dist_flags(ev)
     ev.set_defaults(fn=cmd_eval)
 
@@ -1132,6 +1667,9 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--out", required=True, help="output .npy path")
     pr.add_argument("--quantize-tables", default=None, choices=["int8"],
                     help=_QUANT_HELP)
+    pr.add_argument("--sharded", type=_strict_bool, default=None,
+                    help=_SHARDED_SERVE_HELP)
+    _add_dist_flags(pr)
     pr.set_defaults(fn=cmd_predict)
 
     ex = sub.add_parser("export", help="parameters -> PyTorch-interop HDF5 "

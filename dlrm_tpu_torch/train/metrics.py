@@ -185,21 +185,24 @@ def evaluate(params: dict, data: Iterable, config, *,
 def make_sharded_eval_forward(config, mesh, placement, axis: str = "d"
                               ) -> Callable:
     """The sharded forward of this rank's rows: ``fwd(dense_params, emb,
-    cs, dense, sparse, emb_h=None) -> (b,) predictions``, the sharded
-    lookup (``parallel/embedding.sharded_lookup``; ``emb_h`` the host
-    stack of host-resident tables) then the model's
+    cs, dense, sparse, emb_h=None, scales=None, cs_scales=()) -> (b,)
+    predictions``, the sharded lookup (``parallel/embedding
+    .sharded_lookup``; ``emb_h`` the host stack of host-resident tables;
+    ``scales`` and ``cs_scales`` those of int8 tables) then the model's
     ``forward_from_pooled``.  Every rank of the mesh calls it with the
     same number of rows."""
     from dlrm_tpu_torch.models.dlrm import forward_from_pooled
     from dlrm_tpu_torch.parallel.embedding import sharded_lookup
     from dlrm_tpu_torch.utils.telemetry import phase_scope
 
-    def fwd(dense_params, emb, cs, dense, sparse, emb_h=None):
+    def fwd(dense_params, emb, cs, dense, sparse, emb_h=None, scales=None,
+            cs_scales=()):
         with torch.no_grad():
             with phase_scope("lookup"):
                 pooled = sharded_lookup(
                     emb, sparse, mesh=mesh, placement=placement, axis=axis,
-                    cs=cs, emb_h=emb_h, exchange_dtype=config.exchange_dtype)
+                    cs=cs, emb_h=emb_h, exchange_dtype=config.exchange_dtype,
+                    scales=scales, cs_scales=cs_scales)
             return forward_from_pooled(dense_params, pooled, dense, config)
 
     return fwd
@@ -208,24 +211,35 @@ def make_sharded_eval_forward(config, mesh, placement, axis: str = "d"
 def sharded_evaluate(params: dict, data: Iterable, config, *, mesh,
                      placement, axis: str = "d",
                      record: Optional[List[float]] = None,
-                     auc_buckets: int = 1 << 14) -> Dict[str, float]:
+                     auc_buckets: int = 1 << 14,
+                     local_batch: bool = False) -> Dict[str, float]:
     """:func:`evaluate` on this rank's sharded parameters (as
-    ``train.sharded_train_step`` takes them); every rank of the mesh calls
-    it with the same global batches and gets the metrics of every row.
+    ``train.sharded_train_step`` takes them; int8 tables with their
+    ``emb_scales`` and ``emb_cs_scales``); every rank of the mesh calls it
+    with the same global batches and gets the metrics of every row.
 
     A rank scores its rows of each batch (``parallel.mesh
     .local_batch_rows``).  A batch that does not divide by the mesh's
     ranks (a ragged tail) is padded by repeating its last row and the
-    padded predictions are dropped, so every row counts once."""
+    padded predictions are dropped, so every row counts once.
+    ``local_batch``: each rank is fed its own rows of every batch (the
+    same number on every rank: full batches only), taken as they come."""
     from dlrm_tpu_torch.parallel.mesh import local_batch_rows
 
     fwd = make_sharded_eval_forward(config, mesh, placement, axis)
     dense_params = {"bottom": params["bottom"], "top": params["top"]}
     emb, cs = params["emb"], tuple(params.get("emb_cs", ()))
     emb_h = params.get("emb_h")
+    scales = params.get("emb_scales")
+    cs_scales = tuple(params.get("emb_cs_scales", ()))
     ranks = mesh.mesh.numel()
 
     def local_batches():
+        if local_batch:
+            for batch in data:
+                yield {k: torch.as_tensor(batch[k])
+                       for k in ("dense", "sparse", "labels")}
+            return
         for batch in data:
             dense, sparse, labels = (torch.as_tensor(batch[k]) for k in
                                      ("dense", "sparse", "labels"))
@@ -242,7 +256,8 @@ def sharded_evaluate(params: dict, data: Iterable, config, *, mesh,
 
     def predict_batch(batch):
         preds = fwd(dense_params, emb, cs, batch["dense"].to(emb.device),
-                    batch["sparse"].to(emb.device), emb_h)
+                    batch["sparse"].to(emb.device), emb_h, scales,
+                    cs_scales)
         return preds[:batch["labels"].shape[0]]
 
     return _accumulate(local_batches(), predict_batch, record=record,

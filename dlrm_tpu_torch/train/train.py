@@ -405,11 +405,16 @@ def _sharded_parts(params: dict):
             params.get("emb_h"))
 
 
-def _local_rows(mesh, emb, *batch, leading: int = 0):
+def _local_rows(mesh, emb, *batch, leading: int = 0,
+                local_batch: bool = False):
     """This rank's rows of a global batch (axis ``leading``: 1 for a
-    block's (K, B, ...)) on the tables' device."""
+    block's (K, B, ...)) on the tables' device; ``local_batch``: the batch
+    holds only this rank's rows already (each rank fed its own,
+    ``run._batch_iter(rows=)``), taken as it is."""
     from dlrm_tpu_torch.parallel.mesh import local_batch_rows
 
+    if local_batch:
+        return [t.to(emb.device) for t in batch]
     lo, hi = local_batch_rows(mesh, batch[0].shape[leading])
     return [t.narrow(leading, lo, hi - lo).to(emb.device) for t in batch]
 
@@ -482,7 +487,8 @@ def _dense_apply(params: dict, flat, optimizer: str, accs, lr: float
 
 def sharded_train_step(params: dict, dense, sparse, labels, *,
                        config: DLRMConfig, lr: float, mesh, placement,
-                       axis: str = "d") -> torch.Tensor:
+                       axis: str = "d", local_batch: bool = False
+                       ) -> torch.Tensor:
     """One hybrid-parallel SGD step on this rank's parameters, in place;
     returns the global batch's loss (0-d, no host sync).
 
@@ -493,13 +499,15 @@ def sharded_train_step(params: dict, dense, sparse, labels, *,
     (:func:`broadcast_dense`).  ``dense`` / ``sparse`` / ``labels`` are
     the global batch, the same on every rank, which takes its rows
     (``parallel.mesh.local_batch_rows``; the batch must divide by the
-    mesh's ranks) to the parameters' device.  The gradients are those of
-    the global mean (:func:`_sharded_grads`)."""
+    mesh's ranks) to the parameters' device; with ``local_batch`` they are
+    this rank's rows of it already (every rank's the same number).  The
+    gradients are those of the global mean (:func:`_sharded_grads`)."""
     from dlrm_tpu_torch.parallel import embedding as pemb
     from dlrm_tpu_torch.utils.telemetry import phase_scope
 
     _, emb, cs, emb_h = _sharded_parts(params)
-    dense, sparse, labels = _local_rows(mesh, emb, dense, sparse, labels)
+    dense, sparse, labels = _local_rows(mesh, emb, dense, sparse, labels,
+                                        local_batch=local_batch)
     loss, flat, d_pooled = _sharded_grads(
         params, dense, sparse, labels, config=config, mesh=mesh,
         placement=placement, axis=axis)
@@ -513,12 +521,13 @@ def sharded_train_step(params: dict, dense, sparse, labels, *,
 
 
 def make_sharded_train_step(config: DLRMConfig, lr: float, mesh, placement,
-                            axis: str = "d") -> Callable:
+                            axis: str = "d", local_batch: bool = False
+                            ) -> Callable:
     """``step(params, dense, sparse, labels) -> loss`` of
     :func:`sharded_train_step` at the f32 learning rate."""
     return functools.partial(sharded_train_step, config=config,
                              lr=_f32(lr), mesh=mesh, placement=placement,
-                             axis=axis)
+                             axis=axis, local_batch=local_batch)
 
 
 def init_sharded_opt_state(params: dict, *, config: DLRMConfig,
@@ -592,7 +601,8 @@ def _sharded_sparse_apply(params: dict, opt_state: dict, sparse, d_pooled,
 def sharded_train_step_opt(params: dict, opt_state: dict, dense, sparse,
                            labels, *, config: DLRMConfig, optimizer: str,
                            lr, mesh, placement, axis: str = "d",
-                           grad_clip_norm=None) -> torch.Tensor:
+                           grad_clip_norm=None, local_batch: bool = False
+                           ) -> torch.Tensor:
     """One hybrid-parallel step with ``sgd``, ``adagrad`` or
     ``rowwise_adagrad`` on this rank's parameters and optimizer state
     (:func:`init_sharded_opt_state`), both in place; the global batch as
@@ -606,7 +616,8 @@ def sharded_train_step_opt(params: dict, opt_state: dict, dense, sparse,
     optim.check_optimizer(optimizer)
     lr_t = _f32(lr(opt_state["count"]) if callable(lr) else lr)
     _, emb, _, _ = _sharded_parts(params)
-    dense, sparse, labels = _local_rows(mesh, emb, dense, sparse, labels)
+    dense, sparse, labels = _local_rows(mesh, emb, dense, sparse, labels,
+                                        local_batch=local_batch)
     loss, flat, d_pooled = _sharded_grads(
         params, dense, sparse, labels, config=config, mesh=mesh,
         placement=placement, axis=axis, grad_clip_norm=grad_clip_norm)
@@ -620,19 +631,21 @@ def sharded_train_step_opt(params: dict, opt_state: dict, dense, sparse,
 
 def make_sharded_train_step_opt(config: DLRMConfig, *, optimizer: str, lr,
                                 mesh, placement, axis: str = "d",
-                                grad_clip_norm=None) -> Callable:
+                                grad_clip_norm=None,
+                                local_batch: bool = False) -> Callable:
     """``step(params, opt_state, dense, sparse, labels) -> loss`` of
     :func:`sharded_train_step_opt`."""
     return functools.partial(sharded_train_step_opt, config=config,
                              optimizer=optimizer, lr=lr, mesh=mesh,
                              placement=placement, axis=axis,
-                             grad_clip_norm=grad_clip_norm)
+                             grad_clip_norm=grad_clip_norm,
+                             local_batch=local_batch)
 
 
 def _sharded_block(params: dict, opt_state: Optional[dict], dense, sparse,
                    labels, *, config: DLRMConfig, optimizer: str, lrs,
                    scheduled: bool, mesh, placement, axis: str,
-                   grad_clip_norm) -> torch.Tensor:
+                   grad_clip_norm, local_batch: bool) -> torch.Tensor:
     """K sharded micro-steps (K: the leading axis of the global batches),
     every table read as of block entry, the dense parameters updated every
     micro-step at ``lrs[k]``; the K pooled gradients then applied in one
@@ -640,7 +653,7 @@ def _sharded_block(params: dict, opt_state: Optional[dict], dense, sparse,
     with lr 1; Adagrad: as the twin payload)."""
     _, emb, _, _ = _sharded_parts(params)
     dense, sparse, labels = _local_rows(mesh, emb, dense, sparse, labels,
-                                        leading=1)
+                                        leading=1, local_batch=local_batch)
     losses, d_all, scaled = [], [], []
     accs = None if opt_state is None else opt_state["dense"]
     for k in range(dense.shape[0]):
@@ -668,13 +681,14 @@ def _sharded_block(params: dict, opt_state: Optional[dict], dense, sparse,
 
 def sharded_train_block(params: dict, dense, sparse, labels, *,
                         config: DLRMConfig, lr, mesh, placement,
-                        axis: str = "d", grad_clip_norm=None
-                        ) -> torch.Tensor:
+                        axis: str = "d", grad_clip_norm=None,
+                        local_batch: bool = False) -> torch.Tensor:
     """K hybrid-parallel SGD micro-steps on this rank's parameters, in
     place, with one coalesced sparse update at block end; returns the K
     global losses.  ``dense`` (K, B, 13), ``sparse`` (K, B, T[, H]),
     ``labels`` (K, B): global batches, as :func:`sharded_train_step` takes
-    them.  ``lr``: a float, or K per-micro-step values.
+    them (``local_batch``: (K, b, ...), this rank's rows).  ``lr``: a
+    float, or K per-micro-step values.
 
     Every micro-step's lookup reads EVERY table as of block entry (the
     single-device :func:`train_block` freezes only its big tables), the
@@ -688,12 +702,13 @@ def sharded_train_block(params: dict, dense, sparse, labels, *,
     return _sharded_block(params, None, dense, sparse, labels, config=config,
                           optimizer="sgd", lrs=lrs, scheduled=scheduled,
                           mesh=mesh, placement=placement, axis=axis,
-                          grad_clip_norm=grad_clip_norm)
+                          grad_clip_norm=grad_clip_norm,
+                          local_batch=local_batch)
 
 
 def make_sharded_train_block(config: DLRMConfig, lr, mesh, placement,
-                             axis: str = "d", grad_clip_norm=None
-                             ) -> Callable:
+                             axis: str = "d", grad_clip_norm=None,
+                             local_batch: bool = False) -> Callable:
     """``step(params, (K,B,13), (K,B,T[,H]), (K,B)) -> (K,) losses`` of
     :func:`sharded_train_block`.  A schedule ``lr`` is read at ``step.step
     + k`` for micro-step k, and ``step.step`` advances by K a call (set it
@@ -701,7 +716,8 @@ def make_sharded_train_block(config: DLRMConfig, lr, mesh, placement,
     if not callable(lr):
         return functools.partial(sharded_train_block, config=config, lr=lr,
                                  mesh=mesh, placement=placement, axis=axis,
-                                 grad_clip_norm=grad_clip_norm)
+                                 grad_clip_norm=grad_clip_norm,
+                                 local_batch=local_batch)
 
     def run(p, d, s, l):
         k = d.shape[0]
@@ -709,7 +725,8 @@ def make_sharded_train_block(config: DLRMConfig, lr, mesh, placement,
         run.step += k
         return sharded_train_block(p, d, s, l, config=config, lr=lrs,
                                    mesh=mesh, placement=placement, axis=axis,
-                                   grad_clip_norm=grad_clip_norm)
+                                   grad_clip_norm=grad_clip_norm,
+                                   local_batch=local_batch)
 
     run.step = 0
     return run
@@ -718,8 +735,8 @@ def make_sharded_train_block(config: DLRMConfig, lr, mesh, placement,
 def sharded_train_block_opt(params: dict, opt_state: dict, dense, sparse,
                             labels, *, config: DLRMConfig, lr, mesh,
                             placement, axis: str = "d", unroll: bool = True,
-                            optimizer: str = "adagrad", grad_clip_norm=None
-                            ) -> torch.Tensor:
+                            optimizer: str = "adagrad", grad_clip_norm=None,
+                            local_batch: bool = False) -> torch.Tensor:
     """K hybrid-parallel micro-steps with Adagrad or row-wise Adagrad on
     this rank's parameters and optimizer state, in place (see
     :func:`sharded_train_block`; SGD blocks go there); returns the K
@@ -744,22 +761,24 @@ def sharded_train_block_opt(params: dict, opt_state: dict, dense, sparse,
                             config=config, optimizer=optimizer, lrs=lrs,
                             scheduled=scheduled, mesh=mesh,
                             placement=placement, axis=axis,
-                            grad_clip_norm=grad_clip_norm)
+                            grad_clip_norm=grad_clip_norm,
+                            local_batch=local_batch)
     opt_state["count"] = count + k
     return losses
 
 
 def make_sharded_train_block_opt(config: DLRMConfig, *, optimizer: str, lr,
                                  mesh, placement, axis: str = "d",
-                                 unroll: bool = True, grad_clip_norm=None
-                                 ) -> Callable:
+                                 unroll: bool = True, grad_clip_norm=None,
+                                 local_batch: bool = False) -> Callable:
     """``step(params, opt_state, (K,B,13), (K,B,T[,H]), (K,B)) -> (K,)
     losses`` of :func:`sharded_train_block_opt`; the schedule's count
     lives in ``opt_state``."""
     return functools.partial(sharded_train_block_opt, config=config, lr=lr,
                              mesh=mesh, placement=placement, axis=axis,
                              unroll=unroll, optimizer=optimizer,
-                             grad_clip_norm=grad_clip_norm)
+                             grad_clip_norm=grad_clip_norm,
+                             local_batch=local_batch)
 
 
 def batch_to_device(batch: Dict[str, Any], device: torch.device

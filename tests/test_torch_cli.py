@@ -180,14 +180,39 @@ def test_eval_params_matches_evaluate_in_process(tmp_path, rng, capsys):
 
 
 @pytest.mark.parametrize("flag,value,msg", [
-    ("--exchange-dtype", "bf16", "item 3, 'Multi-GPU'"),
-    ("--distributed", None, "item 3, 'Multi-GPU'"),
     ("--platform", "cpu", "pass --device"),
 ])
 def test_eval_flags_not_served_yet(flag, value, msg):
     with pytest.raises(SystemExit, match=msg):
         main(["eval", "--config", "tiny", "--device", "cpu", "--params", "p",
               flag] + ([value] if value else []))
+
+
+@pytest.mark.parametrize("flag", ["--exchange-dtype", "--distributed"])
+def test_eval_multi_gpu_flags_serve_a_sharded_run(flag, tmp_path, capsys):
+    """A sharded run's checkpoint on the mesh: ``--distributed`` (a gang of
+    one joined through a file store) gives the metrics of ``--sharded
+    true``; ``--exchange-dtype bf16`` rounds the pooled rows once, which
+    moves the loss by less than 1e-3."""
+    import torch.distributed as dist
+
+    d = str(tmp_path / "ck")
+    _line(capsys, ["train", *TINY26, "--steps", "2", "--sharded", "true",
+                   "--max-rows-per-shard", "1000", "--col-sharded-tables",
+                   "1", "--ckpt-dir", d])
+    base = ["eval", *TINY26, "--ckpt-dir", d]
+    want = _line(capsys, [*base, "--sharded", "true"])
+    if flag == "--distributed":
+        got = _line(capsys, [*base, "--distributed", "--coordinator",
+                             f"file://{tmp_path / 'store'}",
+                             "--num-processes", "1", "--process-id", "0"])
+        assert got == want
+    else:
+        got = _line(capsys, [*base, "--sharded", "true", "--exchange-dtype",
+                             "bf16"])
+        assert got["examples"] == want["examples"] == 320
+        assert abs(got["loss"] - want["loss"]) <= 1e-3
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("flag", ["--hdf5", "--quantize-tables",
@@ -612,7 +637,9 @@ def test_eval_ckpt_dir_equals_the_runs_eval_after(optimizer, tmp_path, rng,
 
 def test_serving_from_ckpt_dir_takes_the_runs_metadata(tmp_path, capsys):
     """bf16 tables come from run_meta.json; table sizes that differ from
-    the run's, and a sharded run's checkpoint, are refused."""
+    the run's are refused, and so is a run_meta.json that calls an
+    unsharded checkpoint sharded; a sharded run's checkpoint serves, its
+    tables unsharded onto the device."""
     from dlrm_tpu_torch.io import checkpoint as ck
 
     d = str(tmp_path / "ck")
@@ -630,8 +657,21 @@ def test_serving_from_ckpt_dir_takes_the_runs_metadata(tmp_path, capsys):
     meta_path = Path(d, "run_meta.json")
     meta = json.loads(meta_path.read_text())
     meta_path.write_text(json.dumps({**meta, "sharded": True}))
-    with pytest.raises(SystemExit, match="item 3, 'Multi-GPU'"):
+    with pytest.raises(SystemExit, match="holds no placement"):
         main(["eval", *TINY26, "--ckpt-dir", d])
+    d2 = str(tmp_path / "sharded")
+    _line(capsys, ["train", *TINY26, "--steps", "2", "--bf16-tables",
+                   "--sharded", "true", "--ckpt-dir", d2])
+    got = _line(capsys, ["eval", *TINY26, "--ckpt-dir", d2])
+    sh, _ = ck.restore_checkpoint(d2)
+    from dlrm_tpu_torch.parallel import embedding as pemb
+    from dlrm_tpu_torch.parallel.placement import plan_placement
+    p = plan_placement(**ck.checkpoint_placement(d2))
+    params = {"bottom": sh["bottom"], "top": sh["top"],
+              "emb": pemb.unshard_tables(sh["emb"], p, cfg)}
+    assert params["emb"].dtype == torch.bfloat16
+    assert got == {**evaluate(params, batch_stream(cfg, 32, 10, 0), cfg),
+                   "device": "cpu"}
 
 
 def test_export_hdf5_loads_through_the_jax_package(tmp_path, capsys):

@@ -119,7 +119,8 @@ def test_world_size_one_is_the_single_device_lookup(solo, n_hot, xd, rng):
 
 
 def test_refusals(solo, rng):
-    """Int8 scales are a later slice; a plan for another number of shards
+    """Int8 scales go with int8 tables only (int8 serving:
+    test_torch_sharded_quant.py); a plan for another number of shards
     does not fit the group.  Host-resident tables, refused before they
     were served, now serve and train: the lookup with the host stack is
     the plain one, and the update moves the host rows."""
@@ -139,7 +140,7 @@ def test_refusals(solo, rng):
                             mesh=solo, placement=host, emb_h=emb_h)
     assert not torch.equal(emb_h, before) and not emb_h[-1].any()
     p = plan_placement(SIZES, 1)
-    with pytest.raises(NotImplementedError, match="item 3d"):
+    with pytest.raises(ValueError, match="scales go with int8 tables"):
         pemb.sharded_lookup(emb, ids, mesh=solo, placement=p,
                             scales=torch.ones(1))
     with pytest.raises(ValueError, match="2 shards"):

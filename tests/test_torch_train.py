@@ -433,27 +433,50 @@ def test_cli_train_rejects_bad_plans(argv, msg):
         main(["train", "--config", "tiny", "--device", "cpu", *argv])
 
 
-_REFUSED = [
-    ("--sharded", "true", "item 3, 'Multi-GPU'"),
-    ("--mesh-shape", "2x4", "item 3, 'Multi-GPU'"),
-    ("--paranoid", "10", "item 3, 'Multi-GPU'"),
-    ("--max-rows-per-shard", "100", "item 3, 'Multi-GPU'"),
-    ("--col-sharded-tables", "1", "item 3, 'Multi-GPU'"),
-    ("--host-tables", "1", "item 3, 'Multi-GPU'"),
-    ("--exchange-dtype", "bf16", "item 3, 'Multi-GPU'"),
-    ("--distributed", None, "item 3, 'Multi-GPU'"),
-    ("--coordinator", "localhost:1234", "item 3, 'Multi-GPU'"),
-    ("--num-processes", "2", "item 3, 'Multi-GPU'"),
-    ("--process-id", "1", "item 3, 'Multi-GPU'"),
+# the multi-GPU flags, each with what it needs beside it (the tiny config:
+# 4 tables of 32 rows, D=8) and a line of stderr that shows it at work; a
+# gang of this process (gloo), or one joined through a file store
+_GANG = ["--sharded", "true"]
+_JOIN = ["--sharded", "true", "--distributed", "--coordinator", "{store}",
+         "--num-processes", "1", "--process-id", "0"]
+_SERVED = [
+    ("--sharded", "true", [], "sharded over 1 process(es)"),
+    ("--mesh-shape", "1x1", _GANG, "mesh 1x1 (dcn x ici)"),
+    ("--paranoid", "1", _GANG + ["--mesh-shape", "1x1"],
+     "DCN table replicas agree at step 2"),
+    ("--max-rows-per-shard", "20", _GANG,
+     "row-sharded tables: [0, 1, 2, 3]"),
+    ("--col-sharded-tables", "1", _GANG, "column-sharded tables: [1]"),
+    ("--host-tables", "1", _GANG, "host-resident row-sharded tables: [1]"),
+    ("--exchange-dtype", "bf16", _GANG, "sharded over 1 process(es)"),
+    ("--distributed", None, _JOIN[:2] + _JOIN[3:],
+     "sharded over 1 process(es)"),
+    ("--coordinator", "{store}", _JOIN[:3] + _JOIN[5:],
+     "sharded over 1 process(es)"),
+    ("--num-processes", "1", _JOIN[:5] + _JOIN[7:],
+     "sharded over 1 process(es)"),
+    ("--process-id", "0", _JOIN[:7], "sharded over 1 process(es)"),
 ]
 
 
-@pytest.mark.parametrize("flag,value,item", _REFUSED)
-def test_cli_train_refuses_unported_flags(flag, value, item):
+@pytest.mark.parametrize("flag,value,needs,said", _SERVED)
+def test_cli_train_serves_the_multi_gpu_flags(flag, value, needs, said,
+                                               tmp_path, capsys):
+    """Each flag that the multi-GPU port brought trains: two sharded SGD
+    steps, a finite loss, the flag's effect on stderr; the gang is gone
+    after the run."""
+    import torch.distributed as dist
+
+    store = f"file://{tmp_path / 'store'}"
     argv = ["train", "--config", "tiny", "--steps", "2", "--device", "cpu",
-            flag] + ([value] if value is not None else [])
-    with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
-        main(argv)
+            "--log-every", "1", *(a.format(store=store) for a in needs),
+            flag] + ([value.format(store=store)] if value is not None else [])
+    assert main(argv) == 0
+    out, err = capsys.readouterr()
+    line = json.loads(out.strip().splitlines()[-1])
+    assert line["steps"] == 2 and np.isfinite(line["final_loss"])
+    assert said in err, err
+    assert not dist.is_initialized()
 
 
 # 2e-6 GiB (2147 B, 67 rows of D=8) keeps 10 of the 26 tables on the device
@@ -611,7 +634,10 @@ def test_refusal_table_covers_the_jax_train_flags():
               "block_scan", "eval_data", "eval_after", "eval_every",
               "eval_steps", "validate_data", "ckpt_dir", "save_interval",
               "max_to_keep", "profile_dir", "sharded", "hbm_budget_gb",
-              "host_prefetch"}
+              "host_prefetch", "mesh_shape", "paranoid",
+              "max_rows_per_shard", "col_sharded_tables", "host_tables",
+              "exchange_dtype", "distributed", "coordinator",
+              "num_processes", "process_id"}
     assert ours - served == set(_NOT_YET)
 
 

@@ -19,7 +19,10 @@ sharded parameters under ``emb``, ``emb_cs.<j>``, ``emb_h`` (host tables),
 its fields:
 
 * ``lookup``: ``cases``, names of global id arrays; each rank writes its
-  pooled rows under ``<case>`` (f32) and ``<case>.bf16`` (bf16 exchange).
+  pooled rows under ``<case>`` (f32) and ``<case>.bf16`` (bf16 exchange);
+  with ``int8`` also under ``<case>.int8``, from the JAX package's int8
+  shard stacks ``q.emb``, ``q.scales``, ``q.cs.<j>``, ``q.cs_scales.<j>``
+  (``io.convert.sharded_quant_from_numpy``).
 * ``train``: ``lr`` and ``steps``; global batches ``dense.<s>``,
   ``sparse.<s>``, ``labels.<s>``.  Ranks other than 0 first add 1 to their
   dense parameters, which ``broadcast_dense`` must undo; each rank writes
@@ -43,6 +46,17 @@ its fields:
   after the rank at ``(h, d) = (1, 0)`` flips the lowest bit of the first
   element of its ``emb_h`` (``agree_flipped``), and after it flips it back
   (``agree_restored``).
+* ``save``: ``optimizer`` and ``ckpt``: the parameters and optimizer state
+  of the arrays saved as sharded checkpoint ``step`` of ``ckpt``
+  (``CheckpointManager(shards=)``, ``max_to_keep``).
+* ``restore``: ``optimizer`` and ``ckpt``: a zero state of this gang's
+  placement restored from the latest checkpoint of ``ckpt``; each rank
+  writes what ``train_opt`` writes (``opt.*`` too) and ``step``.
+* ``hybrid``: every rank names the host ``host<rank // per_host>`` and
+  writes the ranks of ``make_hybrid_mesh`` and of ``make_mesh_2d``.
+
+:func:`run_cli_gang` starts ``python -m dlrm_tpu_torch`` itself as a gang
+(``--distributed``) and returns each rank's output.
 """
 
 from __future__ import annotations
@@ -98,6 +112,52 @@ def run_gang(tmp: Path, world: int, spec: dict, arrays: dict,
         with np.load(out / f"rank{r}.npz") as z:
             results.append({k: z[k] for k in z.files})
     return results
+
+
+def run_cli_gang(tmp: Path, world: int, argv: list,
+                 timeout: float = 240.0) -> list:
+    """``python -m dlrm_tpu_torch *argv --device cpu --distributed ...`` as
+    a gang of ``world`` processes through a ``file://`` store in ``tmp``;
+    waits for all (each within ``timeout`` seconds), asserts that each
+    exited 0 and returns each rank's (stdout, stderr)."""
+    tmp = Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    store = tmp / "cli_store"
+    if store.exists():
+        store.unlink()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX", "XLA"))}
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "2"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "dlrm_tpu_torch", *argv, "--device", "cpu",
+         "--distributed", "--coordinator", f"file://{store}",
+         "--num-processes", str(world), "--process-id", str(r)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} of {argv[0]} exited " \
+                                  f"{p.returncode}:\n{err[-4000:]}"
+    return outs
+
+
+def lead_line(outs: list) -> dict:
+    """The result line of a CLI gang: the lead's only stdout line that
+    starts with ``{``; the other ranks print none."""
+    lines = [l for l in outs[0][0].splitlines() if l.startswith("{")]
+    assert len(lines) == 1, outs[0][0]
+    for out, _ in outs[1:]:
+        assert not any(l.startswith("{") for l in out.splitlines()), out
+    return json.loads(lines[0])
 
 
 def jax_sharded_arrays(sh_params: dict) -> dict:
@@ -229,6 +289,16 @@ def main(argv=None) -> int:
     spec = json.loads(Path(args.spec).read_text())
     pmesh.init_distributed(f"file://{args.store}", args.world, args.rank,
                            device="cpu")
+    if spec["task"] == "hybrid":
+        per = spec["per_host"]
+        hybrid = pmesh.make_hybrid_mesh(host=f"host{args.rank // per}")
+        plain = pmesh.make_mesh_2d(args.world // per, per)
+        out = {"hybrid": hybrid.mesh.numpy(), "plain": plain.mesh.numpy(),
+               "names": np.asarray(hybrid.mesh_dim_names),
+               "rows": np.asarray(pmesh.local_batch_rows(hybrid, 8 * args.world))}
+        np.savez(Path(args.out) / f"rank{args.rank}.npz", **out)
+        dist.destroy_process_group()
+        return 0
     mesh = (pmesh.make_mesh() if spec.get("mesh") is None
             else pmesh.make_mesh_2d(*spec["mesh"]))
     config = _config(spec["config"])
@@ -236,12 +306,34 @@ def main(argv=None) -> int:
     placement = plan_placement(config.table_sizes, mesh.size(
         mesh.mesh_dim_names.index("d")), **spec.get("placement", {}))
     arrays = np.load(spec["arrays"])
-    params = _params(arrays, placement, shard)
-    out = {}
     task = spec["task"]
+    if task == "restore":  # a zero state, filled by the restore
+        import torch
+        from dlrm_tpu_torch.models.dlrm import init_dense
+        from dlrm_tpu_torch.parallel.embedding import empty_shard
+
+        z = empty_shard(placement, shard, config.feature_size,
+                        config.embedding_dtype, "cpu")
+        params = init_dense(torch.Generator(), config, "cpu")
+        params.update(emb=z["emb"], emb_cs=z["emb_cs"])
+        if z["emb_h"] is not None:
+            params["emb_h"] = z["emb_h"]
+    else:
+        params = _params(arrays, placement, shard)
+    out = {}
     if task == "lookup":
         lo, hi = pmesh.local_batch_rows(mesh, arrays[spec["cases"][0]]
                                         .shape[0])
+        q = None
+        if spec.get("int8"):
+            from dlrm_tpu_torch.io.convert import sharded_quant_from_numpy
+
+            n_cs = len(placement.col_sharded)
+            q = sharded_quant_from_numpy(
+                arrays["q.emb"], arrays["q.scales"],
+                [arrays[f"q.cs.{j}"] for j in range(n_cs)],
+                [arrays[f"q.cs_scales.{j}"] for j in range(n_cs)],
+                placement=placement, rank=shard)
         for case in spec["cases"]:
             ids = torch.as_tensor(arrays[case][lo:hi])
             for suffix, xd in (("", None), (".bf16", torch.bfloat16)):
@@ -249,6 +341,12 @@ def main(argv=None) -> int:
                     params["emb"], ids, mesh=mesh, placement=placement,
                     cs=params["emb_cs"], emb_h=params.get("emb_h"),
                     exchange_dtype=xd).float().numpy()
+            if q is not None:
+                out[case + ".int8"] = sharded_lookup(
+                    q["emb"], ids, mesh=mesh, placement=placement,
+                    cs=q["emb_cs"], emb_h=params.get("emb_h"),
+                    scales=q["emb_scales"],
+                    cs_scales=q["emb_cs_scales"]).numpy()
     elif task == "train":
         from dlrm_tpu_torch.ops.embedding import tree_leaves
         from dlrm_tpu_torch.train.train import (broadcast_dense,
@@ -318,7 +416,43 @@ def main(argv=None) -> int:
                 if me == (1, 0):
                     bits[0] ^= 1
                 out[key] = np.int64(check(params))
-    if task in ("train", "train_opt", "block", "block_opt", "dcn_check"):
+    elif task in ("save", "restore"):
+        from dlrm_tpu_torch.io.checkpoint import (CheckpointManager,
+                                                  ShardGroup,
+                                                  sharded_payload)
+        from dlrm_tpu_torch.io.convert import sharded_opt_state_from_numpy
+        from dlrm_tpu_torch.train.train import init_sharded_opt_state
+
+        optimizer = spec["optimizer"]
+        opt_state = None
+        if optimizer != "sgd":
+            opt_state = (init_sharded_opt_state(params, config=config,
+                                                optimizer=optimizer)
+                         if task == "restore" else
+                         sharded_opt_state_from_numpy(
+                             opt_from_arrays(arrays), placement, optimizer,
+                             shard))
+        dcn = pmesh.dcn_axis_of(mesh)
+        record = {"table_sizes": list(config.table_sizes),
+                  "num_shards": placement.num_shards,
+                  **{k: list(v) if isinstance(v, (list, tuple)) else v
+                     for k, v in spec.get("placement", {}).items()}}
+        mgr = CheckpointManager(spec["ckpt"], max_to_keep=spec.get(
+            "max_to_keep"), shards=ShardGroup(
+                shard, placement.num_shards,
+                dcn is None or mesh.get_local_rank(dcn) == 0,
+                args.rank == 0, record))
+        payload = sharded_payload(params, opt_state)
+        if task == "save":
+            mgr.save(spec["step"], payload)
+        else:
+            restored, step = mgr.restore_latest(out=payload)
+            out["step"] = np.int64(step)
+            if opt_state is not None:
+                opt_state["count"] = restored["opt"]["count"]
+                out.update(_opt_arrays(opt_state))
+    if task in ("train", "train_opt", "block", "block_opt", "dcn_check",
+                "restore"):
         out["emb"] = params["emb"].numpy()
         if params.get("emb_h") is not None:
             out["emb_h"] = params["emb_h"].numpy()
