@@ -135,8 +135,34 @@ result):
      width (Kaggle fs=128, row-wise Adagrad, B=32768), each full-width
      process's peak resident set read and bounded far below the tables'
      bytes; `instrument`, `train --profile-dir` and `bench` at full width;
- 17. a `{"kernels": [...]}` line (the two interaction kernels and the two
+ 17. the Criteo Terabyte model with its tables beyond the card (fs=32,
+     f32, fused, `--hbm-budget-gb 64`: 112.99 GB of tables, tables 0 and
+     19, 66.61 GB, in host memory registered at its exact size; the
+     host's MemAvailable checked first, with no smaller fallback): the
+     draw straight into the tiers (seconds, resident-set growth equal to
+     the registered bytes, device peak), the host-tier kernels timed at a
+     training batch's host ids against their plain versions and bounds,
+     and held against them there bit for bit (a random update to the
+     batch's host rows, put back after), an SGD step, a row-wise Adagrad
+     step and a K=4 row-wise block, each held against the touched-rows
+     model (the touched rows of both tiers gathered into a compact
+     single-device model in which every table keeps its treatment --
+     updated every micro-step or at a block's end -- run by the port's
+     single-device steps: 1e-5, accumulators 1e-6, and each tier tensor's
+     change against the reference's change, beyond one f32 ulp a rewrite,
+     within 1e-3 of its norm, a block's 1e-2) and the XOR identity over
+     every whole tier (nothing else
+     moved), serving at B=16384 and evaluation through TieredEmb against
+     the same model, step times, fused against gram at fs=32 in turns, a
+     profile; the tiers released, then `train --config terabyte
+     --feature-size 32 --hbm-budget-gb 64` in a subprocess, its loss lines
+     against the same two steps in process, its resident set sampled;
+ 18. a `{"kernels": [...]}` line (the two interaction kernels and the two
      host-tier kernels), then the result line.
+Where a phase runs CLI subprocesses that depend on none of each other's
+results, some run together, beside the work in process they are held to
+(each phase's docstring says which), so that the whole run keeps inside
+its time limit; their wall times are then times beside one another.
 It needs a CUDA device and the repository around it; without either it
 fails.
 """
@@ -274,21 +300,24 @@ def _fwd_views_agree(F, t, pad_to: int, out) -> bool:
 def phase_kernels() -> dict:
     """Both kernels against their plain versions at every shape a main
     path gives them ((16384, 27, 128) serving and evaluation, (32768, 27,
-    128) training steps and blocks, (8192, 27, 128) the clipped step) and
-    at narrow and ragged ones, on the two sources x = T[:, 0] and feats =
+    128) training steps and blocks, (8192, 27, 128) the clipped step, and
+    Terabyte's (32768, 27, 32) and (16384, 27, 32)) and at narrow and
+    ragged ones, on the two sources x = T[:, 0] and feats =
     T[:, 1:] as the model hands them over; the forward also on the T-view
     form, which must give the same bits.  Rows of 16-byte multiples take
     the forward's bulk-copy path, the rows of (13, 5, 6) its plain-load
-    path.  Returns the numbers at (16384, 27, 128) f32, per kernel."""
+    path.  Each case prints its bound beside its time.  Returns the
+    numbers at (16384, 27, 128) f32, per kernel."""
     from dlrm_tpu_torch.ops import interaction_fused as F
     from dlrm_tpu_torch.ops.interaction import dot_interaction
 
     g = torch.Generator(DEV).manual_seed(0)
     main = {}
     print("kernel vs plain (B, F, D, pad_to, dtype): max_abs_err, kernel ms, "
-          "plain ms")
+          "plain ms, bound ms")
     for b, f, d in [(BATCH, 27, 128), (TRAIN_BATCH, 27, 128),
-                    (CLIP_BATCH, 27, 128), (BATCH, 27, 16), (107, 27, 128),
+                    (CLIP_BATCH, 27, 128), (TRAIN_BATCH, 27, TB_FEATURE),
+                    (BATCH, 27, TB_FEATURE), (BATCH, 27, 16), (107, 27, 128),
                     (13, 4, 8), (13, 5, 6)]:
         for pad_to in (1, 128):
             for dtype in (torch.float32, torch.bfloat16):
@@ -334,18 +363,20 @@ def phase_kernels() -> dict:
                                                atol=1e-4, rtol=rtol)
                     err = (got.float() - ref.float()).abs().max().item()
                     ms, plain_ms = timed_pair(kern, plain)
+                    if kname == "interaction_fwd":
+                        ins, outs = [x, feats], [got]
+                    else:  # dx and dfeats have the sizes of x, feats
+                        ins, outs = [cot, x, feats], [x, feats]
+                    bound = _bound(kname, ins, outs, b, f, d)
                     print(f"  {kname} ({b}, {f}, {d}, {pad_to}, {name}): "
-                          f"{err:.3g}, {ms:.4f}, {plain_ms:.4f}")
+                          f"{err:.3g}, {ms:.4f}, {plain_ms:.4f}, "
+                          f"{bound['bound_ms']:.4f} "
+                          f"({bound['bound_ms'] / ms:.0%} of the bound)")
                     if (b, d, pad_to, dtype) == (BATCH, 128, 1,
                                                  torch.float32):
-                        if kname == "interaction_fwd":
-                            ins, outs = [x, feats], [got]
-                        else:  # dx and dfeats have the sizes of x, feats
-                            ins, outs = [cot, x, feats], [x, feats]
                         main[kname] = {
                             "max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms,
-                            **_bound(kname, ins, outs, b, f, d),
+                            "plain_ms": plain_ms, **bound,
                             # no single PyTorch call computes either
                             # function (plain: bmm + triangular index + cat;
                             # index_put + symmetrise + bmm + add)
@@ -697,8 +728,11 @@ def _profile_steps(what: str, run, batches, steps: int = 5,
     return groups
 
 
-def _to_dev(batch: dict) -> list:
-    return [torch.as_tensor(batch[k]).to(DEV) for k in KEYS]
+def _to_dev(batch: dict, device=None) -> list:
+    """(dense, sparse, labels) of a numpy batch as tensors on ``device``
+    (default: the card)."""
+    return [torch.as_tensor(batch[k]).to(DEV if device is None else device)
+            for k in KEYS]
 
 
 def _stack(batches: list) -> dict:
@@ -2508,6 +2542,32 @@ def _host_kernel_times(H, host, ids, uniq, pooled, ref, cols, rates
     return out
 
 
+def _update_pair(table: torch.Tensor, rows: torch.Tensor,
+                 upd: torch.Tensor) -> float:
+    """``host_update_rows`` and its plain version on the host stack
+    ``table`` from the same distinct rows ``rows`` (on the card), each read
+    back: equal bits, and (f32) equal to the f32 sum; the rows put back.
+    Only the touched rows are copied.  Returns the largest |difference|."""
+    from dlrm_tpu_torch.parallel import host_tier as H
+
+    torch.cuda.synchronize()
+    cpu_rows = rows.cpu().long()
+    before = table.index_select(0, cpu_rows)
+    H.host_update_rows(table, rows, upd)
+    torch.cuda.synchronize()
+    got = table.index_select(0, cpu_rows)
+    table.index_copy_(0, cpu_rows, before)
+    H.host_update_rows_reference(table, rows, upd)
+    want = table.index_select(0, cpu_rows)
+    table.index_copy_(0, cpu_rows, before)
+    check(torch.equal(got, want), f"host_update_rows ({table.dtype}, "
+          f"{tuple(table.shape)}) differs from its plain version")
+    if table.dtype == torch.float32:
+        check(torch.equal(got, before + upd.cpu().reshape(got.shape)),
+              "host_update_rows is not the f32 sum")
+    return (got.float() - want.float()).abs().max().item()
+
+
 def _host_kernel_checks(emb, config, batch, rates) -> dict:
     """host_gather and host_update_rows at the main path's shapes (one
     training batch's host rows, f32): timed first (``_host_kernel_times``),
@@ -2557,25 +2617,7 @@ def _host_kernel_checks(emb, config, batch, rates) -> dict:
                     H.host_gather_reference(host, i))
 
     def update_pair(table, rows, upd) -> None:
-        """The kernel's update and the plain one from the same rows: equal
-        bits, and (f32) equal to the f32 sum; the rows put back."""
-        torch.cuda.synchronize()
-        cpu_rows = rows.cpu().long()
-        before = table.index_select(0, cpu_rows)
-        H.host_update_rows(table, rows, upd)
-        torch.cuda.synchronize()
-        got = table.index_select(0, cpu_rows)
-        table.index_copy_(0, cpu_rows, before)
-        H.host_update_rows_reference(table, rows, upd)
-        want = table.index_select(0, cpu_rows)
-        table.index_copy_(0, cpu_rows, before)
-        errs["host_update_rows"].append((got.float() - want.float()).abs()
-                                        .max().item())
-        check(torch.equal(got, want), f"host_update_rows ({table.dtype}, "
-              f"{tuple(table.shape)}) differs from its plain version")
-        if table.dtype == torch.float32:
-            check(torch.equal(got, before + upd.cpu().reshape(got.shape)),
-                  "host_update_rows is not the f32 sum")
+        errs["host_update_rows"].append(_update_pair(table, rows, upd))
 
     upd = torch.randn((uniq.numel(), d), generator=g, device=DEV)
     update_pair(host, uniq, upd)
@@ -2943,8 +2985,8 @@ def _tier_entry_points(config, plan, tmap) -> None:
     Adagrad from zero, ROADMAP.md §3); `eval --ckpt-dir` on the two-tier
     checkpoint held to `evaluate` of it placed in process (1e-6); `train
     --hbm-budget-gb 4 --host-prefetch` held to inline two-tier steps in
-    process; each process's peak resident set, which holds the pinned host
-    tier."""
+    process (these two run together, beside the work in process); each
+    process's peak resident set, which holds the pinned host tier."""
     from dlrm_tpu_torch.data.criteo import DACLoader, load
     from dlrm_tpu_torch.data.synthetic import batch_stream
     from dlrm_tpu_torch.io.checkpoint import (all_steps, open_checkpoint,
@@ -2985,6 +3027,13 @@ def _tier_entry_points(config, plan, tmap) -> None:
               in res.stderr and all_steps(d) == [4],
               f"train --hbm-budget-gb --ckpt-dir: {lines}, checkpoints "
               f"{all_steps(d)}, {res.stderr[-600:]}")
+        # eval of the step-4 checkpoint and the pipelined run, together,
+        # beside the steps in process
+        ev_args = ["eval", *model[:-2], "--data", data, "--ckpt-dir", d,
+                   "--batch-size", bsz]
+        pf_args = ["train", *model, "--host-prefetch", "--steps", "3",
+                   "--batch-size", bsz, "--log-every", "1"]
+        ev_cli, pf_cli = _Cli(ev_args), _Cli(pf_args)
         tiered = tiered_start()
         state = H.init_tiered_opt_state(tiered, config=config,
                                         optimizer="rowwise_adagrad")
@@ -3033,15 +3082,13 @@ def _tier_entry_points(config, plan, tmap) -> None:
         del tiered, state
         torch.cuda.empty_cache()
 
-        args = ["eval", *model[:-2], "--data", data, "--ckpt-dir", d,
-                "--batch-size", bsz]
-        res = _cli(args)
-        line, rss["eval --ckpt-dir (two-tier)"] = _line(args, res), res
         placed = H.place_tiered(tree["params"], plan, config, DEV)
         batches = -(-n // TRAIN_BATCH)
         with counted("two-tier evaluation", batches, 0, batches, 0):
             want = evaluate(placed, DACLoader(load(data), TRAIN_BATCH,
                                               drop_remainder=False), config)
+        res = ev_cli.wait()
+        line, rss["eval --ckpt-dir (two-tier)"] = _line(ev_args, res), res
         ediff = [abs(line[k] - want[k]) for k in ("loss", "auc", "accuracy")]
         check(line["examples"] == n and max(ediff) <= 1e-6,
               f"eval --ckpt-dir (two-tier) vs in process: {line}, {want}")
@@ -3052,16 +3099,14 @@ def _tier_entry_points(config, plan, tmap) -> None:
         del placed
         torch.cuda.empty_cache()
 
-        args = ["train", *model, "--host-prefetch", "--steps", "3",
-                "--batch-size", bsz, "--log-every", "1"]
-        res = _cli(args)
-        line = _line(args, res)
-        rss["train --hbm-budget-gb --host-prefetch"] = res
-        cli_losses = _loss_lines(res.stderr)
         tiered = tiered_start()
         losses = [float(H.tiered_train_step(tiered, *_to_dev(b),
                                             config=config, lr=0.1))
                   for b in batch_stream(config, TRAIN_BATCH, 3, seed=0)]
+        res = pf_cli.wait()
+        line = _line(pf_args, res)
+        rss["train --hbm-budget-gb --host-prefetch"] = res
+        cli_losses = _loss_lines(res.stderr)
         diff = float(np.abs(np.subtract(cli_losses, losses)).max())
         # atomics sum duplicate ids in another order a run; the status lines
         # print 5 decimals
@@ -3078,7 +3123,8 @@ def _tier_entry_points(config, plan, tmap) -> None:
         del tiered
         torch.cuda.empty_cache()
     print("two-tier CLI, each process's wall time and peak resident set (GB;"
-          " sampled every 2 ms), the pinned host tier being "
+          " sampled every 2 ms; eval and --host-prefetch ran together beside "
+          "the steps in process), the pinned host tier being "
           f"{TIER_HOST_ROWS * 512 / 1e9:.2f} GB: " + "; ".join(
               f"{k} {r.seconds:.2f} s, " + ", ".join(
                   f"{m} {v / 1e9:.3f}" for m, v in r.peak_rss.items())
@@ -3088,6 +3134,668 @@ def _tier_entry_points(config, plan, tmap) -> None:
         bound = 2 * TIER_HOST_ROWS * 512 + 8 * GIB
         check(0 < r.peak_rss.get("VmRSS", 0) < bound, f"{k}: peak resident "
               f"set {r.peak_rss}, more than {bound} B")
+
+
+# -- the touched-rows model: a reference that does not hold the stack --------
+
+def _fold(x: torch.Tensor, device) -> int:
+    """The XOR of every element's f32 bits (``parallel.embedding
+    ._xor_fold``; a host tensor passes through ``device`` a chunk at a
+    time)."""
+    from dlrm_tpu_torch.parallel.embedding import _xor_fold
+
+    return int(_xor_fold(x, torch.device(device)).item())
+
+
+class TouchedRows:
+    """The touched-rows model of two-tier parameters for the steps over
+    ``batches`` (numpy batches (B, T[, H])): a step reads and writes only
+    the rows that its batches' ids touch, so a single-device model of those
+    rows alone takes the same step as the two tiers, and neither side holds
+    the whole stack.
+
+    Built from the state before the steps: each table's touched ids in
+    ascending order (``ids``); a compact config (``config``) whose table
+    ``t`` is the whole table when it is small (at most
+    ``small_table_threshold`` rows) and otherwise the table's touched rows
+    (ids remapped in order); the compact parameters and optimizer state on
+    ``device`` (``params``, ``state``: the accumulators, when
+    ``tier_state`` has them, gathered beside their rows); the touched rows
+    of each tier as they were (``before``); each touched row's hits over
+    the batches, per tier in the order of its rows (``hits``, on the
+    host).  Host rows are read on the
+    host and copied to ``device``: no host-tier kernel serves the
+    reference.
+
+    The single-device step treats a table by its class: a K-step block
+    updates tables of at most the threshold every micro-step and defers
+    the bigger ones to its end.  ``frozen``: the tables the two-tier block
+    defers (None: the big ones, as the two-tier SGD block does; the
+    two-tier Adagrad block defers the host tier alone).  The compact
+    threshold is the largest compact table that is not frozen (at least
+    the model's), and each frozen table is padded with zero rows, which no
+    id reaches, to more than it, so that every table keeps its treatment
+    and the compact model computes the same step."""
+
+    def __init__(self, tiered: dict, tier_state, batches: list, config,
+                 device, frozen=None):
+        from dlrm_tpu_torch.ops.embedding import tree_map
+
+        self.tiered, self.tier_state = tiered, tier_state
+        self.device = torch.device(device)
+        emb = tiered["emb"]
+        plan = emb.plan
+        where = {}
+        for k, (tables, offsets) in enumerate((
+                (plan.device_tables, plan.device_offsets),
+                (plan.host_tables, plan.host_offsets))):
+            for t, lo in zip(tables, offsets):
+                where[t] = (k, lo)
+        thr = config.small_table_threshold
+        if frozen is None:
+            frozen = [t for t, n in enumerate(config.table_sizes)
+                      if n > thr]
+        ids_hits = [np.unique(np.concatenate([
+            np.asarray(b["sparse"])[:, t].reshape(-1) for b in batches
+        ]).astype(np.int64), return_counts=True)
+            for t in range(config.num_tables)]
+        self.ids = [u for u, _ in ids_hits]
+        # big tables keep their touched rows only; small ones stay whole
+        self.big = [n > thr for n in config.table_sizes]
+        sizes = [u.size if big else n for u, big, n in
+                 zip(self.ids, self.big, config.table_sizes)]
+        thr_c = max([thr] + [c for t, c in enumerate(sizes)
+                             if t not in frozen])
+        parts = {name: ([], []) for name in ("src", "dst", "tier", "cmp",
+                                             "hits")}
+        off = 0
+        for t, (u, big) in enumerate(zip(self.ids, self.big)):
+            k, lo = where[t]
+            copied = u if big else np.arange(sizes[t])
+            parts["src"][k].append(lo + copied)
+            parts["dst"][k].append(off + np.arange(copied.size))
+            parts["tier"][k].append(lo + u)
+            parts["cmp"][k].append(off + (np.arange(u.size) if big else u))
+            parts["hits"][k].append(ids_hits[t][1])
+            if t in frozen:
+                sizes[t] = max(sizes[t], thr_c + 1)
+            off += sizes[t]
+        idx = {name: [torch.from_numpy(np.concatenate(p) if p else
+                                       np.zeros(0, np.int64))
+                      for p in pair] for name, pair in parts.items()}
+        self._src, self._dst = idx["src"], idx["dst"]
+        self._tier, self._cmp = idx["tier"], idx["cmp"]
+        # each touched row's hits over the batches, in the order of _tier
+        self.hits = {tier: h for tier, h in zip(("device", "host"),
+                                                 idx["hits"])}
+        self.config = dataclasses.replace(config, table_sizes=tuple(sizes),
+                                          small_table_threshold=thr_c)
+        self._sync()
+        pairs = self._pairs()
+        compact = {}
+        for name, dev, host in pairs:
+            out = torch.zeros((off, *dev.shape[1:]), dtype=dev.dtype,
+                              device=self.device)
+            for stack, src, dst in zip((dev, host), self._src, self._dst):
+                out[dst.to(self.device)] = self._read(stack, src)
+            compact[name] = out
+        self.params = {**tree_map(lambda p: p.to(self.device, copy=True),
+                                  {"bottom": tiered["bottom"],
+                                   "top": tiered["top"]}),
+                       "emb": compact["tables"]}
+        self.state = None
+        if "accumulators" in compact:
+            dense = tier_state["dense"]
+            self.state = {"dense": None if dense is None else tree_map(
+                lambda a: a.to(self.device, copy=True), dense),
+                "emb": compact["accumulators"],
+                "count": tier_state["count"]}
+        self.before = self.tier_rows()
+
+    def _pairs(self) -> list:
+        """(name, device-tier tensor, host-tier tensor): the tables, and
+        the accumulators when the state has them."""
+        emb = self.tiered["emb"]
+        out = [("tables", emb.dev, emb.host)]
+        st = self.tier_state
+        if st is not None and st.get("dev_acc") is not None:
+            out.append(("accumulators", st["dev_acc"], st["host_acc"]))
+        return out
+
+    def _sync(self) -> None:
+        """The card's kernels write the host tier asynchronously: finish
+        them before the host reads it."""
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def _read(self, stack: torch.Tensor, rows: torch.Tensor
+              ) -> torch.Tensor:
+        return stack.index_select(0, rows.to(stack.device)).to(self.device)
+
+    def remap(self, batch: dict) -> dict:
+        """A numpy batch (B, T[, H]) with each big table's ids turned into
+        their rows of the compact table (ascending ids stay ascending)."""
+        sparse = np.array(batch["sparse"], copy=True)
+        for t, (u, big) in enumerate(zip(self.ids, self.big)):
+            if big:
+                sparse[:, t] = np.searchsorted(u, sparse[:, t])
+        return {**batch, "sparse": sparse}
+
+    def tier_rows(self) -> dict:
+        """The touched rows of each tier's tables (and accumulators), on
+        ``device``, keyed ``"<device|host>-tier <tables|accumulators>"``."""
+        self._sync()
+        out = {}
+        for name, dev, host in self._pairs():
+            for tier, stack, rows in (("device", dev, self._tier[0]),
+                                      ("host", host, self._tier[1])):
+                out[f"{tier}-tier {name}"] = self._read(stack, rows)
+        return out
+
+    def compact_rows(self) -> dict:
+        """:meth:`tier_rows` of the compact model, in the same order."""
+        out = {}
+        tensors = {"tables": self.params["emb"]}
+        if self.state is not None:
+            tensors["accumulators"] = self.state["emb"]
+        for name, t in tensors.items():
+            for tier, rows in (("device", self._cmp[0]),
+                               ("host", self._cmp[1])):
+                out[f"{tier}-tier {name}"] = t.index_select(
+                    0, rows.to(self.device))
+        return out
+
+    def folds(self) -> dict:
+        """The XOR fold of each whole tier tensor, keyed as
+        :meth:`tier_rows`."""
+        self._sync()
+        out = {}
+        for name, dev, host in self._pairs():
+            for tier, stack in (("device", dev), ("host", host)):
+                out[f"{tier}-tier {name}"] = _fold(stack, self.device)
+        return out
+
+
+def xor_identity(folds_before: dict, folds_after: dict, rows_before: dict,
+                 rows_after: dict, device) -> dict:
+    """Whether only the touched rows of each tier tensor moved, exactly:
+    fold(after) == fold(before) ^ fold(touched rows before) ^ fold(touched
+    rows after) (the touched rows are distinct), a verdict a tensor."""
+    return {k: folds_after[k] == (folds_before[k]
+                                  ^ _fold(rows_before[k], device)
+                                  ^ _fold(rows_after[k], device))
+            for k in folds_before}
+
+
+# losses, dense parameters and table rows; accumulators (phase_two_tier's)
+TOUCHED_TOL = 1e-5
+TOUCHED_ACC_TOL = 1e-6
+# each tier tensor's change against the reference's change: the norm of
+# what lies beyond the rounding allowance over the norm of the change; a
+# block's micro-steps after the first read states that the device tier's
+# sum order has moved apart, and a ReLU near its kink changes a hit's
+# gradient (Terabyte: steps 0 to 2.9e-10, a K=4 block 2.4e-4 and 3.6e-4)
+TOUCHED_REL = 1e-3
+TOUCHED_REL_BLOCK = 1e-2
+
+
+def _change_error(got: torch.Tensor, want: torch.Tensor,
+                  before: torch.Tensor, updates: torch.Tensor) -> dict:
+    """One tier tensor's touched rows after the two-tier step (``got``) and
+    after the reference's (``want``), from the same rows ``before``, each
+    row rewritten ``updates`` times at most (n,).  Each rewrite rounds to
+    the nearest f32, so two orders of the same adds may part by up to one
+    unit in the last place a rewrite, ``updates * 2**-23 * |w|`` (``|w|``
+    the largest of the three values).  ``rel``: the norm of each
+    difference's part beyond that allowance over the norm of the
+    reference's change (0 when both are 0, inf when only the change is);
+    ``change``: the reference's largest change; ``moved``: the two-tier
+    step's."""
+    got, want, before = got.float(), want.float(), before.float()
+    m = updates.to(got.device, torch.float32).reshape(
+        -1, *[1] * (got.dim() - 1))
+    w = torch.maximum(torch.maximum(got.abs(), want.abs()), before.abs())
+    beyond = ((got - want).abs() - m * 2.0 ** -23 * w).clamp(min=0)
+    change = want - before
+    num, den = beyond.norm().item(), change.norm().item()
+    return {"rel": num / den if den else (0.0 if num == 0 else float("inf")),
+            "change": change.abs().max().item() if change.numel() else 0.0,
+            "moved": (got - before).abs().max().item()
+            if got.numel() else 0.0}
+
+
+def touched_rows_check(tiered: dict, state, batches: list, config, *,
+                       optimizer: str, lr: float, block: bool, device,
+                       folds=None, main_path=contextlib.nullcontext
+                       ) -> dict:
+    """Two-tier steps held against the touched-rows model.
+
+    One two-tier step a batch of ``batches`` (``block``: one K-step block
+    of them), ``tiered`` and ``state`` (``init_tiered_opt_state``; for
+    ``sgd`` it may hold a row-wise state's accumulators, which must not
+    move) in place, inside ``main_path()``; then the same steps of the
+    port's single-device functions (``train_step``, ``train_block``,
+    ``train_step_opt``, ``train_block_opt``) on the :class:`TouchedRows`
+    model under deterministic sums (an Adagrad block's model freezes the
+    host tier's tables, as the two-tier block does).  Held:
+
+    * the losses, the dense parameters and every touched table row of both
+      tiers within ``TOUCHED_TOL``, the touched accumulator rows (and dense
+      accumulators) within ``TOUCHED_ACC_TOL``;
+    * each tier tensor's change against the reference's change, which
+      those bounds alone cannot do where a step moves a row by less than
+      them: ``rel`` of :func:`_change_error` at most ``TOUCHED_REL``
+      (a block: ``TOUCHED_REL_BLOCK``).  A
+      row's rewrites: SGD adds each hit to the table on its own (the host
+      tier adds their sum; the reference each hit), so as many as its
+      hits; Adagrad rewrites a row and its accumulator once a step, so as
+      many as its hits or the steps, whichever is fewer;
+    * every touched table tensor, and under Adagrad every accumulator
+      tensor, seen to move on both sides; under SGD the touched
+      accumulator rows unchanged, bit for bit;
+    * the XOR identity (:func:`xor_identity`) of every tier tensor, from
+      ``folds`` (the tiers' folds before, when the caller has them).
+
+    Returns {"ok", "losses", "diffs", "rel", "rel_bound", "moved",
+    "change", "xor", "folds_before", "folds" (the tiers' folds after),
+    "model"}."""
+    from dlrm_tpu_torch.parallel import host_tier as H
+    from dlrm_tpu_torch.train import train as T
+
+    frozen = tiered["emb"].plan.host_tables \
+        if block and optimizer != "sgd" else None
+    model = TouchedRows(tiered, state, batches, config, device, frozen)
+    folds = model.folds() if folds is None else folds
+    stacked = _stack(batches)
+    kw = {"config": config, "lr": lr}
+    okw = {**kw, "optimizer": optimizer}
+    ck = {**okw, "config": model.config}
+    cp, cs = model.params, model.state
+    with main_path():
+        if optimizer == "sgd" and block:
+            got = H.tiered_train_block(tiered, *_to_dev(stacked, device),
+                                       **kw).tolist()
+        elif optimizer == "sgd":
+            got = [float(H.tiered_train_step(tiered, *_to_dev(b, device),
+                                             **kw)) for b in batches]
+        elif block:
+            got = H.tiered_train_block_opt(
+                tiered, state, *_to_dev(stacked, device), **okw).tolist()
+        else:
+            got = [float(H.tiered_train_step_opt(
+                tiered, state, *_to_dev(b, device), **okw))
+                for b in batches]
+    remapped = [model.remap(b) for b in batches]
+    with _deterministic():
+        if optimizer == "sgd" and block:
+            want = T.train_block(cp, *_to_dev(_stack(remapped), device),
+                                 config=model.config, lr=lr).tolist()
+        elif optimizer == "sgd":
+            want = [float(T.train_step(cp, *_to_dev(b, device),
+                                       config=model.config, lr=lr))
+                    for b in remapped]
+        elif block:
+            want = T.train_block_opt(
+                cp, cs, *_to_dev(_stack(remapped), device), **ck).tolist()
+        else:
+            want = [float(T.train_step_opt(cp, cs, *_to_dev(b, device),
+                                           **ck)) for b in remapped]
+    after, ref = model.tier_rows(), model.compact_rows()
+    diffs = {"losses": float(np.abs(np.subtract(got, want)).max()),
+             "dense": _max_dense_diff(tiered, cp)}
+    for k, rows in after.items():
+        diffs[k] = (rows.float() - ref[k].float()).abs().max(
+        ).item() if rows.numel() else 0.0
+    if cs is not None and cs["dense"] is not None:
+        diffs["dense accumulators"] = max(
+            (a.float().cpu() - b.float().cpu()).abs().max().item()
+            for a, b in zip(_tensors(state["dense"]), _tensors(cs["dense"])))
+    errs = {}
+    for k in after:
+        hits = model.hits[k.split("-")[0]]
+        updates = hits if optimizer == "sgd" else hits.clamp(
+            max=len(batches))
+        errs[k] = _change_error(after[k], ref[k], model.before[k], updates)
+    rel = {k: e["rel"] for k, e in errs.items()}
+    rel_bound = TOUCHED_REL_BLOCK if block else TOUCHED_REL
+    # what must move, on both sides; under SGD the accumulators must not
+    must_move = [k for k in after if after[k].numel()
+                 and ("tables" in k or optimizer != "sgd")]
+    moved = {k: errs[k]["moved"] for k in must_move}
+    change = {k: errs[k]["change"] for k in must_move}
+    still = all(torch.equal(after[k], model.before[k]) for k in after
+                if "accumulators" in k and optimizer == "sgd")
+    folds_after = model.folds()
+    xor = xor_identity(folds, folds_after, model.before, after, device)
+    ok = (all(v <= (TOUCHED_ACC_TOL if "accumulators" in k else TOUCHED_TOL)
+              for k, v in diffs.items())
+          and all(v <= rel_bound for v in rel.values())
+          and all(v > 0 for v in moved.values())
+          and all(v > 0 for v in change.values())
+          and still and all(xor.values()))
+    return {"ok": ok, "losses": got, "diffs": diffs, "rel": rel,
+            "rel_bound": rel_bound, "moved": moved, "change": change,
+            "xor": xor,
+            "folds_before": folds, "folds": folds_after, "model": model}
+
+
+# -- the Criteo Terabyte model, its tables beyond the card ---------------------
+
+TB_FEATURE = 32           # Terabyte fs=32 f32: 112.99 GB of tables
+TB_BUDGET_GB = 64         # tables 0 and 19 spill: 66.61 GB of them
+TB_HOST_TABLES = (0, 19)
+TB_HOST_ROWS = 520_381_046
+TB_DEVICE_ROWS = 362_393_513
+TB_HOST_BYTES = 66_608_773_888
+TB_LR = 0.001             # the touched-rows checks' Adagrad lr
+TB_EVAL_BATCHES = 4
+TB_TIMED = 5              # timed steps, after 2
+
+
+def _tb_report(what: str, res: dict) -> None:
+    model = res["model"]
+    print(f"Terabyte {what} vs the touched-rows model ({len(model.ids)} "
+          f"tables, {model.config.total_rows} compact rows; "
+          f"{model._tier[0].numel()} device-tier and {model._tier[1].numel()}"
+          f" host-tier touched rows): losses {res['losses']}; |diff| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in res["diffs"].items())
+          + f"; change against the reference's, beyond rounding (norm "
+          f"ratio, bound {res['rel_bound']:g}): " + ", ".join(
+              f"{k} {v:.3g}" for k, v in res["rel"].items())
+          + "; moved by up to " + ", ".join(
+              f"{k} {v:.3g} (reference {res['change'][k]:.3g})"
+              for k, v in res["moved"].items())
+          + "; XOR identity over every whole tier tensor: "
+          + ", ".join(f"{k} {v}" for k, v in res["xor"].items()))
+    check(res["ok"], f"Terabyte {what} vs the touched-rows model failed "
+          f"(the line above)")
+
+
+def _tb_serving(tiered, config, plan) -> None:
+    """Serving at B=16384 through `score_batch` and `evaluate` of a few
+    batches through TieredEmb, each against the touched-rows model's
+    forward of the same batches (1e-6), launch counts read around them;
+    then both timed."""
+    from dlrm_tpu_torch.data.synthetic import batch_stream
+    from dlrm_tpu_torch.models.dlrm import forward
+    from dlrm_tpu_torch.run import score_batch
+    from dlrm_tpu_torch.train.metrics import evaluate
+
+    batches = list(batch_stream(config, BATCH, TB_EVAL_BATCHES, seed=85))
+    model = TouchedRows(tiered, None, batches, config, DEV)
+    n = len(batches)
+    with counted("Terabyte serving", n, 0, n, 0):
+        scores = [score_batch(tiered, b, config, DEV) for b in batches]
+    with counted("Terabyte evaluation", n, 0, n, 0):
+        m = evaluate(tiered, batches, config)
+    with torch.inference_mode():
+        want = [forward(model.params, *_to_dev(model.remap(b))[:2],
+                        model.config).cpu().numpy() for b in batches]
+    m_want = evaluate(model.params, [model.remap(b) for b in batches],
+                      model.config)
+    sdiff = max(float(np.abs(a - b).max()) for a, b in zip(scores, want))
+    mdiff = max(abs(m[k] - m_want[k]) for k in ("loss", "auc", "accuracy"))
+    check(sdiff <= 1e-6 and mdiff <= 1e-6 and m["examples"] == n * BATCH,
+          f"Terabyte serving / evaluation vs the touched-rows model: scores "
+          f"{sdiff}, metrics {m} vs {m_want}")
+    serve, ev = [], []
+    for i in range(2 + TB_TIMED):
+        t0 = time.perf_counter()
+        score_batch(tiered, batches[i % n], config, DEV)
+        serve.append(time.perf_counter() - t0)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        evaluate(tiered, batches, config)
+        ev.append((time.perf_counter() - t0) / n)
+    s_ms = statistics.median(serve[2:]) * 1e3
+    e_ms = statistics.median(ev[1:]) * 1e3
+    print(f"Terabyte serving at B={BATCH} through TieredEmb ({n} batches, "
+          f"tables {list(plan.host_tables)} read from host memory): scores "
+          f"vs the touched-rows model |diff| {sdiff:.3g}, evaluate's loss, "
+          f"AUC, accuracy |diff| {mdiff:.3g}; score_batch {s_ms:.3f} ms a "
+          f"batch host to host = {BATCH / s_ms * 1e3:.0f} examples/s "
+          f"(median of {TB_TIMED} after 2); evaluate {e_ms:.3f} ms a batch "
+          f"(median of 2 passes over {n} batches after 1)")
+
+
+def _tb_times(tiered, state, config, batches) -> None:
+    """Host-to-host ms a step: SGD, row-wise Adagrad, a K=4 row-wise block
+    (per step); then fused against gram, one SGD step each in turns."""
+    from dlrm_tpu_torch.parallel import host_tier as H
+
+    blocks = [_stack(batches[:BLOCK]), _stack(batches[BLOCK:2 * BLOCK])]
+    kw = {"optimizer": "rowwise_adagrad", "lr": TB_LR, "config": config}
+    timed = {"steps": TB_TIMED, "warmup": 2}
+    ms = {
+        "SGD step": _host_step_ms(lambda *b: H.tiered_train_step(
+            tiered, *b, config=config, lr=0.1), batches, **timed),
+        "row-wise Adagrad step": _host_step_ms(
+            lambda *b: H.tiered_train_step_opt(tiered, state, *b, **kw),
+            batches, **timed),
+        f"row-wise Adagrad K={BLOCK} block, a step": _host_step_ms(
+            lambda *b: H.tiered_train_block_opt(tiered, state, *b,
+                                                **kw)[-1],
+            blocks, **timed) / BLOCK}
+    print(f"Terabyte two-tier step times at B={TRAIN_BATCH} (ms host to "
+          f"host, median of {TB_TIMED} after 2): " + "; ".join(
+              f"{k} {v:.3f} = {TRAIN_BATCH / v * 1e3:.0f} examples/s"
+              for k, v in ms.items()))
+    gram = dataclasses.replace(config, interaction_impl="gram")
+    turns = {"fused": [], "gram": []}
+    order = ("fused", "gram", "gram", "fused") * 4
+    for i, name in enumerate(["fused", "gram"] + list(order)):
+        cfg = config if name == "fused" else gram
+        t0 = time.perf_counter()
+        float(H.tiered_train_step(tiered, *_to_dev(batches[i % len(batches)]),
+                                  config=cfg, lr=0.1))
+        if i >= 2:
+            turns[name].append((time.perf_counter() - t0) * 1e3)
+    print(f"Terabyte fs={TB_FEATURE} SGD step, fused against gram, one step "
+          f"each in turns ({len(order) // 2} each after one of each): fused "
+          f"median {statistics.median(turns['fused']):.3f} ms, gram "
+          f"{statistics.median(turns['gram']):.3f} ms (recorded only: the "
+          f"auto rule keeps gram at fs != 128)")
+
+
+def phase_terabyte() -> None:
+    """The Criteo Terabyte model at fs=32, f32, fused, under
+    ``--hbm-budget-gb 64``: 112.99 GB of tables, tables 0 and 19 (66.61 GB)
+    in host memory registered at its exact size, the rest (46.39 GB) on the
+    card.  The host's memory checked first; the tiers drawn (seconds,
+    resident-set growth, device peak); the host-tier kernels timed at a
+    training batch's host ids against their plain versions and bounds;
+    the CLI's two row-wise steps in process; an SGD step, a row-wise
+    Adagrad step from warm accumulators and a K=4 row-wise block, each
+    against the touched-rows model with the XOR identity over every whole
+    tier; serving and evaluation; step times, fused against gram in turns,
+    a profile; the tiers released; then `train --config terabyte` in a
+    subprocess against the in-process losses."""
+    from dlrm_tpu_torch import terabyte_config
+    from dlrm_tpu_torch.data.synthetic import batch_stream
+    from dlrm_tpu_torch.parallel import host_tier as H
+
+    config = terabyte_config(feature_size=TB_FEATURE,
+                             interaction_impl="fused")
+    plan = H.plan_tiers(config, int(TB_BUDGET_GB * H.GIB))
+    row = config.feature_size * 4
+    host_bytes, acc_bytes = plan.host_rows * row, plan.host_rows * 4
+    dev_bytes = plan.device_rows * row
+    check(plan.host_tables == TB_HOST_TABLES
+          and plan.host_rows == TB_HOST_ROWS
+          and plan.device_rows == TB_DEVICE_ROWS
+          and host_bytes == TB_HOST_BYTES, f"Terabyte tier plan {plan}")
+    need = host_bytes + acc_bytes + 16 * GIB
+    mem = _meminfo()
+    print(f"Terabyte fs={TB_FEATURE} f32 under --hbm-budget-gb "
+          f"{TB_BUDGET_GB}: {config.total_rows} rows = "
+          f"{config.total_rows * row} B of tables; card: "
+          f"{len(plan.device_tables)} tables, {plan.device_rows} rows = "
+          f"{dev_bytes} B (+ {plan.device_rows * 4} B row-wise "
+          f"accumulator); host: tables {list(plan.host_tables)}, "
+          f"{plan.host_rows} rows = {host_bytes} B (+ {acc_bytes} B "
+          f"accumulator); host MemTotal {mem['MemTotal']} B, MemAvailable "
+          f"{mem['MemAvailable']} B, needed {need} B")
+    check(mem["MemAvailable"] >= need, f"Terabyte phase: MemAvailable "
+          f"{mem['MemAvailable']} B, it needs the host tier, its "
+          f"accumulator and 16 GiB: {need} B")
+    rates = _pinned_rates()
+    _release_pinned()
+    rss0 = _rss()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    resident = torch.cuda.memory_allocated(DEV)
+    t0 = time.perf_counter()
+    tiered = H.draw_tiered_params(
+        torch.Generator(DEV).manual_seed(config.seed), plan, config, DEV)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    draw_peak = torch.cuda.max_memory_allocated(DEV) - resident
+    emb = tiered["emb"]
+    rss1 = _rss()
+    check(emb.dev.numel() * 4 == dev_bytes, f"device tier {emb.dev.shape}")
+    _check_host_tier_size(emb.host, host_bytes, rss1 - rss0)
+    print(f"Terabyte drawn straight into the tiers (registering the host "
+          f"tier included) in {draw_s:.2f} s: device tier "
+          f"{dev_bytes / 1e9:.2f} GB, device peak {draw_peak / 1e9:.3f} GB, "
+          f"host resident set {rss0 / 1e9:.3f} -> {rss1 / 1e9:.3f} GB; "
+          f"MemAvailable {_meminfo()['MemAvailable']} B")
+
+    stream = list(batch_stream(config, TRAIN_BATCH, 2, seed=0))  # the CLI's
+    ids = _host_ids(plan, torch.from_numpy(stream[0]["sparse"]).to(DEV))
+    pooled = torch.zeros((TRAIN_BATCH, config.num_tables, TB_FEATURE),
+                         device=DEV)
+    ref = torch.zeros_like(pooled)
+    uniq = torch.unique(ids.long())
+    print(f"host-tier kernels at a Terabyte training batch's "
+          f"{ids.numel()} host ids ({uniq.numel()} distinct) of {row} B rows "
+          f"on the {host_bytes / 1e9:.2f} GB mapping (before the host CPU "
+          f"touches a row):")
+    _host_kernel_times(H, emb.host, ids, uniq, pooled, ref, plan.host_tables,
+                       rates)
+    H.host_gather(emb.host, ids, out=pooled, cols=plan.host_tables)
+    H.host_gather_reference(emb.host, ids, ref, plan.host_tables)
+    torch.cuda.synchronize()
+    check(torch.equal(pooled, ref), "host_gather at Terabyte's host ids "
+          "differs from its plain version")
+    del pooled, ref
+    upd = torch.randn((uniq.numel(), TB_FEATURE),
+                      generator=torch.Generator(DEV).manual_seed(79),
+                      device=DEV)
+    for rows in (uniq, uniq[torch.randperm(
+            uniq.numel(), generator=torch.Generator(DEV).manual_seed(83),
+            device=DEV)].int()):
+        _update_pair(emb.host, rows, upd)
+    print(f"host-tier kernels vs plain at Terabyte's host ids: host_gather "
+          f"bit for bit into the pooled columns; host_update_rows of a "
+          f"random N(0, 1) update to the {uniq.numel()} distinct rows, sorted"
+          f" and shuffled, bit for bit and the f32 sum (the rows put back)")
+
+    rss1 = _rss()
+    state = H.init_tiered_opt_state(tiered, config=config,
+                                    optimizer="rowwise_adagrad")
+    acc = state["host_acc"]
+    grew = _rss() - rss1
+    check(acc.untyped_storage().nbytes() == acc_bytes and acc.is_pinned()
+          and acc_bytes - TIER_RSS_SLACK <= grew <= acc_bytes
+          + TIER_RSS_SLACK, f"host accumulator of "
+          f"{acc.untyped_storage().nbytes()} B (pinned {acc.is_pinned()}) "
+          f"grew the resident set by {grew} B, not {acc_bytes} B")
+    print(f"row-wise Adagrad state: host accumulator {acc_bytes} B "
+          f"registered at its exact size (resident set +{grew} B), device "
+          f"accumulator {state['dev_acc'].numel() * 4} B")
+    # the CLI's run in process: its stream and zero accumulators, at the
+    # full-width CLI runs' lr (from zero accumulators the default 0.1 moves
+    # every touched weight by about 0.1 and saturates the loss)
+    with counted("Terabyte row-wise steps (the CLI's two)", 2, 2, 4, 4):
+        cli_losses = [float(H.tiered_train_step_opt(
+            tiered, state, *_to_dev(b), config=config,
+            optimizer="rowwise_adagrad", lr=FULL_LR)) for b in stream]
+    print(f"the CLI's two row-wise steps in process: losses {cli_losses}")
+
+    batches = list(batch_stream(config, TRAIN_BATCH, 2 + BLOCK, seed=81))
+    res = touched_rows_check(
+        tiered, state, batches[:1], config, optimizer="sgd", lr=0.1,
+        block=False, device=DEV,
+        main_path=lambda: counted("Terabyte two-tier SGD step", 1, 1, 1, 1))
+    _tb_report("SGD step", res)
+    torch.cuda.synchronize()
+    for a in [state["dev_acc"], state["host_acc"]] + _tensors(
+            state["dense"]):
+        a.clamp_(min=1e-6)   # warm accumulators (_warm)
+    res = touched_rows_check(
+        tiered, state, batches[1:2], config, optimizer="rowwise_adagrad",
+        lr=TB_LR, block=False, device=DEV, main_path=lambda: counted(
+            "Terabyte two-tier row-wise step", 1, 1, 2, 2))
+    _tb_report("row-wise Adagrad step (warm accumulators)", res)
+    res = touched_rows_check(
+        tiered, state, batches[2:], config, optimizer="rowwise_adagrad",
+        lr=TB_LR, block=True, device=DEV, folds=res["folds"],
+        main_path=lambda: counted(f"Terabyte two-tier row-wise K={BLOCK} "
+                                  f"block", BLOCK, BLOCK, 2, 2))
+    _tb_report(f"row-wise Adagrad K={BLOCK} block", res)
+    del res
+    torch.cuda.empty_cache()
+
+    _tb_serving(tiered, config, plan)
+    _tb_times(tiered, state, config, batches + stream)
+    host_groups = (("host_gather kernel (host tier, over PCIe)",
+                    ("host_gather_kernel",)),
+                   ("host_update_rows kernel (host tier, over PCIe)",
+                    ("host_update_rows_kernel",)))
+    groups = _profile_steps("Terabyte two-tier SGD steps", lambda data: [
+        float(H.tiered_train_step(tiered, *_to_dev(b), config=config,
+                                  lr=0.1)) for b in data], batches,
+        pooled_bytes=TRAIN_BATCH * config.num_tables * TB_FEATURE * 4,
+        groups=host_groups)
+    check(groups is None or all(groups[name] > 0 for name, _ in host_groups),
+          f"the Terabyte step's profile lacks a host-tier kernel: {groups}")
+    print(f"Terabyte device peak memory over the phase: "
+          f"{torch.cuda.max_memory_allocated(DEV) / 1e9:.3f} GB (the device "
+          f"tier {dev_bytes / 1e9:.2f} GB and its accumulator "
+          f"{plan.device_rows * 4 / 1e9:.2f} GB resident)")
+
+    rss2 = _rss()
+    del tiered, emb, state, acc, ids, uniq
+    torch.cuda.empty_cache()
+    _release_pinned()
+    rss3 = _rss()
+    check(rss2 - rss3 >= host_bytes + acc_bytes - TIER_RSS_SLACK,
+          f"releasing the Terabyte tiers gave back {rss2 - rss3} B of the "
+          f"host's resident set, not {host_bytes + acc_bytes} B")
+    print(f"Terabyte tiers released and unregistered: host resident set "
+          f"{rss2 / 1e9:.3f} -> {rss3 / 1e9:.3f} GB, MemAvailable "
+          f"{_meminfo()['MemAvailable']} B, device memory allocated "
+          f"{torch.cuda.memory_allocated(DEV) / 1e9:.3f} GB")
+
+    args = ["train", "--config", "terabyte", "--feature-size",
+            str(TB_FEATURE), "--interaction", "fused", "--hbm-budget-gb",
+            str(TB_BUDGET_GB), "--optimizer", "rowwise_adagrad", "--lr",
+            str(FULL_LR), "--steps", "2", "--batch-size", str(TRAIN_BATCH),
+            "--log-every", "1", "--device", DEV.type]
+    res = _cli(args)
+    line = _line(args, res)
+    lines = _loss_lines(res.stderr)
+    # the status lines print 5 decimals: held against the in-process
+    # losses rounded alike
+    diff = max(abs(a - round(b, 5)) for a, b in zip(lines, cli_losses)) \
+        if len(lines) == 2 else float("inf")
+    final = abs(line["final_loss"] - cli_losses[-1])
+    check(line["steps"] == 2 and diff <= 1e-5 and final <= 1e-5
+          and f"host-tier tables: {list(TB_HOST_TABLES)} "
+          f"({TB_HOST_ROWS:,} rows)" in res.stderr,
+          f"train --config terabyte: {lines} (final {line['final_loss']}) vs "
+          f"in process {cli_losses}; {res.stderr[-800:]}")
+    peak = res.peak_rss.get("VmRSS", 0)
+    check(host_bytes + acc_bytes <= peak < host_bytes + acc_bytes + 16 * GIB,
+          f"train --config terabyte: peak resident set {res.peak_rss}")
+    print(f"train --config terabyte --feature-size {TB_FEATURE} --interaction"
+          f" fused --hbm-budget-gb {TB_BUDGET_GB} --optimizer "
+          f"rowwise_adagrad --lr {FULL_LR}, 2 steps at B={TRAIN_BATCH}: loss "
+          f"lines {lines} "
+          f"vs in process {[round(x, 7) for x in cli_losses]} (|diff| "
+          f"{diff:.3g}; final loss {final:.3g}); wall time {res.seconds:.2f}"
+          f" s, peak resident set " + ", ".join(
+              f"{k} {v / 1e9:.3f} GB" for k, v in res.peak_rss.items()))
 
 
 # -- the sharded CLI -----------------------------------------------------------
@@ -3127,15 +3835,17 @@ def phase_sharded_cli() -> None:
     sharded steps in process from the same draw (loss 1e-5, accumulators
     1e-6, touched and edge rows and dense parameters 1e-3: Adagrad from
     zero, ROADMAP.md §3), the checkpoint's placement; the step-4 checkpoint
-    restored in process (GB/s); `eval --ckpt-dir` on the mesh and unsharded
-    in one process against `sharded_evaluate` (1e-6); `predict --sharded
-    true` in f32 and with `--quantize-tables int8` against sharded serving
-    in process on the same codes (1e-6), the int8 serving's device peak
-    below the codes' bytes plus 1 GiB; `train --distributed --mesh-shape
-    1x1 --paranoid 1 --host-tables 2,11,20 --exchange-dtype bf16` (SGD):
-    the replica check's status lines, the host tier's rows and the peak
-    resident set of its exact size.  Each process's wall time and peak
-    resident set, and the CLI's save and restore rates."""
+    restored in process (GB/s); then together, beside the evaluation in
+    process: `eval --ckpt-dir` on the mesh and unsharded in one process
+    against `sharded_evaluate` (1e-6), and `train --distributed
+    --mesh-shape 1x1 --paranoid 1 --host-tables 2,11,20 --exchange-dtype
+    bf16` (SGD): the replica check's status lines, the host tier's rows
+    and the peak resident set of its exact size; then together, beside
+    the serving in process, `predict --sharded true` in f32 and with
+    `--quantize-tables int8` against sharded serving in process on the
+    same codes (1e-6), the int8 serving's device peak below the codes'
+    bytes plus 1 GiB.  Each process's wall time and peak resident set,
+    and the CLI's save and restore rates."""
     import torch.distributed as dist
     from dlrm_tpu_torch import kaggle_config
     from dlrm_tpu_torch.data.criteo import DACLoader, load
@@ -3164,6 +3874,14 @@ def phase_sharded_cli() -> None:
     bsz, n = str(TRAIN_BATCH), BATCH + SHARD_CLI_TAIL
     table_bytes = config.total_rows * config.feature_size * 4
     rss, rates = {}, []
+    host = plan_placement(config.table_sizes, 1, host_tables=(2, 11, 20))
+    host_bytes = host.host_local_rows * config.feature_size * 4
+    host_args = ["train", *model, "--distributed", "--coordinator",
+                 f"127.0.0.1:{_free_port()}", "--num-processes", "1",
+                 "--process-id", "0", "--sharded", "true", "--mesh-shape",
+                 "1x1", "--paranoid", "1", "--host-tables", "2,11,20",
+                 "--exchange-dtype", "bf16", "--steps", "2", "--batch-size",
+                 bsz, "--log-every", "1"]
     dev = pmesh.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
                                  device=DEV)
     check(dist.get_backend() == ("nccl" if DEV.type == "cuda" else "gloo"),
@@ -3263,17 +3981,22 @@ def phase_sharded_cli() -> None:
             del opt, payload
             torch.cuda.empty_cache()
 
+            # the two evals and the host-table run, together, beside the
+            # evaluation in process (the restore above was timed alone)
+            ev = ["eval", *model, "--ckpt-dir", d, "--data", data,
+                  "--batch-size", str(BATCH)]
+            evals = [(what, _Cli(ev + extra)) for what, extra in (
+                ("on the mesh", ["--sharded", "true"]),
+                ("unsharded in one process", []))]
+            host_cli = _Cli(host_args)
             batches = -(-n // BATCH)
             with counted("sharded_evaluate of the checkpoint", batches, 0):
                 want = sharded_evaluate(
                     params, DACLoader(load(data), BATCH,
                                       drop_remainder=False),
                     config, mesh=mesh, placement=p)
-            ev = ["eval", *model, "--ckpt-dir", d, "--data", data,
-                  "--batch-size", str(BATCH)]
-            for what, extra in (("on the mesh", ["--sharded", "true"]),
-                                ("unsharded in one process", [])):
-                res = _cli(ev + extra)
+            for what, cli in evals:
+                res = cli.wait()
                 line = _line(ev, res)
                 rss[f"eval --ckpt-dir {what}"] = res
                 ediff = max(abs(line[k] - want[k])
@@ -3284,6 +4007,36 @@ def phase_sharded_cli() -> None:
                 print(f"eval --ckpt-dir {what} vs sharded_evaluate in "
                       f"process over {n} rows: |diff| {ediff:.3g}")
 
+            res = host_cli.wait()
+            line = _line(host_args, res)
+            rss["train --distributed --mesh-shape 1x1 --host-tables"] = res
+            vm = res.peak_rss.get("VmRSS", 0)
+            check(line["steps"] == 2 and np.isfinite(line["final_loss"])
+                  and len(_loss_lines(res.stderr)) == 2
+                  and "--paranoid: the DCN table replicas agree at step 1"
+                  in res.stderr and "replicas agree at step 2" in res.stderr
+                  and f"host-resident row-sharded tables: [2, 11, 20] "
+                  f"({host.host_local_rows:,} rows a shard in host memory)"
+                  in res.stderr and host_bytes <= vm <= host_bytes + 7 * GIB,
+                  f"train --distributed --paranoid --host-tables: {line}, "
+                  f"peak VmRSS {vm} B for a {host_bytes} B host tier, "
+                  f"{res.stderr[-800:]}")
+            print(f"train --distributed --mesh-shape 1x1 --paranoid 1 "
+                  f"--host-tables 2,11,20 --exchange-dtype bf16 (SGD, 2 "
+                  f"steps): losses {_loss_lines(res.stderr)}, the replica "
+                  f"check at each step, a {host_bytes} B host tier of "
+                  f"{host.host_local_rows:,} rows, peak VmRSS {vm} B")
+
+            pr = ["predict", *model, "--ckpt-dir", d, "--data", data,
+                  "--batch-size", str(BATCH), "--sharded", "true"]
+            predicts = [(what, extra, str(tmp / f"scores_{what}.npy"))
+                        for what, extra in (
+                            ("f32", []),
+                            ("int8", ["--quantize-tables", "int8"]))]
+            # both predicts together, beside the serving in process (the
+            # host-table run has left the card)
+            predicts = [(what, out, _Cli(pr + extra + ["--out", out]))
+                        for what, extra, out in predicts]
             fwd = make_sharded_eval_forward(config, mesh, p)
             dense = {"bottom": params["bottom"], "top": params["top"]}
             loader = list(DACLoader(load(data), BATCH, drop_remainder=False))
@@ -3322,13 +4075,8 @@ def phase_sharded_cli() -> None:
             q_peak = torch.cuda.max_memory_allocated(DEV)
             check(q_peak < int8_bytes + GIB, f"int8 sharded serving: device "
                   f"peak {q_peak} B, codes and scales {int8_bytes} B")
-            pr = ["predict", *model, "--ckpt-dir", d, "--data", data,
-                  "--batch-size", str(BATCH), "--sharded", "true"]
-            for what, extra, want_s in (
-                    ("f32", [], want_f32),
-                    ("int8", ["--quantize-tables", "int8"], want_q)):
-                out = str(tmp / f"scores_{what}.npy")
-                res = _cli(pr + extra + ["--out", out])
+            for (what, out, cli), want_s in zip(predicts, (want_f32, want_q)):
+                res = cli.wait()
                 line = _line(pr, res)
                 rss[f"predict --sharded true ({what})"] = res
                 sdiff = float(np.abs(np.load(out) - want_s).max())
@@ -3344,41 +4092,14 @@ def phase_sharded_cli() -> None:
             del codes, scales, cs_codes, cs_scales, params, dense
             torch.cuda.empty_cache()
 
-        host = plan_placement(config.table_sizes, 1,
-                              host_tables=(2, 11, 20))
-        host_bytes = host.host_local_rows * config.feature_size * 4
-        args = ["train", *model, "--distributed", "--coordinator",
-                f"127.0.0.1:{_free_port()}", "--num-processes", "1",
-                "--process-id", "0", "--sharded", "true", "--mesh-shape",
-                "1x1", "--paranoid", "1", "--host-tables", "2,11,20",
-                "--exchange-dtype", "bf16", "--steps", "2", "--batch-size",
-                bsz, "--log-every", "1"]
-        res = _cli(args)
-        line = _line(args, res)
-        rss["train --distributed --mesh-shape 1x1 --host-tables"] = res
-        vm = res.peak_rss.get("VmRSS", 0)
-        check(line["steps"] == 2 and np.isfinite(line["final_loss"])
-              and len(_loss_lines(res.stderr)) == 2
-              and "--paranoid: the DCN table replicas agree at step 1"
-              in res.stderr and "replicas agree at step 2" in res.stderr
-              and f"host-resident row-sharded tables: [2, 11, 20] "
-              f"({host.host_local_rows:,} rows a shard in host memory)"
-              in res.stderr and host_bytes <= vm <= host_bytes + 7 * GIB,
-              f"train --distributed --paranoid --host-tables: {line}, peak "
-              f"VmRSS {vm} B for a {host_bytes} B host tier, "
-              f"{res.stderr[-800:]}")
-        print(f"train --distributed --mesh-shape 1x1 --paranoid 1 "
-              f"--host-tables 2,11,20 --exchange-dtype bf16 (SGD, 2 steps): "
-              f"losses {_loss_lines(res.stderr)}, the replica check at each "
-              f"step, a {host_bytes} B host tier of "
-              f"{host.host_local_rows:,} rows, peak VmRSS {vm} B")
     finally:
         dist.destroy_process_group()
         torch.cuda.empty_cache()
     print("sharded CLI's save and restore (one process, all its state): "
           + "; ".join(rates))
     print("sharded CLI, each process's wall time and peak resident set (GB;"
-          " sampled every 2 ms): " + "; ".join(
+          " sampled every 2 ms; the two evals and the host-table run ran "
+          "together, then the two predicts): " + "; ".join(
               f"{k} {r.seconds:.2f} s, " + ", ".join(
                   f"{m} {v / 1e9:.3f}" for m, v in r.peak_rss.items())
               for k, r in rss.items()))
@@ -3858,39 +4579,73 @@ def _status(pid: int) -> dict:
     return out
 
 
-def _cli(args: list, ok: bool = True) -> subprocess.CompletedProcess:
-    """``python -m dlrm_tpu_torch *args``; it must exit 0 (``ok``) or not.
-    ``.peak_rss``: the process's peak of each of ``_RSS_KEYS`` that its
-    /proc status shows, sampled every 2 ms; ``.seconds``: its wall time."""
-    proc = subprocess.Popen([sys.executable, "-m", "dlrm_tpu_torch", *args],
-                            cwd=REPO, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-    peak, stop = {}, threading.Event()
+_RUNNING = []   # the _Cli processes not yet waited for
 
-    def sample():
-        while not stop.wait(0.002):
+
+class _Cli:
+    """``python -m dlrm_tpu_torch *args``, started now, beside whatever
+    this process does next; :meth:`wait` ends it.  A thread reads its
+    output as it comes and notes its wall time; another samples its peak
+    of each of ``_RSS_KEYS`` that its /proc status shows, every 2 ms."""
+
+    def __init__(self, args: list):
+        self.args, self.peak, self.seconds = args, {}, None
+        self.out = self.err = ""
+        self._done = threading.Event()
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "dlrm_tpu_torch", *args], cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        _RUNNING.append(self)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._sampler = threading.Thread(target=self._sample, daemon=True)
+        self._reader.start()
+        self._sampler.start()
+
+    def _read(self) -> None:
+        self.out, self.err = self.proc.communicate()
+        self.seconds = time.perf_counter() - self.t0
+        self._done.set()
+
+    def _sample(self) -> None:
+        while not self._done.wait(0.002):
             try:
-                now = _status(proc.pid)
+                now = _status(self.proc.pid)
             except OSError:
                 return
             for k, v in now.items():
-                peak[k] = max(peak.get(k, 0), v)
+                self.peak[k] = max(self.peak.get(k, 0), v)
 
-    sampler = threading.Thread(target=sample, daemon=True)
-    sampler.start()
-    t0 = time.perf_counter()
-    try:
-        out, err = proc.communicate(timeout=600)
-    finally:
-        proc.kill()
-        proc.wait()
-        stop.set()
-        sampler.join(timeout=10)
-    res = subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
-    res.peak_rss, res.seconds = peak, time.perf_counter() - t0
-    check((res.returncode == 0) == ok,
-          f"{args[0]} exited {res.returncode}: {res.stderr[-2000:]}")
-    return res
+    def stop(self) -> None:
+        """Kill the process if it still runs, and reap it."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self._reader.join(timeout=10)
+        self._sampler.join(timeout=10)
+        if self in _RUNNING:
+            _RUNNING.remove(self)
+
+    def wait(self, ok: bool = True) -> subprocess.CompletedProcess:
+        """The process ended (killed 600 s after its start); it must have
+        exited 0 (``ok``) or not.  ``.peak_rss``: its peaks; ``.seconds``:
+        its wall time."""
+        self._done.wait(max(0.0, 600 - (time.perf_counter() - self.t0)))
+        self.stop()
+        res = subprocess.CompletedProcess(self.proc.args,
+                                          self.proc.returncode, self.out,
+                                          self.err)
+        res.peak_rss = self.peak
+        res.seconds = self.seconds or time.perf_counter() - self.t0
+        check((res.returncode == 0) == ok,
+              f"{self.args[0]} exited {res.returncode}: "
+              f"{res.stderr[-2000:]}")
+        return res
+
+
+def _cli(args: list, ok: bool = True) -> subprocess.CompletedProcess:
+    """:class:`_Cli` of ``args``, waited for."""
+    return _Cli(args).wait(ok)
 
 
 def _line(args: list, res: subprocess.CompletedProcess,
@@ -4130,7 +4885,8 @@ def _full_width_entry_points() -> None:
     """Kaggle fs=128 at full width (f32, fused, B=32768) through the CLI on
     the card: `train --ckpt-dir` with row-wise Adagrad, 2 steps and a
     resume to 4, held to the same 4 steps in process; `eval --ckpt-dir`
-    held to `evaluate` of the checkpoint; `export --quantize int8`, then
+    held to `evaluate` of the checkpoint; `export --quantize int8` (these
+    two run together, beside the steps in process), then
     `predict --ckpt-dir` on the artifact held to the card's quantizer in
     process; each process's peak resident set, which must stay far below
     the tables' bytes; then `instrument` held to the instrumented step in
@@ -4173,6 +4929,13 @@ def _full_width_entry_points() -> None:
               and "resumed from step 2" in res.stderr
               and all_steps(d) == [4], f"train --ckpt-dir at full width: "
               f"{lines}, checkpoints {all_steps(d)}")
+        # eval (on the card) and export (on the host) read the step-4
+        # checkpoint beside the steps in process
+        ev_args = ["eval", *model, "--data", data, "--ckpt-dir", d,
+                   "--batch-size", bsz]
+        ex_args = ["export", *model[:4], "--ckpt-dir", d, "--out", q,
+                   "--quantize", "int8"]
+        ev_cli, ex_cli = _Cli(ev_args), _Cli(ex_args)
         # in process: the same init and 2 steps, then (the resumed run
         # restarts the stream from --seed) the same 2 batches again
         p = init_params(torch.Generator(DEV).manual_seed(config.seed),
@@ -4206,19 +4969,15 @@ def _full_width_entry_points() -> None:
         del p, state
         torch.cuda.empty_cache()
 
-        args = ["eval", *model, "--data", data, "--ckpt-dir", d,
-                "--batch-size", bsz]
-        res = _cli(args)
-        line, rss["eval --ckpt-dir"] = _line(args, res), res
         want = evaluate(saved, DACLoader(load(data), TRAIN_BATCH,
                                          drop_remainder=False), config)
+        res = ev_cli.wait()
+        line, rss["eval --ckpt-dir"] = _line(ev_args, res), res
         ediff = [abs(line[k] - want[k]) for k in ("loss", "auc", "accuracy")]
         check(line["examples"] == n and max(ediff) <= 1e-6,
               f"eval --ckpt-dir at full width: {line} vs in process {want}")
-        args = ["export", *model[:4], "--ckpt-dir", d, "--out", q,
-                "--quantize", "int8"]
-        res = _cli(args)
-        line = _line(args, res, on_device=False)
+        res = ex_cli.wait()
+        line = _line(ex_args, res, on_device=False)
         rss["export --quantize int8"] = res
         check(line["quantized"] == "int8" and line["table_bytes"] ==
               INT8_BYTES and line["total_rows"] == config.total_rows,
@@ -4244,7 +5003,8 @@ def _full_width_entry_points() -> None:
         del saved, qp
         torch.cuda.empty_cache()
     print(f"full-width CLI, each process's wall time and peak resident set "
-          f"(GB; sampled every 2 ms from /proc/<pid>/status), the f32 "
+          f"(GB; sampled every 2 ms from /proc/<pid>/status; eval and export"
+          f" ran together beside the steps in process), the f32 "
           f"tables being {table_bytes / 1e9:.2f} GB and the int8 ones "
           f"{INT8_BYTES / 1e9:.2f} GB: " + "; ".join(
               f"{k} {r.seconds:.2f} s, " + ", ".join(
@@ -4308,16 +5068,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     kern = {}
-    for phase in (phase_card, phase_kernels, phase_serving, phase_training,
-                  phase_evaluation, phase_sharded, phase_sharded_optim,
-                  phase_sharded_cli, phase_optimizers,
-                  phase_checkpoint,
-                  phase_telemetry, phase_int8_serving, phase_data,
-                  phase_two_tier, phase_small_inputs, phase_small_optimizers,
-                  phase_entry_points):
-        t0 = time.perf_counter()
-        kern.update(phase() or {})
-        print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    try:
+        for phase in (phase_card, phase_kernels, phase_serving,
+                      phase_training, phase_evaluation, phase_sharded,
+                      phase_sharded_optim, phase_sharded_cli,
+                      phase_optimizers, phase_checkpoint, phase_telemetry,
+                      phase_int8_serving, phase_data, phase_two_tier,
+                      phase_small_inputs, phase_small_optimizers,
+                      phase_entry_points, phase_terabyte):
+            t0 = time.perf_counter()
+            kern.update(phase() or {})
+            print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        for c in list(_RUNNING):    # a phase failed with a CLI running
+            c.stop()
     rows = []
     for (name, source, replaces), n in zip((
             ("interaction_fwd", "interaction_fwd.cu",
