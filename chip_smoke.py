@@ -8,14 +8,16 @@ result):
   2. every hand-written kernel against its plain torch version on the card,
      at the main paths' shapes and at ragged / padded ones, f32 and bf16,
      on the two sources (x, feats) the model hands over, timed with CUDA
-     events; the forward on the stacked T's views gives the same bits, and
-     takes the bulk-copy path wherever the rows allow it; the fused
-     interaction's autograd gradient against autograd through the gram
-     interaction;
+     events; both interaction kernels on the stacked T's views give the
+     same bits, and take their bulk-copy paths wherever the rows allow it;
+     the fused interaction's autograd gradient against autograd through
+     the gram interaction; the backward with its cotangent a view 4 bytes
+     into its storage, ending at the storage's last byte, with a ragged
+     last group;
   3. serving: Kaggle fs=128 at full width (26 tables, 33.76 M rows x 128 in
      f32, random weights from a seed) scoring batches of 16384 through the
      scoring function of `predict`, with the kernels' launch counts (and
-     the forward's bulk-copy launches) read around it, then a
+     the interaction kernels' bulk-copy launches) read around it, then a
      `torch.profiler` breakdown of a served batch that must show no cat
      and no full-size copy of the pooled rows;
   4. training: the same model, 8 exact-SGD steps at B=32768 through
@@ -274,8 +276,9 @@ def _bound(kname: str, inputs: list, outputs: list, b: int, f: int,
     once and every output written once at the HBM rate, against the f32
     multiply-adds the function needs at the f32 peak.  Forward: the P pair
     dots of D products per sample.  Backward: dT = (dZ + dZ^T) T, F * F * D
-    products per sample.  The byte count does not depend on how the
-    inputs are laid out (one T, or x and feats apart)."""
+    products per sample; of its cotangent the caller passes only the D + P
+    columns the function reads (not the padding).  The byte count does not
+    depend on how the inputs are laid out (one T, or x and feats apart)."""
     nbytes = sum(x.numel() * x.element_size() for x in inputs + outputs)
     flops = 2 * b * d * (f * (f - 1) // 2 if kname == "interaction_fwd"
                          else f * f)
@@ -297,22 +300,77 @@ def _fwd_views_agree(F, t, pad_to: int, out) -> bool:
     return F.interaction_fwd.bulk_launches > before
 
 
+def _bwd_views_agree(F, t, cot, got) -> bool:
+    """Checks that the backward on the T-view form (t[:, 0], t[:, 1:], dT
+    written through dt[:, 0] and dt[:, 1:], sample stride F * D) gives the
+    bits of the two-source form's dT ``got``; returns whether that launch
+    took the bulk-copy path."""
+    before = F.interaction_bwd.bulk_launches
+    dt = torch.full_like(t, float("nan"))
+    F.interaction_bwd(cot, t[:, 0], t[:, 1:], out=(dt[:, 0], dt[:, 1:]))
+    torch.cuda.synchronize()
+    check(torch.equal(dt, got), f"interaction_bwd: T-view and two-source "
+          f"forms differ at {tuple(t.shape)} {t.dtype}")
+    return F.interaction_bwd.bulk_launches > before
+
+
+def _bwd_g_views(F) -> None:
+    """The backward with its cotangent g a view that starts 4 bytes into
+    its storage and ends at the storage's last byte, so that no row of g is
+    16-byte aligned where the batch's rows are: every group's g run is
+    staged in place (its aligned inside by a bulk copy, its head and tail
+    by plain loads), and the last group's run ends at g's last byte.  At
+    (16384, 27, 128), at Terabyte's D=32 with a batch of 32767 (the last
+    group ragged, 3 of 4 samples) and at (107, 27, 128) (the last group 1
+    of 2); f32 and bf16, against the plain version and the T-view form."""
+    g = torch.Generator(DEV).manual_seed(1)
+    for b, f, d in [(BATCH, 27, 128), (TRAIN_BATCH - 1, 27, TB_FEATURE),
+                    (107, 27, 128)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            t = torch.randn((b, f, d), generator=g, device=DEV).to(dtype)
+            x, feats = t[:, 0].contiguous(), t[:, 1:].contiguous()
+            w = F.output_width(f, d, 1)
+            skip = 4 // t.element_size()
+            storage = torch.randn((skip + b * w,), generator=g, device=DEV
+                                  ).to(dtype)
+            cot = storage[skip:].view(b, w)
+            check(cot.data_ptr() - storage.data_ptr() == 4,
+                  "g view offset")
+            got = torch.cat([y.reshape(b, -1, d) for y in
+                             F.interaction_bwd(cot, x, feats)], 1)
+            ref = torch.cat([y.reshape(b, -1, d) for y in
+                             F.fused_interaction_bwd_reference(cot, x,
+                                                               feats)], 1)
+            torch.cuda.synchronize()
+            rtol = 1e-5 if dtype == torch.float32 else 1e-2
+            torch.testing.assert_close(got.float(), ref.float(), atol=1e-4,
+                                       rtol=rtol)
+            check(_bwd_views_agree(F, t, cot, got),
+                  f"interaction_bwd at {(b, f, d)} {dtype}: not bulk")
+            err = (got.float() - ref.float()).abs().max().item()
+            print(f"  interaction_bwd ({b}, {f}, {d}, 1, {dtype}) with g "
+                  f"4 bytes into its storage, ending at its last byte: "
+                  f"{err:.3g}")
+
+
 def phase_kernels() -> dict:
     """Both kernels against their plain versions at every shape a main
     path gives them ((16384, 27, 128) serving and evaluation, (32768, 27,
     128) training steps and blocks, (8192, 27, 128) the clipped step, and
     Terabyte's (32768, 27, 32) and (16384, 27, 32)) and at narrow and
     ragged ones, on the two sources x = T[:, 0] and feats =
-    T[:, 1:] as the model hands them over; the forward also on the T-view
+    T[:, 1:] as the model hands them over; both also on the T-view
     form, which must give the same bits.  Rows of 16-byte multiples take
-    the forward's bulk-copy path, the rows of (13, 5, 6) its plain-load
-    path.  Each case prints its bound beside its time.  Returns the
-    numbers at (16384, 27, 128) f32, per kernel."""
+    both kernels' bulk-copy paths, the rows of (13, 5, 6) their plain-load
+    paths; then the backward with g a view off 16-byte alignment
+    (``_bwd_g_views``).  Each case prints its bound beside its time.
+    Returns the numbers at (16384, 27, 128) f32, per kernel, and the
+    backward's at the D=32 shapes f32 (``at_d32``)."""
     from dlrm_tpu_torch.ops import interaction_fused as F
     from dlrm_tpu_torch.ops.interaction import dot_interaction
 
     g = torch.Generator(DEV).manual_seed(0)
-    main = {}
+    main, d32 = {}, []
     print("kernel vs plain (B, F, D, pad_to, dtype): max_abs_err, kernel ms, "
           "plain ms, bound ms")
     for b, f, d in [(BATCH, 27, 128), (TRAIN_BATCH, 27, 128),
@@ -351,27 +409,36 @@ def phase_kernels() -> dict:
                     check(got.shape == ref.shape and got.dtype == dtype,
                           f"{kname}: shape/dtype {tuple(got.shape)} "
                           f"{got.dtype}")
+                    p = f * (f - 1) // 2
                     if kname == "interaction_fwd":
-                        p = f * (f - 1) // 2
                         check(bool((got[:, d + p:] == 0).all()),
                               "padding columns not zero")
                         bulk = _fwd_views_agree(F, t, pad_to, got)
-                        check(bulk == ((d * t.element_size()) % 16 == 0),
-                              f"interaction_fwd at {(b, f, d)} {name}: bulk "
-                              f"path {bulk}")
+                    else:
+                        bulk = _bwd_views_agree(F, t, cot, got)
+                    check(bulk == ((d * t.element_size()) % 16 == 0),
+                          f"{kname} at {(b, f, d)} {name}: bulk path "
+                          f"{bulk}")
                     torch.testing.assert_close(got.float(), ref.float(),
                                                atol=1e-4, rtol=rtol)
                     err = (got.float() - ref.float()).abs().max().item()
                     ms, plain_ms = timed_pair(kern, plain)
                     if kname == "interaction_fwd":
                         ins, outs = [x, feats], [got]
-                    else:  # dx and dfeats have the sizes of x, feats
-                        ins, outs = [cot, x, feats], [x, feats]
+                    else:  # dx and dfeats have the sizes of x, feats; of
+                        # the cotangent only the D + P columns are read
+                        ins, outs = [cot[:, :d + p], x, feats], [x, feats]
                     bound = _bound(kname, ins, outs, b, f, d)
                     print(f"  {kname} ({b}, {f}, {d}, {pad_to}, {name}): "
                           f"{err:.3g}, {ms:.4f}, {plain_ms:.4f}, "
                           f"{bound['bound_ms']:.4f} "
                           f"({bound['bound_ms'] / ms:.0%} of the bound)")
+                    if (kname == "interaction_bwd" and d == TB_FEATURE
+                            and (pad_to, dtype) == (1, torch.float32)):
+                        d32.append({"shape": [b, f, d], "ms": ms,
+                                    "plain_ms": plain_ms,
+                                    "bound_ms": bound["bound_ms"],
+                                    "share": bound["bound_ms"] / ms})
                     if (b, d, pad_to, dtype) == (BATCH, 128, 1,
                                                  torch.float32):
                         main[kname] = {
@@ -398,6 +465,8 @@ def phase_kernels() -> dict:
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
     print(f"fused vs gram autograd gradient at ({BATCH}, 27, 128) f32: max "
           f"|diff| {err:.3g}")
+    _bwd_g_views(F)
+    main["interaction_bwd"]["at_d32"] = d32
     return main
 
 
@@ -416,20 +485,21 @@ def counted(what: str, fwd: int, bwd: int, gather: int = 0,
     """A main path: every kernel's count is set to 0 before it and read
     after it; it must have launched interaction_fwd, interaction_bwd,
     host_gather and host_update_rows ``fwd``, ``bwd``, ``gather`` and
-    ``update`` times, every forward on the bulk-copy path.  The counts are
-    added to LAUNCHES."""
+    ``update`` times, every forward and every backward on the bulk-copy
+    path.  The counts are added to LAUNCHES."""
     wrappers = _wrappers()
     for w in wrappers:
         w.launches = 0
-    wrappers[0].bulk_launches = 0
+    wrappers[0].bulk_launches = wrappers[1].bulk_launches = 0
     yield
     want = (fwd, bwd, gather, update)
     got = tuple(w.launches for w in wrappers)
     check(got == want, f"{what} launched interaction_fwd, interaction_bwd, "
           f"host_gather, host_update_rows {got} times, not {want}")
-    check(wrappers[0].bulk_launches == fwd,
-          f"{what}: {fwd - wrappers[0].bulk_launches} of {fwd} "
-          f"interaction_fwd launches did not take the bulk-copy path")
+    for w, n in zip(wrappers[:2], (fwd, bwd)):
+        check(w.bulk_launches == n,
+              f"{what}: {n - w.bulk_launches} of {n} {w.__name__} "
+              f"launches did not take the bulk-copy path")
     for i, n in enumerate(want):
         LAUNCHES[i] += n
 

@@ -34,12 +34,14 @@ from dlrm_tpu_torch.ops.interaction import (_pad_width, stack_features,
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_SMEM_TARGET = 75 * 1024      # a forward block's shared memory: three an SM
-_BWD_SMEM_TARGET = 48 * 1024      # staging a backward block aims for
+_BWD_SMEM_TARGET = 75 * 1024      # a backward block's shared memory
 _SMEM_MAX = 227 * 1024            # what one Hopper block may use
 _THREADS = 256                    # threads per block at most
 _TILE = 7                         # forward: 7x7 tiles of Z (kTile)
-_BARRIER_BYTES = 64               # forward: room for the stages' mbarriers
-_MAX_GROUP = 32                   # forward: samples a stage holds at most
+_BARRIER_BYTES = 64               # room for the stages' mbarriers
+_MAX_GROUP = 32                   # samples a stage holds at most
+_BWD_ROWS = 9                     # backward: rows of dT a lane holds (kRows)
+_BWD_S_ROW = 12                   # backward: floats of S a row block (kSRow)
 
 
 def output_width(f: int, d: int, pad_to: int) -> int:
@@ -112,7 +114,7 @@ def _launch_geometry(b: int, f: int, d: int, esize: int):
     ``_FWD_SMEM_TARGET`` (three blocks an SM: more, smaller blocks overlap
     one another's barriers), the one whose items fill the block's passes
     best (the larger on a tie).  The persistent grid is sized by the
-    wrapper (``_fwd_resident_blocks``)."""
+    wrapper (``_resident_blocks``)."""
     pitch = -(-d * esize // 16) * 16 // esize
     lanes = 4 if pitch // 4 <= 4 else 8
     nb = -(-f // _TILE)
@@ -148,48 +150,79 @@ def _launch_geometry(b: int, f: int, d: int, esize: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_resident_blocks(device: int, dtype: int, f: int, pitch: int,
-                         geometry: tuple) -> int:
-    """Blocks of one forward geometry that ``device`` holds at once: its
-    SM count times the blocks an SM holds, as the CUDA runtime counts them
+def _resident_blocks(stem: str, device: int, *geometry: int) -> int:
+    """Blocks of one geometry (the arguments of ``<stem>_blocks_per_sm``
+    before its result pointer) that ``device`` holds at once: its SM count
+    times the blocks an SM holds, as the CUDA runtime counts them
     (registers and shared memory)."""
-    lanes, group, stages, _, threads = geometry
     per_sm = ctypes.c_int(0)
     with torch.cuda.device(device):
-        rc = _kernel("interaction_fwd", _OCC_ARGS,
-                     "interaction_fwd_blocks_per_sm")(
-            dtype, f, pitch, lanes, group, stages, threads,
-            ctypes.byref(per_sm))
+        rc = _kernel(stem, _OCC_ARGS, f"{stem}_blocks_per_sm")(
+            *geometry, ctypes.byref(per_sm))
     if rc != 0 or per_sm.value < 1:
-        raise RuntimeError(f"interaction_fwd: no block of {geometry} fits an "
-                           f"SM (CUDA error {rc})")
+        raise RuntimeError(f"{stem}: no block of {geometry} fits an SM "
+                           f"(CUDA error {rc})")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return per_sm.value * sms
 
 
+def _bwd_smem(f: int, d: int, pitch: int, group: int, stages: int,
+              esize: int) -> int:
+    """Bytes of shared memory a backward block takes; mirrors the kernel's
+    ``Layout``: 64 bytes of mbarriers; ``stages`` stages of ``group``
+    samples, each its F rows of T at ``pitch`` elements and a g slot of D+P
+    elements rounded up to 16 bytes plus 16; S in f32, F rows of
+    ceil(F / 9) row blocks of 12 floats a sample; the pair table (4 bytes a
+    pair, rounded up to 16); 32 samples' g offsets."""
+    nrb = -(-f // _BWD_ROWS)
+    pairs = f * (f - 1) // 2
+    slot = -(-(d + pairs) * esize // 16) * 16 + 16
+    stage = group * (f * pitch * esize + slot)
+    return (_BARRIER_BYTES + stages * stage + group * f * nrb * _BWD_S_ROW * 4
+            + -(-pairs * 4 // 16) * 16 + _MAX_GROUP * 4)
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_launch_geometry(b: int, f: int, d: int, esize: int):
-    """(samples per block, 16-byte row loads?, vector stores?) for the
-    backward kernel; mirrors its shared-memory layout (T rows at a stride
-    of round_up(D, 4) floats, then S as F rows of round_up(F, 4) floats).
+    """(samples a group, stages, row pitch in elements, threads) of the
+    backward kernel.
 
-    Of the sample counts whose staging fits ``_BWD_SMEM_TARGET``, it takes
-    the one whose 4x4 tiles fill the block's passes best (the larger on a
-    tie)."""
-    per_sample = (f * _round_up4(d) + f * _round_up4(f)) * 4
-    if per_sample > _SMEM_MAX:
-        raise ValueError(f"T of shape (*, {f}, {d}) needs {per_sample} B of "
+    A sample is ceil(F / 9) x ceil(D / 4) items (a 9x4 tile of dT each),
+    one thread an item, whole warps, at most 256 threads.  Two stages
+    where two fit, so that one group's copies overlap the previous
+    group's work.  Of the group sizes whose block fits
+    ``_BWD_SMEM_TARGET`` (shared memory for three blocks an SM at D=128,
+    four at D=32 in f32), the one whose items fill the block's passes best
+    (the larger on a tie).  The persistent grid is sized by the wrapper
+    (``_resident_blocks``)."""
+    pitch = -(-d * esize // 16) * 16 // esize
+    n_items = -(-f // _BWD_ROWS) * -(-d // 4)
+    if f * -(-f // _BWD_ROWS) * _BWD_S_ROW >= 1 << 16:
+        raise ValueError(f"F = {f} is too many features for the backward "
+                         f"kernel's pair table")
+
+    def smem(group, stages):
+        return _bwd_smem(f, d, pitch, group, stages, esize)
+
+    stages = 2 if smem(1, 2) <= _SMEM_MAX else 1
+    if smem(1, stages) > _SMEM_MAX:
+        raise ValueError(f"T of shape (*, {f}, {d}) needs {smem(1, 1)} B of "
                          f"shared memory per sample in the backward kernel; "
                          f"a block takes at most {_SMEM_MAX}")
-    tiles = _round_up4(f) // 4 * (_round_up4(d) // 4)
-    most = max(1, min(b, _BWD_SMEM_TARGET // per_sample))
+    budget = max(_BWD_SMEM_TARGET, smem(1, stages))
+    most = 1
+    while most < min(b, _MAX_GROUP) and smem(most + 1, stages) <= budget:
+        most += 1
 
-    def fill(s):
-        items = s * tiles
-        return items / (-(-items // _THREADS) * _THREADS), s
+    def slots(group):  # items a pass: whole warps, at most 256 threads
+        return min(_THREADS, -(-group * n_items // 32) * 32)
 
-    samples = max(range(1, most + 1), key=fill)
-    return samples, (d * esize) % 16 == 0, d % 4 == 0
+    def fill(group):
+        items = group * n_items
+        return items / (-(-items // slots(group)) * slots(group)), group
+
+    group = max(range(1, most + 1), key=fill)
+    return group, stages, pitch, slots(group)
 
 
 def _kernel(stem: str, argtypes: tuple, name: Optional[str] = None):
@@ -201,8 +234,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _FWD_ARGS = (_P, _L, _P, _L, _P, _I, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I,
              _I, _P)
 _OCC_ARGS = (_I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int))
-_BWD_ARGS = (_P, _P, _L, _P, _L, _P, _L, _P, _L, _I, _L, _I, _I, _I, _I, _I,
-             _I, _P)
+_BWD_ARGS = (_P, _L, _P, _L, _P, _L, _P, _L, _P, _L, _I, _L, _I, _I, _I, _I,
+             _I, _I, _I, _I, _I, _P)
 
 
 def _check_sources(x: torch.Tensor, feats: torch.Tensor, name: str):
@@ -265,12 +298,12 @@ def interaction_fwd(x: torch.Tensor, feats: torch.Tensor, pad_to: int = 1
     if b == 0:
         return out
     esize = x.element_size()
-    geometry = _launch_geometry(b, f, d, esize)
-    lanes, group, stages, pitch, threads = geometry
+    lanes, group, stages, pitch, threads = _launch_geometry(b, f, d, esize)
     dev = x.device.index if x.device.index is not None \
         else torch.cuda.current_device()
-    blocks = min(-(-b // group), _fwd_resident_blocks(
-        dev, _DTYPE_CODES[x.dtype], f, pitch, geometry))
+    blocks = min(-(-b // group), _resident_blocks(
+        "interaction_fwd", dev, _DTYPE_CODES[x.dtype], f, pitch, lanes,
+        group, stages, threads))
     sx, sf = x.stride(0), feats.stride(0)
     bulk = ((d * esize) % 16 == 0 and _aligned(x, sx, 16)
             and _aligned(feats, sf, 16))
@@ -303,8 +336,11 @@ def interaction_bwd(g: torch.Tensor, x: torch.Tensor, feats: torch.Tensor,
 
     CPU tensors: the plain version.  CUDA tensors: the kernel, or an error.
     g is cast to x's dtype (autograd hands it over in that dtype already)
-    and made contiguous.  ``interaction_bwd.launches`` counts kernel
-    launches.
+    and made contiguous; it may start anywhere in its storage.
+    ``interaction_bwd.launches`` counts kernel launches,
+    ``interaction_bwd.bulk_launches`` those that filled shared memory with
+    bulk asynchronous copies (every row of x and feats 16-byte aligned and
+    a 16-byte multiple); the others stage with plain loads.
     """
     if x.device.type == "cpu" and feats.device.type == "cpu":
         dx, dfeats = fused_interaction_bwd_reference(g, x, feats)
@@ -334,27 +370,35 @@ def interaction_bwd(g: torch.Tensor, x: torch.Tensor, feats: torch.Tensor,
     if b == 0:
         return dx, dfeats
     esize = x.element_size()
-    samples, vec_loads, vec_stores = _bwd_launch_geometry(b, f, d, esize)
+    group, stages, pitch, threads = _bwd_launch_geometry(b, f, d, esize)
+    dev = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    blocks = min(-(-b // group), _resident_blocks(
+        "interaction_bwd", dev, _DTYPE_CODES[x.dtype], f, d, pitch, group,
+        stages, threads))
     sx, sf, sdx, sdf = (x.stride(0), feats.stride(0), dx.stride(0),
                         dfeats.stride(0))
-    vec_loads = vec_loads and _aligned(x, sx, 16) and _aligned(feats, sf, 16)
-    vec_stores = (vec_stores and _aligned(dx, sdx, 4 * esize)
+    bulk = ((d * esize) % 16 == 0 and _aligned(x, sx, 16)
+            and _aligned(feats, sf, 16))
+    vec_stores = (d % 4 == 0 and _aligned(dx, sdx, 4 * esize)
                   and _aligned(dfeats, sdf, 4 * esize))
     with torch.cuda.device(x.device):
         rc = _kernel("interaction_bwd", _BWD_ARGS)(
-            g.data_ptr(), x.data_ptr(), sx, feats.data_ptr(), sf,
+            g.data_ptr(), g.shape[1], x.data_ptr(), sx, feats.data_ptr(), sf,
             dx.data_ptr(), sdx, dfeats.data_ptr(), sdf, _DTYPE_CODES[x.dtype],
-            b, f, d, g.shape[1], samples, int(vec_loads), int(vec_stores),
-            _stream(x))
+            b, f, d, pitch, group, stages, threads, blocks, int(bulk),
+            int(vec_stores), _stream(x))
     if rc != 0:
         raise RuntimeError(f"interaction_bwd kernel launch failed: CUDA error "
                            f"{rc} for x {tuple(x.shape)}, feats "
                            f"{tuple(feats.shape)} {x.dtype}")
     interaction_bwd.launches += 1
+    interaction_bwd.bulk_launches += int(bulk)
     return dx, dfeats
 
 
 interaction_bwd.launches = 0
+interaction_bwd.bulk_launches = 0
 
 
 class _FusedInteraction(torch.autograd.Function):

@@ -152,11 +152,10 @@ def test_launch_geometry_rejects_oversized_samples():
         tfused._launch_geometry(4, 64, 1024, 4)
 
 
-def _vjp_both(rng, b, f, d, pad_to, dtype=np.float32):
-    """The port's plain backward and jax.vjp of the JAX package's fused
-    interaction (its Pallas backward, in interpret mode on the CPU), on the
-    same T and cotangent.  The cotangent's padding columns are nonzero: the
-    backward must ignore them."""
+def _vjp_inputs(rng, b, f, d, pad_to, dtype=np.float32):
+    """T, a cotangent (nonzero in its padding columns, which the backward
+    must ignore) and jax.vjp of the JAX package's fused interaction (its
+    Pallas backward, in interpret mode on the CPU) there, all as numpy."""
     import jax
     t = rng.normal(size=(b, f, d)).astype(np.float32)
     g = rng.normal(size=(b, tfused.output_width(f, d, pad_to))
@@ -166,13 +165,22 @@ def _vjp_both(rng, b, f, d, pad_to, dtype=np.float32):
     _, vjp = jax.vjp(lambda x: jpal.fused_interaction_t(x, pad_to),
                      jnp.asarray(t))
     (want,) = vjp(jnp.asarray(g))
-    tt = torch.from_numpy(t.astype(np.float32))
-    tg = torch.from_numpy(g.astype(np.float32))
-    if dtype != np.float32:
-        tt, tg = tt.bfloat16(), tg.bfloat16()
+    return t, g, np.asarray(want).astype(np.float32)
+
+
+def _torch_of(a, dtype=np.float32):
+    t = torch.from_numpy(np.asarray(a, dtype=np.float32))
+    return t if dtype == np.float32 else t.bfloat16()
+
+
+def _vjp_both(rng, b, f, d, pad_to, dtype=np.float32):
+    """The port's plain backward and jax.vjp of the JAX package's fused
+    interaction, on the same T and cotangent."""
+    t, g, want = _vjp_inputs(rng, b, f, d, pad_to, dtype)
+    tt, tg = _torch_of(t, dtype), _torch_of(g, dtype)
     got = tfused.fused_interaction_t_bwd_reference(tg, tt)
     assert got.shape == (b, f, d) and got.dtype == tt.dtype
-    return got.float().numpy(), np.asarray(want).astype(np.float32)
+    return got.float().numpy(), want
 
 
 @pytest.mark.parametrize("shape", [
@@ -234,19 +242,205 @@ def test_fused_bwd_rejects_bad_cotangent():
 
 
 @pytest.mark.parametrize("shape,esize,want", [
-    ((16384, 27, 128), 4, (2, True, True)),   # Kaggle fs=128, f32
-    ((16384, 27, 16), 2, (9, True, True)),    # Kaggle fs=16, bf16
-    ((13, 4, 8), 4, (13, True, True)),        # whole batch in one block
-    ((5, 3, 3), 4, (5, False, False)),        # rows not 16-byte multiples
-    ((64, 27, 512), 4, (1, True, True)),      # wide rows: one sample a block
+    # (samples a group, stages, row pitch, threads)
+    ((16384, 27, 128), 4, (2, 2, 128, 192)),   # Kaggle fs=128, f32
+    ((16384, 27, 16), 2, (8, 2, 16, 96)),      # Kaggle fs=16, bf16
+    ((13, 4, 8), 4, (13, 2, 8, 32)),           # whole batch in one group
+    ((5, 3, 3), 4, (5, 2, 4, 32)),             # rows padded to 16 bytes
+    ((64, 27, 512), 4, (1, 2, 512, 256)),      # wide rows: 384 items, 2 passes
+    ((32768, 27, 128), 4, (2, 2, 128, 192)),   # training step
+    ((8192, 27, 128), 4, (2, 2, 128, 192)),    # clipped step
+    ((32768, 27, 32), 4, (4, 2, 32, 96)),      # Terabyte fs=32, training
+    ((16384, 27, 32), 4, (4, 2, 32, 96)),      # Terabyte fs=32, serving
+    ((16384, 27, 32), 2, (8, 2, 32, 192)),     # Terabyte fs=32, bf16
+    ((16384, 27, 128), 2, (2, 2, 128, 192)),   # Kaggle fs=128, bf16
+    ((1, 27, 128), 4, (1, 2, 128, 96)),        # one sample
+    ((9, 5, 6), 2, (9, 2, 8, 32)),             # bf16 rows of 12 bytes
 ])
 def test_bwd_launch_geometry(shape, esize, want):
-    assert tfused._bwd_launch_geometry(*shape, esize) == want
+    """One pass covers a group: at F=27 a sample is 3 x D/4 items, 96 at
+    D=128 (G=2: 192 threads) and 24 at D=32 (G=4: 96 threads)."""
+    got = tfused._bwd_launch_geometry(*shape, esize)
+    assert got == want
+    group, stages, pitch, threads = got
+    assert tfused._bwd_smem(shape[1], shape[2], pitch, group, stages,
+                            esize) <= tfused._SMEM_MAX
 
 
 def test_bwd_launch_geometry_rejects_oversized_samples():
     with pytest.raises(ValueError, match="shared memory"):
         tfused._bwd_launch_geometry(4, 64, 1024, 4)
+
+
+_ROWS, _S_ROW, _CHUNK = tfused._BWD_ROWS, tfused._BWD_S_ROW, 4
+
+
+def _bwd_runs(gaddr, b, width, gu, esize, group, samples):
+    """The g runs that the groups of ``samples`` (first samples of groups,
+    or every sample) stage, by csrc/interaction_bwd.cu's run_of, as arrays:
+    first byte's address, bytes, byte in the stage's g area, bulk [lo, hi)
+    relative to the first byte (lo == hi: no bulk copy)."""
+    slot = -(-gu * esize // 16) * 16 + 16
+    b0 = np.asarray(samples, np.int64)
+    if width == gu:   # one run a group: its rows
+        start = gaddr + b0 * width * esize
+        nbytes = np.minimum(group, b - b0) * gu * esize
+        dst = start % 16
+    else:             # one run a sample: its D+P used columns
+        start = gaddr + b0 * width * esize
+        nbytes = np.full_like(b0, gu * esize)
+        dst = b0 % group * slot + start % 16
+    lo = -(-start // 16) * 16
+    hi = (start + nbytes) // 16 * 16
+    bulk = lo < hi
+    plain = np.minimum(nbytes, 16)
+    return (start, nbytes, dst, np.where(bulk, lo - start, plain),
+            np.where(bulk, hi - start, plain))
+
+
+def _check_runs(runs, gaddr, b, width, gu, esize, group):
+    """What the kernel's staging of g must keep: a bulk copy 16-byte
+    aligned at both ends in device memory and in the stage; the plain
+    pieces before and after it each within the 16 bytes a thread group
+    loads; every byte inside g's B x W elements, in used columns only (a
+    run starts at a row's column 0 and ends at or before its column D+P);
+    the stage's g area never overrun."""
+    start, nbytes, dst, lo, hi = runs
+    slot = -(-gu * esize // 16) * 16 + 16
+    bulk = lo < hi
+    assert ((start + lo)[bulk] % 16 == 0).all()
+    assert ((start + hi)[bulk] % 16 == 0).all()
+    assert ((dst + lo)[bulk] % 16 == 0).all()
+    assert (lo <= 16).all() and (nbytes - hi <= 16).all() and (lo >= 0).all()
+    assert (start >= gaddr).all()
+    assert (start + nbytes <= gaddr + b * width * esize).all()
+    first = (start - gaddr) // esize
+    last = (start + nbytes - gaddr) // esize - 1
+    assert (first % width == 0).all() and (last % width < gu).all()
+    assert (dst + nbytes <= group * slot).all()
+
+
+def _bwd_replay(gaddr, b, f, d, width, esize, resident, gbytes=None,
+                gbase=0, t=None):
+    """The backward kernel's walk, replayed in numpy: the persistent grid
+    (``resident`` blocks) over groups, each group's bulk copies and plain
+    loads of g (checked by ``_check_runs``), S built from the staged bytes
+    through the pair table, the 9x4 items and their stores.  Checks that
+    every dT element is stored exactly once: the walk visits every group
+    once, and a group's items store each element of its samples once (the
+    ragged last group's samples are a prefix of a whole group's).  Given
+    g's storage bytes (``gbytes`` from address ``gbase``) and T (B, F, D)
+    in f32, returns dT in f32 as the kernel sums it."""
+    group, stages, pitch, threads = tfused._bwd_launch_geometry(b, f, d,
+                                                                esize)
+    gu = d + f * (f - 1) // 2
+    nrb, nchunks = -(-f // _ROWS), -(-d // _CHUNK)
+    n_items = nrb * nchunks
+    n_groups = -(-b // group)
+    blocks = min(n_groups, resident)
+    visits = np.concatenate([np.arange(blk, n_groups, blocks)
+                             for blk in range(blocks)])
+    seen = np.bincount(visits, minlength=n_groups)
+    # the stores of one whole group's items, (sample, row, column)
+    s_of, rest = np.divmod(np.arange(group * n_items), n_items)
+    rb, c = np.divmod(rest, nchunks)
+    r, q = np.meshgrid(np.arange(_ROWS), np.arange(_CHUNK), indexing="ij")
+    i = rb[:, None, None] * _ROWS + r
+    k = c[:, None, None] * _CHUNK + q
+    s3 = np.broadcast_to(s_of[:, None, None], i.shape)
+    keep = (i < f) & (k < d)
+    per_group = np.bincount(((s3 * f + i) * d + k)[keep],
+                            minlength=group * f * d).reshape(group, f, d)
+    assert (seen == 1).all() and (per_group == 1).all()
+    samples = visits * group if width == gu else np.arange(b)
+    _check_runs(_bwd_runs(gaddr, b, width, gu, esize, group, samples),
+                gaddr, b, width, gu, esize, group)
+    if gbytes is None:
+        return None
+    slot = -(-gu * esize // 16) * 16 + 16
+    pairs = [(i_, j_) for i_ in range(1, f) for j_ in range(i_)]
+
+    def at(jj, ii):   # S[ii][jj]'s place in a sample's S
+        return jj * nrb * _S_ROW + ii // _ROWS * _S_ROW + ii % _ROWS
+
+    dt = np.zeros((b, f, d), np.float32)
+    for grp in visits:
+        b0 = int(grp) * group
+        ns = min(group, b - b0)
+        area = np.zeros(group * slot, np.uint8)
+        first = [b0] if width == gu else range(b0, b0 + ns)
+        runs = _bwd_runs(gaddr, b, width, gu, esize, group, first)
+        for start, nbytes, dst, lo, hi in zip(*runs):
+            src = start - gbase   # plain head, bulk middle, plain tail
+            for p0, p1 in ((0, lo), (lo, hi), (hi, nbytes)):
+                area[dst + p0:dst + p1] = gbytes[src + p0:src + p1]
+        for s in range(ns):
+            gofs = (runs[2][0] + s * gu * esize if width == gu
+                    else runs[2][s])
+            raw = area[gofs:gofs + gu * esize]
+            gs = (raw.view(np.float32) if esize == 4 else
+                  (raw.view(np.uint16).astype(np.uint32) << 16
+                   ).view(np.float32))
+            sym = np.zeros(f * nrb * _S_ROW, np.float32)
+            for p, (i_, j_) in enumerate(pairs):
+                sym[at(j_, i_)] = sym[at(i_, j_)] = gs[d + p]
+            sym = sym.reshape(f, nrb, _S_ROW)[:, :, :_ROWS]
+            tp = np.zeros((f, nchunks * _CHUNK), np.float32)
+            tp[:, :d] = t[b0 + s]
+            acc = np.einsum("jbr,jk->brk", sym, tp).reshape(nrb * _ROWS, -1)
+            acc[0, :d] += gs[:d]
+            dt[b0 + s] = acc[:f, :d]
+    return dt
+
+
+_WALK_SHAPES = [(16384, 27, 128), (32768, 27, 128), (8192, 27, 128),
+                (32768, 27, 32), (16384, 27, 32)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("pad_to", [1, 128])
+@pytest.mark.parametrize("shape", _WALK_SHAPES)
+def test_bwd_walk_stores_once_and_stages_only_g(shape, pad_to, dtype):
+    """At every main path's shape: the walk stores every dT element
+    exactly once, and every span it stages lies inside g (B x W elements)
+    and off its padding, with g aligned and starting 4 bytes (f32) or 2
+    (bf16) into its storage; the last group's span ends at g's last
+    byte; 396 resident blocks (three an SM) and 264 (two)."""
+    b, f, d = shape
+    esize = 4 if dtype == "f32" else 2
+    width = tfused.output_width(f, d, pad_to)
+    for base in (1 << 40, (1 << 40) + esize):
+        for resident in (396, 264):
+            _bwd_replay(base, b, f, d, width, esize, resident)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("pad_to", [1, 128])
+@pytest.mark.parametrize("shape", [(37, 27, 128), (23, 27, 128),
+                                   (45, 27, 32), (27, 27, 32),
+                                   (13, 5, 6), (9, 4, 8)])
+def test_bwd_walk_matches_reference_and_jax(shape, pad_to, dtype, rng):
+    """dT by the replayed walk (the main paths' geometries at a few groups a
+    block, ragged last groups, g a view 4 or 2 bytes into its storage)
+    against fused_interaction_t_bwd_reference and the JAX package's VJP
+    (Pallas in interpret mode).  f32: atol/rtol 1e-5 (sums in another
+    order); bf16: one bf16 rounding apart (rtol 1e-2) plus atol 1e-5."""
+    b, f, d = shape
+    t, g, want = _vjp_inputs(rng, b, f, d, pad_to, dtype)
+    tt, tg = _torch_of(t, dtype), _torch_of(g, dtype)
+    storage = torch.zeros(g.size + 1, dtype=tg.dtype)
+    view = storage[1:].view(g.shape)
+    view.copy_(tg)
+    dt = _bwd_replay(view.data_ptr(), b, f, d, g.shape[1],
+                     tg.element_size(), 3, storage.view(torch.uint8).numpy(),
+                     storage.data_ptr(), tt.float().numpy())
+    got = torch.from_numpy(dt).to(tt.dtype).float().numpy()
+    ref = tfused.fused_interaction_t_bwd_reference(tg, tt).float().numpy()
+    tol = (dict(atol=1e-5, rtol=1e-5) if dtype == np.float32
+           else dict(atol=1e-5, rtol=1e-2))
+    np.testing.assert_allclose(got, ref, **tol)
+    np.testing.assert_allclose(got, want, **tol)
 
 
 def _meta(shape, stride=None):
