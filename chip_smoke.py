@@ -137,7 +137,13 @@ result):
      width (Kaggle fs=128, row-wise Adagrad, B=32768), each full-width
      process's peak resident set read and bounded far below the tables'
      bytes; `instrument`, `train --profile-dir` and `bench` at full width;
- 17. the Criteo Terabyte model with its tables beyond the card (fs=32,
+ 17. the time-to-AUC curve's first leg (`make_auc_curve_torch.curve`) at
+     Kaggle fs=128 full width: bf16 tables, row-wise Adagrad, fused,
+     B=32768 on the planted-truth task, 150 steps, evaluated at steps 0
+     and 150 over 4 batches, launch counts read around it; the AUC at 150
+     within 0.01 of the committed `AUC_CURVE_fs128.json` and 0.25 above
+     the start;
+ 18. the Criteo Terabyte model with its tables beyond the card (fs=32,
      f32, fused, `--hbm-budget-gb 64`: 112.99 GB of tables, tables 0 and
      19, 66.61 GB, in host memory registered at its exact size; the
      host's MemAvailable checked first, with no smaller fallback): the
@@ -159,7 +165,7 @@ result):
      profile; the tiers released, then `train --config terabyte
      --feature-size 32 --hbm-budget-gb 64` in a subprocess, its loss lines
      against the same two steps in process, its resident set sampled;
- 18. a `{"kernels": [...]}` line (the two interaction kernels and the two
+ 19. a `{"kernels": [...]}` line (the two interaction kernels and the two
      host-tier kernels), then the result line.
 Where a phase runs CLI subprocesses that depend on none of each other's
 results, some run together, beside the work in process they are held to
@@ -3551,6 +3557,68 @@ def touched_rows_check(tiered: dict, state, batches: list, config, *,
 
 # -- the Criteo Terabyte model, its tables beyond the card ---------------------
 
+AUC_STEPS = 150         # AUC_CURVE_fs128.json's first trained point
+AUC_EVAL_BATCHES = 4
+AUC_RISE = 0.25         # the least gain over the step-0 AUC
+
+
+def phase_auc_curve() -> None:
+    """The first leg of the time-to-AUC curve (`make_auc_curve_torch
+    .curve`) at Kaggle fs=128 full width: bf16 tables, row-wise Adagrad,
+    lr 0.002, fused, B=32768 on the planted-truth task, 150 steps from
+    parameters drawn from the config's seed, evaluated at steps 0 and 150
+    over 4 batches.  The AUC at 150 must lie within 0.01 of the committed
+    `AUC_CURVE_fs128.json` at equal examples (`--against`'s tolerance for a
+    curve's second point) and 0.25 above the AUC at step 0."""
+    import make_auc_curve_torch as mac
+    from dlrm_tpu_torch import init_params
+    from dlrm_tpu_torch.data.synthetic import ClickthroughModel
+    from dlrm_tpu_torch.train.train import init_opt_state
+
+    optimizer, lr = mac.defaults(128)
+    config = mac.build_config(128, device=DEV)
+    check(config.interaction_impl == "fused"
+          and config.embedding_dtype == torch.bfloat16,
+          f"the fs=128 curve runs {config.interaction_impl} on "
+          f"{config.embedding_dtype} tables")
+    torch.cuda.reset_peak_memory_stats(DEV)
+    t0 = time.time()
+    truth = ClickthroughModel(config, seed=mac.TRUTH_SEED)
+    params = init_params(torch.Generator(DEV).manual_seed(config.seed),
+                         config, DEV)
+    state = init_opt_state(params, config=config, optimizer=optimizer)
+    setup = time.time() - t0
+    with counted("the AUC curve", AUC_STEPS + 2 * AUC_EVAL_BATCHES,
+                 AUC_STEPS):
+        points = mac.curve(config, params, state, truth,
+                           optimizer=optimizer, lr=lr, batch=TRAIN_BATCH,
+                           steps=AUC_STEPS, eval_every=AUC_STEPS,
+                           eval_batches=AUC_EVAL_BATCHES, device=DEV, t0=t0)
+    check([p["step"] for p in points] == [0, AUC_STEPS],
+          f"curve points at steps {[p['step'] for p in points]}")
+    for p in points:
+        check(all(np.isfinite(p[k]) for k in ("accuracy", "auc", "loss")),
+              f"non-finite metrics {p}")
+    with open(REPO / "AUC_CURVE_fs128.json") as f:
+        lines, ok = mac.compare(points, json.load(f)["curve"])
+    first, last = points
+    print(f"AUC curve, Kaggle fs=128 bf16 tables, {optimizer} lr {lr}, "
+          f"fused, B={TRAIN_BATCH}: step 0 auc {first['auc']:.6f} loss "
+          f"{first['loss']:.6f}; step {AUC_STEPS} auc {last['auc']:.6f} "
+          f"accuracy {last['accuracy']:.6f} loss {last['loss']:.6f}; "
+          f"against AUC_CURVE_fs128.json: {'; '.join(lines)}; set-up "
+          f"{setup:.1f} s (truth and tables), {last['wall_s'] - setup:.1f} s "
+          f"for {AUC_STEPS} steps and 2 evaluations; device peak "
+          f"{torch.cuda.max_memory_allocated(DEV) / 1e9:.2f} GB")
+    check(ok, f"the AUC at step {AUC_STEPS} misses the committed curve: "
+          f"{lines}")
+    check(last["auc"] >= first["auc"] + AUC_RISE,
+          f"the AUC rose from {first['auc']} to {last['auc']}, under "
+          f"{AUC_RISE}")
+    del params, state
+    torch.cuda.empty_cache()
+
+
 TB_FEATURE = 32           # Terabyte fs=32 f32: 112.99 GB of tables
 TB_BUDGET_GB = 64         # tables 0 and 19 spill: 66.61 GB of them
 TB_HOST_TABLES = (0, 19)
@@ -5145,7 +5213,8 @@ def main() -> int:
                       phase_optimizers, phase_checkpoint, phase_telemetry,
                       phase_int8_serving, phase_data, phase_two_tier,
                       phase_small_inputs, phase_small_optimizers,
-                      phase_entry_points, phase_terabyte):
+                      phase_entry_points, phase_auc_curve,
+                      phase_terabyte):
             t0 = time.perf_counter()
             kern.update(phase() or {})
             print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
