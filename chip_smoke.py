@@ -41,7 +41,11 @@ result):
      column-sharded rows each seen to move, dense parameters, the trash
      row); the two steps'
      times in turns and device peaks, and a profile of the sharded step
-     with NCCL's kernels and the time under each exchange scope;
+     with NCCL's kernels and the time under each exchange scope; one more
+     step under the collective counter (`parallel/audit.py`): every
+     collective it issued (op, dtype, payload bytes) printed beside the
+     profile's NCCL kernel and device-to-device copy times, and held to
+     what the placement says a step issues at world size 1;
   7. the sharded optimizers at full width under NCCL at world size 1:
      row-wise Adagrad on phase 6's placement, one step from warm
      accumulators against `train_step_opt` from one state under
@@ -696,6 +700,10 @@ _SHARD_SCOPES = ("a2a_fwd", "rs_reduce_scatter", "cs_a2a_fwd",
                  "sparse_update", "host_rs_gather", "host_rs_update",
                  "adagrad_dedup", "cs_adagrad", "grad_clip",
                  "dcn_replica_check")
+# ProcessGroupNCCL's range around each collective ("nccl:all_to_all"),
+# mirrored on the device over the copies or kernels that do the work: a
+# span like the scopes, not work of its own
+_NCCL_RANGE = "nccl:"
 # (group, substrings of a CUDA activity's name); the first match wins
 _PROFILE_GROUPS = (
     ("dedup: sort, unique, scan (cub and thrust kernels)",
@@ -744,9 +752,10 @@ def _profile_steps(what: str, run, batches, steps: int = 5,
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        if evt.key in _SHARD_SCOPES:
+        if evt.key in _SHARD_SCOPES or evt.key.startswith(_NCCL_RANGE):
             scoped[evt.key] = evt.device_time_total
-        if evt.key in _SCOPES + _TIER_SCOPES + _SHARD_SCOPES:
+        if evt.key in _SCOPES + _TIER_SCOPES + _SHARD_SCOPES \
+                or evt.key.startswith(_NCCL_RANGE):
             continue
         us = evt.self_device_time_total
         for name, keys in table:
@@ -1811,14 +1820,114 @@ def _sharded(mesh, config) -> None:
           f"{peaks['sharded'] / 1e9:.3f} GB")
     groups = _profile_steps("sharded SGD steps", lambda data: [
         float(sharded(*_to_dev(batch))) for batch in data], batches,
-        groups=(("NCCL kernels", ("nccl",)),
+        groups=(("NCCL kernels", ("ncclDevKernel", "ncclKernel")),
                 ("device-to-device copies (Memcpy DtoD)",
                  ("Memcpy DtoD",))))
     check(groups is not None and groups["interaction_fwd kernel"] > 0
           and groups["interaction_bwd kernel"] > 0,
           f"the sharded step's profile names no interaction kernel: "
           f"{groups}")
+    _count_collectives(sharded, b, mesh, p, config, groups)
     del params, sh
+
+
+def _world1_collectives(config, p, rows: int) -> list:
+    """What placement ``p`` says one sharded SGD step of ``rows`` rows
+    issues at world size 1, in issue order, as (kind, dtype, payload
+    bytes): the ids' all-gather, the slot all-to-all, the row shards'
+    reduce-scatter and an all-to-all a column shard; the all-reduce of the
+    dense gradients and the loss; the update's ids all-gather, the slot
+    all-to-all, the row shards' all-gather and an all-to-all a column
+    shard.  f32 exchange, int32 ids, one-hot."""
+    t, d = config.num_tables, config.feature_size
+    k, n_rs = p.slots_per_shard, len(p.row_sharded)
+    dense = sum(a * b + b for s in (config.bottom_mlp_sizes,
+                                    config.full_top_mlp_sizes)
+                for a, b in zip(s[:-1], s[1:]))
+    ids = ("all-gather", "s32", rows * t * 4)
+    slots = [("all-to-all", "f32", rows * k * d * 4)] * bool(
+        p.slot_table_list)
+    cols = [("all-to-all", "f32", rows * d * 4)] * len(p.col_sharded)
+    return ([ids] + slots + [("reduce-scatter", "f32", rows * n_rs * d * 4)]
+            * bool(n_rs) + cols
+            + [("all-reduce", "f32", (dense + 1) * 4)]
+            + [ids] + slots + [("all-gather", "f32", rows * n_rs * d * 4)]
+            * bool(n_rs) + cols)
+
+
+def _count_collectives(sharded, batch, mesh, p, config, groups) -> None:
+    """One more sharded step under ``parallel/audit.py``'s counter and the
+    profiler: its collectives, counted as the step issued them, must be
+    what the placement says (world size 1: every group of 1, no link
+    bytes); they are printed beside the profile's NCCL kernel and
+    device-to-device copy times a step (``groups``: device us over
+    `_profile_steps`'s 5 steps), and this step's own copies and NCCL
+    kernels are listed under the NCCL range (``nccl:<op>``) that spans
+    each, in the order they ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlrm_tpu_torch.parallel import audit
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with counted("sharded SGD step under the collective counter", 1, 1):
+            loss, records = audit.count_collectives(
+                mesh, lambda: float(sharded(*batch)))
+        torch.cuda.synchronize()
+    got = [(c.kind, c.dtype, c.result_bytes) for c in records]
+    want = _world1_collectives(config, p, TRAIN_BATCH)
+    check(got == want and all(c.group_size == 1 for c in records)
+          and sum(c.link_bytes for c in records) == 0.0
+          and np.isfinite(loss),
+          f"the sharded step issued "
+          f"{[dataclasses.astuple(c) for c in records]} (loss {loss}); the "
+          f"placement says {want}")
+    print(f"sharded SGD step's collectives as issued, counted by "
+          f"parallel/audit.py (NCCL, world size 1; op dtype payload bytes, "
+          f"as the placement says): " + ", ".join(
+              f"{k} {dt} {nb}" for k, dt, nb in got)
+          + f"; {len(got)} collectives, "
+          f"{sum(nb for _, _, nb in got) / 1e6:.3f} MB of payload, 0 link "
+          f"bytes at N=1; beside them the profile's NCCL kernels "
+          f"{groups['NCCL kernels'] / 5e3:.3f} ms and device-to-device "
+          f"copies "
+          f"{groups['device-to-device copies (Memcpy DtoD)'] / 5e3:.3f} ms "
+          f"a step")
+    cuda = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in cuda if e.name.startswith(_NCCL_RANGE))
+    work = sorted((e.time_range.start, e.time_range.end, e.name.split("(")[0],
+                   e.time_range.elapsed_us()) for e in cuda
+                  if "Memcpy DtoD" in e.name or "ncclDevKernel" in e.name
+                  or "ncclKernel" in e.name)
+    if not ranges:
+        print("the counted step's NCCL ranges: the profiler recorded none "
+              "(not measured)")
+        return
+    # each copy or NCCL kernel under the NCCL range that spans it
+    under = {}
+    for a, b, name, us in work:
+        owner = next((r for r in ranges if r[0] <= a and b <= r[1]), None)
+        under.setdefault(owner, []).append((name, us))
+    a2a = sum(nb for k, _, nb in got if k == "all-to-all")
+    us_of = {k: sum(us for r, items in under.items()
+                    if r is not None and ("all_to_all" in r[2]) == k
+                    for _, us in items) for k in (True, False)}
+    rate = a2a / max(us_of[True], 1e-9) / 1e6
+    print("the counted step's device work under NCCL's ranges, in the order "
+          "it ran (us): " + "; ".join(
+              f"{r[2]}: " + ", ".join(f"{n.strip()} {us:.1f}"
+                                      for n, us in under.get(r, []))
+              for r in ranges)
+          + "; outside them: " + (", ".join(
+              f"{n.strip()} {us:.1f}" for n, us in under.get(None, []))
+              or "nothing")
+          + f". The all-to-alls' {a2a / 1e6:.3f} MB took "
+          f"{us_of[True] / 1e3:.3f} ms ({rate:.3f} TB/s copied), the other "
+          f"collectives' "
+          f"{(sum(nb for _, _, nb in got) - a2a) / 1e6:.3f} MB "
+          f"{us_of[False] / 1e3:.3f} ms")
 
 
 # -- sharded optimizers, blocks, host rows and the replica check -------------
@@ -2235,7 +2344,7 @@ def _sharded_rowwise(mesh, config, params) -> None:
     groups = _profile_steps("sharded row-wise Adagrad steps",
                             lambda data: [float(sharded(sh, st, *_to_dev(b)))
                                           for b in data], batches,
-                            groups=(("NCCL kernels", ("nccl",)),
+                            groups=(("NCCL kernels", ("ncclDevKernel", "ncclKernel")),
                                     ("device-to-device copies (Memcpy DtoD)",
                                      ("Memcpy DtoD",))))
     check(groups is not None and groups["interaction_fwd kernel"] > 0,
@@ -2319,7 +2428,8 @@ def _sharded_host_adagrad(mesh, config, params) -> None:
                                      ("host_gather_kernel",)),
                                     ("host_update_rows kernel",
                                      ("host_update_rows_kernel",)),
-                                    ("NCCL kernels", ("nccl",)),
+                                    ("NCCL kernels", ("ncclDevKernel",
+                                                      "ncclKernel")),
                                     ("device-to-device copies (Memcpy DtoD)",
                                      ("Memcpy DtoD",))))
     check(groups is not None and groups["host_gather kernel"] > 0

@@ -54,6 +54,12 @@ its fields:
   writes what ``train_opt`` writes (``opt.*`` too) and ``step``.
 * ``hybrid``: every rank names the host ``host<rank // per_host>`` and
   writes the ranks of ``make_hybrid_mesh`` and of ``make_mesh_2d``.
+* ``audit``: ``cases``, each ``{"config", "placement", "mesh", "batch"}``
+  (``mesh`` null for 1-D, ``[dcn, ici]``; ``batch`` rows a rank): one step
+  of ``make_sharded_train_step`` under ``parallel.audit``'s collective
+  counter (``audit.audit_step``); each rank writes, per case ``i``, the
+  collectives in issue order under ``<i>.kind``, ``<i>.dtype``,
+  ``<i>.bytes``, ``<i>.group`` and ``<i>.axis``.
 
 :func:`run_cli_gang` starts ``python -m dlrm_tpu_torch`` itself as a gang
 (``--distributed``) and returns each rank's output.
@@ -269,6 +275,33 @@ def _batch(arrays, s: int):
             for k in ("dense", "sparse", "labels")]
 
 
+def _audit(spec: dict) -> dict:
+    """The ``audit`` task: each case's collectives as arrays."""
+    from dlrm_tpu_torch.parallel import audit
+    from dlrm_tpu_torch.parallel import mesh as pmesh
+    from dlrm_tpu_torch.parallel.placement import plan_placement
+
+    meshes, out = {}, {}
+    for i, case in enumerate(spec["cases"]):
+        shape = case.get("mesh")
+        key = tuple(shape or ())
+        if key not in meshes:
+            meshes[key] = (pmesh.make_mesh() if shape is None
+                           else pmesh.make_mesh_2d(*shape))
+        mesh = meshes[key]
+        config = _config(case["config"])
+        placement = plan_placement(config.table_sizes,
+                                   mesh.size(mesh.mesh_dim_names.index("d")),
+                                   **case.get("placement", {}))
+        records = audit.audit_step(config, placement, mesh, case["batch"])
+        for field, kind in (("kind", "kind"), ("dtype", "dtype"),
+                            ("bytes", "result_bytes"),
+                            ("group", "group_size"), ("axis", "axis")):
+            out[f"{i}.{field}"] = np.asarray(
+                [getattr(c, kind) for c in records])
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rank", type=int, required=True)
@@ -297,6 +330,10 @@ def main(argv=None) -> int:
                "names": np.asarray(hybrid.mesh_dim_names),
                "rows": np.asarray(pmesh.local_batch_rows(hybrid, 8 * args.world))}
         np.savez(Path(args.out) / f"rank{args.rank}.npz", **out)
+        dist.destroy_process_group()
+        return 0
+    if spec["task"] == "audit":
+        np.savez(Path(args.out) / f"rank{args.rank}.npz", **_audit(spec))
         dist.destroy_process_group()
         return 0
     mesh = (pmesh.make_mesh() if spec.get("mesh") is None
