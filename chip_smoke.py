@@ -6,7 +6,8 @@ Phases (any failure raises and the script exits non-zero, printing no
 result):
   1. the card (nvidia-smi name and power limit) and the kernel build;
   2. every hand-written kernel against its plain torch version on the card,
-     at the main paths' shapes and at ragged / padded ones, f32 and bf16,
+     at the main paths' shapes (D=128, and Terabyte's D=32 and D=64) and
+     at ragged / padded ones, f32 and bf16,
      on the two sources (x, feats) the model hands over, timed with CUDA
      events; both interaction kernels on the stacked T's views give the
      same bits, and take their bulk-copy paths wherever the rows allow it;
@@ -166,9 +167,20 @@ result):
      every whole tier (nothing else
      moved), serving at B=16384 and evaluation through TieredEmb against
      the same model, step times, fused against gram at fs=32 in turns, a
-     profile; the tiers released, then `train --config terabyte
-     --feature-size 32 --hbm-budget-gb 64` in a subprocess, its loss lines
-     against the same two steps in process, its resident set sampled;
+     profile; the free disk a checkpoint would use beside what a save
+     needs (nothing saved); then the model at fs=64 with bf16 tables drawn
+     into the same two allocations (its plan has their bytes; nothing is
+     registered again), an SGD step and a row-wise Adagrad step against
+     the touched-rows model in its bf16 form (one bf16 ulp a rewrite) with
+     the XOR identity, serving, evaluation, step times and a profile that
+     names the pooled rows' cast; the tiers released (the host tier's
+     mapping unregistered once, when its last view dies), then `train
+     --config terabyte --feature-size 32 --hbm-budget-gb 64` in a
+     subprocess, its loss lines against the same two steps in process, and,
+     once the host's MemAvailable is back, `train --sharded true
+     --host-tables 0,19` (the host stack of 66.6 GB in registered host
+     memory) against it, each one's resident set sampled, draw and wall
+     seconds printed;
  19. a `{"kernels": [...]}` line (the two interaction kernels and the two
      host-tier kernels), then the result line.
 Where a phase runs CLI subprocesses that depend on none of each other's
@@ -366,27 +378,32 @@ def _bwd_g_views(F) -> None:
 def phase_kernels() -> dict:
     """Both kernels against their plain versions at every shape a main
     path gives them ((16384, 27, 128) serving and evaluation, (32768, 27,
-    128) training steps and blocks, (8192, 27, 128) the clipped step, and
-    Terabyte's (32768, 27, 32) and (16384, 27, 32)) and at narrow and
-    ragged ones, on the two sources x = T[:, 0] and feats =
-    T[:, 1:] as the model hands them over; both also on the T-view
-    form, which must give the same bits.  Rows of 16-byte multiples take
-    both kernels' bulk-copy paths, the rows of (13, 5, 6) their plain-load
-    paths; then the backward with g a view off 16-byte alignment
-    (``_bwd_g_views``).  Each case prints its bound beside its time.
-    Returns the numbers at (16384, 27, 128) f32, per kernel, and the
-    backward's at the D=32 shapes f32 (``at_d32``)."""
+    128) training steps and blocks, (8192, 27, 128) the clipped step,
+    Terabyte's (32768, 27, 32) and (16384, 27, 32), and its bf16 fs=64
+    model's (32768, 27, 64) and (16384, 27, 64), f32 after the pooled
+    rows' cast) and at narrow and ragged ones, on the two sources x =
+    T[:, 0] and feats = T[:, 1:] as the model hands them over; both also
+    on the T-view form, which must give the same bits.  Rows of 16-byte
+    multiples take both kernels' bulk-copy paths, the rows of (13, 5, 6)
+    their plain-load paths; then the backward with g a view off 16-byte
+    alignment (``_bwd_g_views``).  Each case prints its bound beside its
+    time.  Returns the numbers at (16384, 27, 128) f32, per kernel, and
+    each kernel's at the Terabyte shapes in f32 (``at_d32``,
+    ``at_d64``)."""
     from dlrm_tpu_torch.ops import interaction_fused as F
     from dlrm_tpu_torch.ops.interaction import dot_interaction
 
     g = torch.Generator(DEV).manual_seed(0)
-    main, d32 = {}, []
+    main = {}
+    narrow = {k: {f"at_d{d}": [] for d in (TB_FEATURE, TB64_FEATURE)}
+              for k in ("interaction_fwd", "interaction_bwd")}
     print("kernel vs plain (B, F, D, pad_to, dtype): max_abs_err, kernel ms, "
           "plain ms, bound ms")
     for b, f, d in [(BATCH, 27, 128), (TRAIN_BATCH, 27, 128),
                     (CLIP_BATCH, 27, 128), (TRAIN_BATCH, 27, TB_FEATURE),
-                    (BATCH, 27, TB_FEATURE), (BATCH, 27, 16), (107, 27, 128),
-                    (13, 4, 8), (13, 5, 6)]:
+                    (BATCH, 27, TB_FEATURE), (TRAIN_BATCH, 27, TB64_FEATURE),
+                    (BATCH, 27, TB64_FEATURE), (BATCH, 27, 16),
+                    (107, 27, 128), (13, 4, 8), (13, 5, 6)]:
         for pad_to in (1, 128):
             for dtype in (torch.float32, torch.bfloat16):
                 t = torch.randn((b, f, d), generator=g, device=DEV
@@ -443,12 +460,14 @@ def phase_kernels() -> dict:
                           f"{err:.3g}, {ms:.4f}, {plain_ms:.4f}, "
                           f"{bound['bound_ms']:.4f} "
                           f"({bound['bound_ms'] / ms:.0%} of the bound)")
-                    if (kname == "interaction_bwd" and d == TB_FEATURE
+                    if (d in (TB_FEATURE, TB64_FEATURE)
                             and (pad_to, dtype) == (1, torch.float32)):
-                        d32.append({"shape": [b, f, d], "ms": ms,
-                                    "plain_ms": plain_ms,
-                                    "bound_ms": bound["bound_ms"],
-                                    "share": bound["bound_ms"] / ms})
+                        narrow[kname][f"at_d{d}"].append({
+                            "shape": [b, f, d], "ms": ms,
+                            "plain_ms": plain_ms,
+                            "bound_ms": bound["bound_ms"],
+                            "bytes": bound["bytes"],
+                            "share": bound["bound_ms"] / ms})
                     if (b, d, pad_to, dtype) == (BATCH, 128, 1,
                                                  torch.float32):
                         main[kname] = {
@@ -476,7 +495,8 @@ def phase_kernels() -> dict:
     print(f"fused vs gram autograd gradient at ({BATCH}, 27, 128) f32: max "
           f"|diff| {err:.3g}")
     _bwd_g_views(F)
-    main["interaction_bwd"]["at_d32"] = d32
+    for kname, at in narrow.items():
+        main[kname].update(at)
     return main
 
 
@@ -722,7 +742,7 @@ _PROFILE_GROUPS = (
 
 
 def _profile_steps(what: str, run, batches, steps: int = 5,
-                   pooled_bytes: int = 0, groups=()) -> None:
+                   pooled_bytes: int = 0, groups=(), scopes=()) -> None:
     """`torch.profiler` over ``steps`` steps (or served batches) after 3
     warm-up ones: device time a step by group, and the device's idle share
     of the host-to-host window; returns the groups' device microseconds
@@ -735,7 +755,10 @@ def _profile_steps(what: str, run, batches, steps: int = 5,
     many bytes takes at the HBM rate (the embedding gradient reaches the
     update as a view).  ``groups`` are matched before the common ones.
     The host-to-device copies are listed by kind and CUDA stream, beside
-    the stream the forward kernel ran on."""
+    the stream the forward kernel ran on.  ``scopes``: phase scopes whose
+    kernels (those launched by a host op inside one of the scope's spans)
+    are listed by name, returned as ``groups["kernels under <scope>"]``
+    ({name: device microseconds})."""
     from torch.profiler import ProfilerActivity, profile
 
     run(batches[:3])
@@ -795,6 +818,21 @@ def _profile_steps(what: str, run, batches, steps: int = 5,
         print(f"  {name} on stream {stream}: {us / 1e3 / steps:.3f} ms a "
               f"step (the forward kernel ran on stream(s) "
               f"{sorted(fwd_streams)})")
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU] if scopes else []
+    for scope in scopes:
+        spans = [(e.thread, e.time_range.start, e.time_range.end)
+                 for e in cpu if e.name == scope]
+        under = {}
+        for e in cpu:
+            if any(e.thread == th and a <= e.time_range.start
+                   and e.time_range.end <= b for th, a, b in spans):
+                for k in e.kernels:
+                    under[k.name] = under.get(k.name, 0.0) + k.duration
+        groups[f"kernels under {scope}"] = under
+        for name, us in sorted(under.items(), key=lambda kv: -kv[1]):
+            print(f"  kernel under the scope {scope}: {us / 1e3 / steps:.3f}"
+                  f" ms a step: {name[:110]}")
     if pooled_bytes:
         full_copy_us = 2 * pooled_bytes / HBM_BYTES_PER_S * 1e6
         kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
@@ -3516,6 +3554,12 @@ def xor_identity(folds_before: dict, folds_after: dict, rows_before: dict,
 # losses, dense parameters and table rows; accumulators (phase_two_tier's)
 TOUCHED_TOL = 1e-5
 TOUCHED_ACC_TOL = 1e-6
+# bf16 tables round a row at every rewrite, in another order on each side:
+# losses and dense parameters as f32's; a table row may part by one bf16
+# ulp of its value, 2^-8 of it, where f32's parts by 2^-24 (Terabyte fs=64
+# read at most 4.8e-7 on the card, the scaled model 7.6e-6 on the CPU);
+# the accumulators stay f32
+TOUCHED_BF16 = {"losses": 1e-5, "dense": 1e-5, "tables": 1e-4}
 # each tier tensor's change against the reference's change: the norm of
 # what lies beyond the rounding allowance over the norm of the change; a
 # block's micro-steps after the first read states that the device tier's
@@ -3523,6 +3567,12 @@ TOUCHED_ACC_TOL = 1e-6
 # gradient (Terabyte: steps 0 to 2.9e-10, a K=4 block 2.4e-4 and 3.6e-4)
 TOUCHED_REL = 1e-3
 TOUCHED_REL_BLOCK = 1e-2
+# a hot row, whose rounding allowance reaches a sixteenth of its value
+# (bf16: 8 rewrites; f32: 2^19), is held by its change as well: the hot
+# rows' norm of the change's difference over the norm of the reference's
+# change, with no allowance; a doubled or dropped update reads 1 there
+TOUCHED_HOT = 1 / 16
+TOUCHED_HOT_REL = 0.5
 
 
 def _change_error(got: torch.Tensor, want: torch.Tensor,
@@ -3530,21 +3580,30 @@ def _change_error(got: torch.Tensor, want: torch.Tensor,
     """One tier tensor's touched rows after the two-tier step (``got``) and
     after the reference's (``want``), from the same rows ``before``, each
     row rewritten ``updates`` times at most (n,).  Each rewrite rounds to
-    the nearest f32, so two orders of the same adds may part by up to one
-    unit in the last place a rewrite, ``updates * 2**-23 * |w|`` (``|w|``
-    the largest of the three values).  ``rel``: the norm of each
-    difference's part beyond that allowance over the norm of the
-    reference's change (0 when both are 0, inf when only the change is);
-    ``change``: the reference's largest change; ``moved``: the two-tier
-    step's."""
+    the nearest value of the tensor's dtype, so two orders of the same
+    adds may part by up to one unit in the last place a rewrite, ``updates
+    * eps * |w|`` (``eps`` 2**-23 for f32, 2**-7 for bf16; ``|w|`` the
+    largest of the three values).  ``rel``: the norm of each difference's
+    part beyond that allowance over the norm of the reference's change (0
+    when both are 0, inf when only the difference is); ``hot``: over the
+    rows whose allowance reaches ``TOUCHED_HOT`` of their value, the norm
+    of the whole difference over the norm of the reference's change (None
+    when there is no such row); ``change``: the reference's largest
+    change; ``moved``: the two-tier step's."""
+    def ratio(num, den):
+        return num / den if den else (0.0 if num == 0 else float("inf"))
+
+    eps = torch.finfo(got.dtype).eps
     got, want, before = got.float(), want.float(), before.float()
     m = updates.to(got.device, torch.float32).reshape(
         -1, *[1] * (got.dim() - 1))
     w = torch.maximum(torch.maximum(got.abs(), want.abs()), before.abs())
-    beyond = ((got - want).abs() - m * 2.0 ** -23 * w).clamp(min=0)
+    beyond = ((got - want).abs() - m * eps * w).clamp(min=0)
     change = want - before
-    num, den = beyond.norm().item(), change.norm().item()
-    return {"rel": num / den if den else (0.0 if num == 0 else float("inf")),
+    hot = (m * eps >= TOUCHED_HOT).reshape(-1)
+    return {"rel": ratio(beyond.norm().item(), change.norm().item()),
+            "hot": ratio((got - want)[hot].norm().item(),
+                         change[hot].norm().item()) if hot.any() else None,
             "change": change.abs().max().item() if change.numel() else 0.0,
             "moved": (got - before).abs().max().item()
             if got.numel() else 0.0}
@@ -3566,12 +3625,14 @@ def touched_rows_check(tiered: dict, state, batches: list, config, *,
     host tier's tables, as the two-tier block does).  Held:
 
     * the losses, the dense parameters and every touched table row of both
-      tiers within ``TOUCHED_TOL``, the touched accumulator rows (and dense
-      accumulators) within ``TOUCHED_ACC_TOL``;
+      tiers within ``TOUCHED_TOL`` (bf16 tables: ``TOUCHED_BF16``), the
+      touched accumulator rows (and dense accumulators) within
+      ``TOUCHED_ACC_TOL``;
     * each tier tensor's change against the reference's change, which
       those bounds alone cannot do where a step moves a row by less than
       them: ``rel`` of :func:`_change_error` at most ``TOUCHED_REL``
-      (a block: ``TOUCHED_REL_BLOCK``).  A
+      (a block: ``TOUCHED_REL_BLOCK``), and the device tier's hot rows'
+      ``hot`` at most ``TOUCHED_HOT_REL``.  A
       row's rewrites: SGD adds each hit to the table on its own (the host
       tier adds their sum; the reference each hit), so as many as its
       hits; Adagrad rewrites a row and its accumulator once a step, so as
@@ -3582,9 +3643,9 @@ def touched_rows_check(tiered: dict, state, batches: list, config, *,
     * the XOR identity (:func:`xor_identity`) of every tier tensor, from
       ``folds`` (the tiers' folds before, when the caller has them).
 
-    Returns {"ok", "losses", "diffs", "rel", "rel_bound", "moved",
-    "change", "xor", "folds_before", "folds" (the tiers' folds after),
-    "model"}."""
+    Returns {"ok", "losses", "diffs", "bounds" (each diff's), "rel",
+    "rel_bound", "hot", "moved", "change", "xor", "folds_before", "folds" (the
+    tiers' folds after), "model"}."""
     from dlrm_tpu_torch.parallel import host_tier as H
     from dlrm_tpu_torch.train import train as T
 
@@ -3636,6 +3697,10 @@ def touched_rows_check(tiered: dict, state, batches: list, config, *,
         diffs["dense accumulators"] = max(
             (a.float().cpu() - b.float().cpu()).abs().max().item()
             for a, b in zip(_tensors(state["dense"]), _tensors(cs["dense"])))
+    bf16 = config.embedding_dtype == torch.bfloat16
+    bounds = {k: TOUCHED_ACC_TOL if "accumulators" in k
+              else TOUCHED_BF16["tables" if "tables" in k else k] if bf16
+              else TOUCHED_TOL for k in diffs}
     errs = {}
     for k in after:
         hits = model.hits[k.split("-")[0]]
@@ -3644,6 +3709,10 @@ def touched_rows_check(tiered: dict, state, batches: list, config, *,
         errs[k] = _change_error(after[k], ref[k], model.before[k], updates)
     rel = {k: e["rel"] for k, e in errs.items()}
     rel_bound = TOUCHED_REL_BLOCK if block else TOUCHED_REL
+    # the host tier adds a row's summed hits once, the reference each hit:
+    # only the device tier's hot rows are rounded alike on both sides
+    hot = {k: e["hot"] for k, e in errs.items()
+           if e["hot"] is not None and k.startswith("device")}
     # what must move, on both sides; under SGD the accumulators must not
     must_move = [k for k in after if after[k].numel()
                  and ("tables" in k or optimizer != "sgd")]
@@ -3653,14 +3722,15 @@ def touched_rows_check(tiered: dict, state, batches: list, config, *,
                 if "accumulators" in k and optimizer == "sgd")
     folds_after = model.folds()
     xor = xor_identity(folds, folds_after, model.before, after, device)
-    ok = (all(v <= (TOUCHED_ACC_TOL if "accumulators" in k else TOUCHED_TOL)
-              for k, v in diffs.items())
+    ok = (all(v <= bounds[k] for k, v in diffs.items())
           and all(v <= rel_bound for v in rel.values())
+          and all(v <= TOUCHED_HOT_REL for v in hot.values())
           and all(v > 0 for v in moved.values())
           and all(v > 0 for v in change.values())
           and still and all(xor.values()))
-    return {"ok": ok, "losses": got, "diffs": diffs, "rel": rel,
-            "rel_bound": rel_bound, "moved": moved, "change": change,
+    return {"ok": ok, "losses": got, "diffs": diffs, "bounds": bounds,
+            "rel": rel, "rel_bound": rel_bound, "hot": hot,
+            "moved": moved, "change": change,
             "xor": xor,
             "folds_before": folds, "folds": folds_after, "model": model}
 
@@ -3730,14 +3800,31 @@ def phase_auc_curve() -> None:
 
 
 TB_FEATURE = 32           # Terabyte fs=32 f32: 112.99 GB of tables
+TB64_FEATURE = 64         # Terabyte fs=64 bf16: the same bytes
 TB_BUDGET_GB = 64         # tables 0 and 19 spill: 66.61 GB of them
 TB_HOST_TABLES = (0, 19)
 TB_HOST_ROWS = 520_381_046
 TB_DEVICE_ROWS = 362_393_513
 TB_HOST_BYTES = 66_608_773_888
 TB_LR = 0.001             # the touched-rows checks' Adagrad lr
+TB_CLI_STEPS = 6          # the Terabyte CLIs' steps: `--profile-dir`
+TB_CLI_PROFILED = 3       # traces the 4th to the 6th
 TB_EVAL_BATCHES = 4
 TB_TIMED = 5              # timed steps, after 2
+
+
+def _warm_tier_acc(state: dict, res: dict) -> dict:
+    """Every accumulator of a two-tier row-wise state raised to at least
+    1e-6 (warm, as ``_warm``) after the SGD check ``res``; returns the
+    tiers' folds now: the tables' as ``res`` left them, the accumulators'
+    folded again."""
+    torch.cuda.synchronize()
+    for a in [state["dev_acc"], state["host_acc"]] + _tensors(
+            state["dense"]):
+        a.clamp_(min=1e-6)
+    return {**res["folds"],
+            "device-tier accumulators": _fold(state["dev_acc"], DEV),
+            "host-tier accumulators": _fold(state["host_acc"], DEV)}
 
 
 def _tb_report(what: str, res: dict) -> None:
@@ -3746,10 +3833,14 @@ def _tb_report(what: str, res: dict) -> None:
           f"tables, {model.config.total_rows} compact rows; "
           f"{model._tier[0].numel()} device-tier and {model._tier[1].numel()}"
           f" host-tier touched rows): losses {res['losses']}; |diff| "
-          + ", ".join(f"{k} {v:.3g}" for k, v in res["diffs"].items())
+          + ", ".join(f"{k} {v:.3g} (bound {res['bounds'][k]:g})"
+                      for k, v in res["diffs"].items())
           + f"; change against the reference's, beyond rounding (norm "
           f"ratio, bound {res['rel_bound']:g}): " + ", ".join(
               f"{k} {v:.3g}" for k, v in res["rel"].items())
+          + f"; hot rows' change (norm ratio, bound {TOUCHED_HOT_REL:g}): "
+          + (", ".join(f"{k} {v:.3g}" for k, v in res["hot"].items())
+             or "none")
           + "; moved by up to " + ", ".join(
               f"{k} {v:.3g} (reference {res['change'][k]:.3g})"
               for k, v in res["moved"].items())
@@ -3797,7 +3888,8 @@ def _tb_serving(tiered, config, plan) -> None:
         ev.append((time.perf_counter() - t0) / n)
     s_ms = statistics.median(serve[2:]) * 1e3
     e_ms = statistics.median(ev[1:]) * 1e3
-    print(f"Terabyte serving at B={BATCH} through TieredEmb ({n} batches, "
+    print(f"{_tb_what(config)} serving at B={BATCH} through TieredEmb ({n} "
+          f"batches, "
           f"tables {list(plan.host_tables)} read from host memory): scores "
           f"vs the touched-rows model |diff| {sdiff:.3g}, evaluate's loss, "
           f"AUC, accuracy |diff| {mdiff:.3g}; score_batch {s_ms:.3f} ms a "
@@ -3806,12 +3898,17 @@ def _tb_serving(tiered, config, plan) -> None:
           f"(median of 2 passes over {n} batches after 1)")
 
 
-def _tb_times(tiered, state, config, batches) -> None:
+def _tb_what(config) -> str:
+    return (f"Terabyte fs={config.feature_size} "
+            f"{str(config.embedding_dtype).removeprefix('torch.')}")
+
+
+def _tb_times(tiered, state, config, batches, block: bool = True) -> None:
     """Host-to-host ms a step: SGD, row-wise Adagrad, a K=4 row-wise block
-    (per step); then fused against gram, one SGD step each in turns."""
+    (per step; ``block``); then fused against gram, one SGD step each in
+    turns."""
     from dlrm_tpu_torch.parallel import host_tier as H
 
-    blocks = [_stack(batches[:BLOCK]), _stack(batches[BLOCK:2 * BLOCK])]
     kw = {"optimizer": "rowwise_adagrad", "lr": TB_LR, "config": config}
     timed = {"steps": TB_TIMED, "warmup": 2}
     ms = {
@@ -3819,13 +3916,15 @@ def _tb_times(tiered, state, config, batches) -> None:
             tiered, *b, config=config, lr=0.1), batches, **timed),
         "row-wise Adagrad step": _host_step_ms(
             lambda *b: H.tiered_train_step_opt(tiered, state, *b, **kw),
-            batches, **timed),
-        f"row-wise Adagrad K={BLOCK} block, a step": _host_step_ms(
+            batches, **timed)}
+    if block:
+        blocks = [_stack(batches[:BLOCK]), _stack(batches[BLOCK:2 * BLOCK])]
+        ms[f"row-wise Adagrad K={BLOCK} block, a step"] = _host_step_ms(
             lambda *b: H.tiered_train_block_opt(tiered, state, *b,
                                                 **kw)[-1],
-            blocks, **timed) / BLOCK}
-    print(f"Terabyte two-tier step times at B={TRAIN_BATCH} (ms host to "
-          f"host, median of {TB_TIMED} after 2): " + "; ".join(
+            blocks, **timed) / BLOCK
+    print(f"{_tb_what(config)} two-tier step times at B={TRAIN_BATCH} (ms "
+          f"host to host, median of {TB_TIMED} after 2): " + "; ".join(
               f"{k} {v:.3f} = {TRAIN_BATCH / v * 1e3:.0f} examples/s"
               for k, v in ms.items()))
     gram = dataclasses.replace(config, interaction_impl="gram")
@@ -3838,11 +3937,297 @@ def _tb_times(tiered, state, config, batches) -> None:
                                   config=cfg, lr=0.1))
         if i >= 2:
             turns[name].append((time.perf_counter() - t0) * 1e3)
-    print(f"Terabyte fs={TB_FEATURE} SGD step, fused against gram, one step "
+    print(f"{_tb_what(config)} SGD step, fused against gram, one step "
           f"each in turns ({len(order) // 2} each after one of each): fused "
           f"median {statistics.median(turns['fused']):.3f} ms, gram "
           f"{statistics.median(turns['gram']):.3f} ms (recorded only: the "
           f"auto rule keeps gram at fs != 128)")
+
+def _tb_disk(config) -> None:
+    """The free bytes of the filesystem that a checkpoint directory of this
+    run would use (``_scratch``'s) beside what a row-wise save of the
+    Terabyte model needs; nothing is saved."""
+    build = REPO / "dlrm_tpu_torch" / "_build"
+    build.mkdir(parents=True, exist_ok=True)
+    st = os.statvfs(build)
+    free = st.f_bavail * st.f_frsize
+    tables = config.total_rows * config.feature_size * 4
+    accs = config.total_rows * 4
+    fits = "it would fit" if free >= tables + accs else "it does not fit"
+    print(f"Terabyte checkpoint's disk: {free} B free on the filesystem of "
+          f"{build} (statvfs: {st.f_bavail} blocks of {st.f_frsize} B); a save"
+          f" needs {tables} B of tables (+ {accs} B of row-wise accumulators"
+          f" = {tables + accs} B): {fits}; not saved")
+
+
+def _tb_bf16(dev32: torch.Tensor, host32: torch.Tensor, plan32) -> dict:
+    """The Terabyte model at fs=64 with bf16 tables (f32 compute after the
+    pooled rows' cast, fused, ``--hbm-budget-gb 64``) drawn into the fs=32
+    tiers' allocations (``dev32``, ``host32``, f32), viewed as bf16: its plan has the fs=32 plan's tables, rows and bytes,
+    so nothing is allocated or registered for its tables.  Then an SGD step
+    and a row-wise Adagrad step from warm accumulators against the
+    touched-rows model in its bf16 form, serving and evaluation, step times
+    and a profile that names the pooled rows' cast.  Returns ``{"tiered",
+    "state"}``, views of the same allocations and a new row-wise state."""
+    from dlrm_tpu_torch import terabyte_config
+    from dlrm_tpu_torch.data.synthetic import batch_stream
+    from dlrm_tpu_torch.parallel import host_tier as H
+
+    config = terabyte_config(feature_size=TB64_FEATURE,
+                             embedding_dtype=torch.bfloat16,
+                             interaction_impl="fused")
+    plan = H.plan_tiers(config, int(TB_BUDGET_GB * H.GIB))
+    row = TB64_FEATURE * 2
+    got = (plan.host_tables, plan.device_tables, plan.host_rows,
+           plan.device_rows, plan.host_rows * row, plan.device_rows * row)
+    want = (plan32.host_tables, plan32.device_tables, plan32.host_rows,
+            plan32.device_rows, TB_HOST_BYTES,
+            plan32.device_rows * TB_FEATURE * 4)
+    check(got == want, f"Terabyte fs=64 bf16 tier plan {got}, not the fs=32 "
+          f"f32 plan's {want}")
+    ptrs = (dev32.data_ptr(), host32.data_ptr())
+    out = H.TieredEmb(dev32.view(torch.bfloat16), host32.view(torch.bfloat16),
+                      plan)
+    registered = []
+    register = H._cuda_host_register
+    H._cuda_host_register = lambda ptr, n: (registered.append((ptr, n)),
+                                            register(ptr, n))
+    try:
+        rss0 = _rss()
+        torch.cuda.reset_peak_memory_stats(DEV)
+        resident = torch.cuda.memory_allocated(DEV)
+        t0 = time.perf_counter()
+        tiered = H.draw_tiered_params(
+            torch.Generator(DEV).manual_seed(config.seed), plan, config, DEV,
+            out=out)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+    finally:
+        H._cuda_host_register = register
+    del out
+    emb = tiered["emb"]
+    peak = torch.cuda.max_memory_allocated(DEV) - resident
+    check(not registered and (emb.dev.data_ptr(), emb.host.data_ptr()) == ptrs
+          and emb.host.dtype == torch.bfloat16
+          and tuple(emb.host.shape) == (TB_HOST_ROWS, TB64_FEATURE),
+          f"fs=64 bf16 draw: registered {registered}, tiers at "
+          f"{(emb.dev.data_ptr(), emb.host.data_ptr())} (fs=32: {ptrs})")
+    # the draw's range in each tier's largest table: U(-1/sqrt(rows),
+    # 1/sqrt(rows)) rounded to bf16, over its first 2^20 rows
+    for name, stack, tables, offsets in (
+            ("host", emb.host, plan.host_tables, plan.host_offsets),
+            ("device", emb.dev, plan.device_tables, plan.device_offsets)):
+        t, lo = max(zip(tables, offsets),
+                    key=lambda to: config.table_sizes[to[0]])
+        lim = config.table_sizes[t] ** -0.5
+        n = min(1 << 20, config.table_sizes[t])
+        top = stack[lo:lo + n].float().abs().max().item()
+        check(0.9 * lim <= top <= lim * (1 + 2 ** -8), f"fs=64 bf16 draw: "
+              f"the {name} tier's first rows reach {top}, the table's "
+              f"bound is {lim}")
+    print(f"{_tb_what(config)} (f32 compute) under --hbm-budget-gb "
+          f"{TB_BUDGET_GB}: the plan's tables {list(plan.host_tables)} on the "
+          f"host, {plan.host_rows} rows x {row} B = {plan.host_rows * row} B, "
+          f"and {plan.device_rows} rows x {row} B on the card, the fs=32 f32 "
+          f"plan's to the byte; drawn into the fs=32 allocations in "
+          f"{draw_s:.2f} s (no registration; the same device and host "
+          f"addresses), device peak {peak / 1e9:.3f} GB above the resident "
+          f"tiers, host resident set {rss0 / 1e9:.3f} -> {_rss() / 1e9:.3f} "
+          f"GB")
+
+    state = H.init_tiered_opt_state(tiered, config=config,
+                                    optimizer="rowwise_adagrad")
+    batches = list(batch_stream(config, TRAIN_BATCH, 2, seed=91))
+    res = touched_rows_check(
+        tiered, state, batches[:1], config, optimizer="sgd", lr=0.1,
+        block=False, device=DEV, main_path=lambda: counted(
+            "Terabyte fs=64 bf16 two-tier SGD step", 1, 1, 1, 1))
+    _tb_report("fs=64 bf16 SGD step", res)
+    res = touched_rows_check(
+        tiered, state, batches[1:], config, optimizer="rowwise_adagrad",
+        lr=TB_LR, block=False, device=DEV, folds=_warm_tier_acc(state, res),
+        main_path=lambda: counted(
+            "Terabyte fs=64 bf16 two-tier row-wise step", 1, 1, 2, 2))
+    _tb_report("fs=64 bf16 row-wise Adagrad step (warm accumulators)", res)
+    del res
+    torch.cuda.empty_cache()
+
+    _tb_serving(tiered, config, plan)
+    _tb_times(tiered, state, config, batches, block=False)
+    host_groups = (("host_gather kernel (host tier, over PCIe)",
+                    ("host_gather_kernel",)),
+                   ("host_update_rows kernel (host tier, over PCIe)",
+                    ("host_update_rows_kernel",)))
+    groups = _profile_steps(f"{_tb_what(config)} two-tier SGD steps",
+                            lambda data: [float(H.tiered_train_step(
+                                tiered, *_to_dev(b), config=config, lr=0.1))
+                                for b in data], batches, groups=host_groups,
+                            scopes=("interaction",))
+    if groups is not None:
+        check(all(groups[name] > 0 for name, _ in host_groups),
+              f"the fs=64 bf16 step's profile lacks a host-tier kernel: "
+              f"{groups}")
+        under = groups["kernels under interaction"]
+        cast = {k: us for k, us in under.items() if "copy" in k}
+        nbytes = TRAIN_BATCH * config.num_tables * TB64_FEATURE * (2 + 4)
+        cast_ms = sum(cast.values()) / 1e3 / 5
+        check(cast and any("interaction_fwd" in k for k in under),
+              f"the fs=64 bf16 step's interaction scope ran {under}: no copy "
+              f"(the pooled rows' cast) beside the forward kernel")
+        print(f"the pooled rows' cast bf16 -> f32 (models/dlrm.py "
+              f"forward_from_pooled, pooled.to(x.dtype)): {cast_ms:.3f} ms a "
+              f"step in {len(cast)} copy kernel(s) under the interaction "
+              f"scope, against {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms for "
+              f"its {nbytes} B (read bf16, write f32) at the HBM rate")
+    return {"tiered": tiered, "state": state}
+
+
+TB_MEM_WAIT_S = 240   # the most the sharded CLI waits for MemAvailable
+
+
+def _wait_mem_available(need: int, deadline_s: float) -> tuple:
+    """Waits until the host's MemAvailable reaches ``need`` bytes, reading
+    it every 0.5 s; fails past ``deadline_s``.  Returns (MemAvailable at
+    the start, at the end, seconds waited)."""
+    t0 = time.perf_counter()
+    first = now = _meminfo()["MemAvailable"]
+    while now < need:
+        check(time.perf_counter() - t0 <= deadline_s,
+              f"MemAvailable {now} B after {deadline_s} s of waiting (from "
+              f"{first} B): the run needs {need} B")
+        time.sleep(0.5)
+        now = _meminfo()["MemAvailable"]
+    return first, now, time.perf_counter() - t0
+
+
+def _drawn_s(stderr: str) -> float:
+    """The seconds of `train`'s "parameters drawn in" status line."""
+    lines = [line for line in stderr.splitlines()
+             if line.startswith("parameters drawn in ")]
+    check(len(lines) == 1, f"train printed {lines} for its draw")
+    return float(lines[0].split()[3])
+
+
+_CLI_GROUPS = (
+    ("host_gather kernel (host tier, over PCIe)", ("host_gather_kernel",)),
+    ("host_update_rows kernel (host tier, over PCIe)",
+     ("host_update_rows_kernel",)),
+    ("device-to-host copies", ("Memcpy DtoH",)),
+    ("device-to-device copies (NCCL at world size 1)", ("Memcpy DtoD",)),
+    ("memsets", ("Memset",)),
+)
+
+
+def _cli_profile(what: str, prof_dir: Path):
+    """The Chrome trace that `train --profile-dir` wrote into ``prof_dir``
+    (``TB_CLI_PROFILED`` steps): device time a step by group
+    (``_CLI_GROUPS``, then ``_PROFILE_GROUPS``), the trace's span a step
+    and the device's idle share of it, and the longest kernels of all else.
+    Returns {group: device microseconds a step} (None when the trace holds
+    no device activity)."""
+    (trace,) = prof_dir.glob("*.json")
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    table = _CLI_GROUPS + _PROFILE_GROUPS
+    groups = {name: 0.0 for name, _ in table}
+    other = {}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        for name, keys in table:
+            if any(k in e["name"] for k in keys):
+                groups[name] += e["dur"]
+                break
+        else:
+            other[e["name"]] = other.get(e["name"], 0.0) + e["dur"]
+    groups["elementwise and reductions (all else)"] = sum(other.values())
+    n = TB_CLI_PROFILED
+    groups = {k: us / n for k, us in groups.items()}
+    busy = sum(groups.values())
+    if busy == 0:
+        print(f"profile, {what}: the trace holds no device time (not "
+              f"measured)")
+        return None
+    span = (max(e["ts"] + e["dur"] for e in events)
+            - min(e["ts"] for e in events)) / n
+    print(f"profile, {what} (train --profile-dir, {n} steps after 3): "
+          f"{busy / 1e3:.3f} ms of device time a step, {span / 1e3:.3f} ms "
+          f"a step of trace, device idle {100 * (1 - busy / span):.1f}%")
+    for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        if us:
+            print(f"  {name}: {us / 1e3:.3f} ms a step "
+                  f"({100 * us / busy:.1f}%)")
+    for key, us in sorted(other.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    of all else: {us / 1e3 / n:.3f} ms a step: {key[:110]}")
+    return groups
+
+
+def _tb_sharded_cli(tier_res, tier_line: dict, tier_lines: list,
+                    need: int, prof_dir: Path, tier_prof) -> None:
+    """`train --sharded true --host-tables 0,19` at Terabyte fs=32 (a gang
+    of this one process under NCCL: tables 0 and 19 the rank's host stack,
+    520,381,047 rows with its trash row, in registered host memory; the
+    other 24 in slots on the card), ``TB_CLI_STEPS`` row-wise steps from
+    the seed's draw, after the host's MemAvailable has come back to
+    ``need``: its loss lines and final loss against the two-tier CLI's
+    (``tier_lines``, ``tier_line``, 1e-5), its peak VmRSS bounded as the
+    two-tier CLI's, its wall time, draw, training loop and placement line
+    beside the two-tier CLI's, and the profile of its steps
+    (``--profile-dir``) beside theirs (``tier_prof``)."""
+    first, avail, waited = _wait_mem_available(need, TB_MEM_WAIT_S)
+    print(f"MemAvailable after the two-tier CLI exited: {first} B, {avail} B "
+          f"after {waited:.1f} s of waiting (the sharded CLI needs {need} B)")
+    args = ["train", "--config", "terabyte", "--feature-size",
+            str(TB_FEATURE), "--interaction", "fused", "--sharded", "true",
+            "--host-tables", ",".join(map(str, TB_HOST_TABLES)),
+            "--optimizer", "rowwise_adagrad", "--lr", str(FULL_LR),
+            "--steps", str(TB_CLI_STEPS), "--batch-size", str(TRAIN_BATCH),
+            "--log-every", "1", "--device", DEV.type, "--profile-dir",
+            str(prof_dir)]
+    res = _cli(args)
+    line = _line(args, res)
+    lines = _loss_lines(res.stderr)
+    diff = max(abs(a - b) for a, b in zip(lines, tier_lines)) \
+        if len(lines) == len(tier_lines) == TB_CLI_STEPS else float("inf")
+    tier_final = tier_line["final_loss"]
+    final = abs(line["final_loss"] - tier_final)
+    host_rows = TB_HOST_ROWS + 1      # the host stack's trash row
+    placed = [ln for ln in res.stderr.splitlines()
+              if ln.startswith("host-resident row-sharded tables:")]
+    check(line["steps"] == TB_CLI_STEPS and diff <= 1e-5 and final <= 1e-5
+          and placed == [f"host-resident row-sharded tables: "
+                         f"{list(TB_HOST_TABLES)} ({host_rows:,} rows a "
+                         f"shard in host memory)"]
+          and "sharded over 1 process(es)" in res.stderr,
+          f"train --sharded true --host-tables: {lines} (final "
+          f"{line['final_loss']}) vs the two-tier CLI's {tier_lines} (final "
+          f"{tier_final}); {res.stderr[-800:]}")
+    host = host_rows * TB_FEATURE * 4 + host_rows * 4  # rows, accumulator
+    peak = res.peak_rss.get("VmRSS", 0)
+    check(host <= peak < host + 16 * GIB, f"train --sharded true "
+          f"--host-tables: peak resident set {res.peak_rss}, the host stack "
+          f"and its accumulator are {host} B")
+    print(f"train --config terabyte --feature-size {TB_FEATURE} --sharded "
+          f"true --host-tables {','.join(map(str, TB_HOST_TABLES))} "
+          f"--optimizer rowwise_adagrad --lr {FULL_LR} --profile-dir, "
+          f"{TB_CLI_STEPS} steps at B={TRAIN_BATCH}: {placed[0]!r}; loss "
+          f"lines {lines} vs the two-tier CLI's {tier_lines} (|diff| "
+          f"{diff:.3g}; final loss {final:.3g}); wall time {res.seconds:.2f}"
+          f" s (two-tier {tier_res.seconds:.2f} s), draw "
+          f"{_drawn_s(res.stderr):.2f} s (two-tier "
+          f"{_drawn_s(tier_res.stderr):.2f} s), training loop "
+          f"{line['seconds']} s (two-tier {tier_line['seconds']} s; s at "
+          f"each step's line {_loop_seconds(res.stderr, TRAIN_BATCH)}, "
+          f"two-tier {_loop_seconds(tier_res.stderr, TRAIN_BATCH)}), peak "
+          f"resident set " + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in
+                                       res.peak_rss.items()))
+    prof = _cli_profile("sharded CLI's row-wise steps with host rows",
+                        prof_dir)
+    if prof is not None and tier_prof is not None:
+        print("the sharded step against the two-tier one, device ms a step "
+              "(two-tier -> sharded): " + "; ".join(
+                  f"{k} {tier_prof[k] / 1e3:.3f} -> {prof[k] / 1e3:.3f}"
+                  for k in prof if max(prof[k], tier_prof[k]) > 0))
 
 
 def phase_terabyte() -> None:
@@ -3856,8 +4241,10 @@ def phase_terabyte() -> None:
     Adagrad step from warm accumulators and a K=4 row-wise block, each
     against the touched-rows model with the XOR identity over every whole
     tier; serving and evaluation; step times, fused against gram in turns,
-    a profile; the tiers released; then `train --config terabyte` in a
-    subprocess against the in-process losses."""
+    a profile; the checkpoint's disk read; the bf16 fs=64 model in the same
+    allocations (``_tb_bf16``); the tiers released; then `train --config
+    terabyte` in a subprocess against the in-process losses, and `train
+    --sharded true --host-tables 0,19` against it (``_tb_sharded_cli``)."""
     from dlrm_tpu_torch import terabyte_config
     from dlrm_tpu_torch.data.synthetic import batch_stream
     from dlrm_tpu_torch.parallel import host_tier as H
@@ -3908,7 +4295,8 @@ def phase_terabyte() -> None:
           f"host resident set {rss0 / 1e9:.3f} -> {rss1 / 1e9:.3f} GB; "
           f"MemAvailable {_meminfo()['MemAvailable']} B")
 
-    stream = list(batch_stream(config, TRAIN_BATCH, 2, seed=0))  # the CLI's
+    stream = list(batch_stream(config, TRAIN_BATCH, TB_CLI_STEPS,
+                               seed=0))  # the CLI's
     ids = _host_ids(plan, torch.from_numpy(stream[0]["sparse"]).to(DEV))
     pooled = torch.zeros((TRAIN_BATCH, config.num_tables, TB_FEATURE),
                          device=DEV)
@@ -3954,11 +4342,12 @@ def phase_terabyte() -> None:
     # the CLI's run in process: its stream and zero accumulators, at the
     # full-width CLI runs' lr (from zero accumulators the default 0.1 moves
     # every touched weight by about 0.1 and saturates the loss)
-    with counted("Terabyte row-wise steps (the CLI's two)", 2, 2, 4, 4):
+    n = TB_CLI_STEPS
+    with counted("Terabyte row-wise steps (the CLI's)", n, n, 2 * n, 2 * n):
         cli_losses = [float(H.tiered_train_step_opt(
             tiered, state, *_to_dev(b), config=config,
             optimizer="rowwise_adagrad", lr=FULL_LR)) for b in stream]
-    print(f"the CLI's two row-wise steps in process: losses {cli_losses}")
+    print(f"the CLI's {n} row-wise steps in process: losses {cli_losses}")
 
     batches = list(batch_stream(config, TRAIN_BATCH, 2 + BLOCK, seed=81))
     res = touched_rows_check(
@@ -3966,13 +4355,10 @@ def phase_terabyte() -> None:
         block=False, device=DEV,
         main_path=lambda: counted("Terabyte two-tier SGD step", 1, 1, 1, 1))
     _tb_report("SGD step", res)
-    torch.cuda.synchronize()
-    for a in [state["dev_acc"], state["host_acc"]] + _tensors(
-            state["dense"]):
-        a.clamp_(min=1e-6)   # warm accumulators (_warm)
     res = touched_rows_check(
         tiered, state, batches[1:2], config, optimizer="rowwise_adagrad",
-        lr=TB_LR, block=False, device=DEV, main_path=lambda: counted(
+        lr=TB_LR, block=False, device=DEV, folds=_warm_tier_acc(state, res),
+        main_path=lambda: counted(
             "Terabyte two-tier row-wise step", 1, 1, 2, 2))
     _tb_report("row-wise Adagrad step (warm accumulators)", res)
     res = touched_rows_check(
@@ -4001,49 +4387,81 @@ def phase_terabyte() -> None:
           f"{torch.cuda.max_memory_allocated(DEV) / 1e9:.3f} GB (the device "
           f"tier {dev_bytes / 1e9:.2f} GB and its accumulator "
           f"{plan.device_rows * 4 / 1e9:.2f} GB resident)")
+    _tb_disk(config)
 
-    rss2 = _rss()
+    # the bf16 fs=64 model in the same two allocations: the fs=32 names
+    # dropped first, so that the views passed on hold them alone
+    dev, host = emb.dev, emb.host
+    host_ptr = host.data_ptr()
     del tiered, emb, state, acc, ids, uniq
     torch.cuda.empty_cache()
-    _release_pinned()
+    bf16 = _tb_bf16(dev, host, plan)
+    del dev, host
+
+    rss2 = _rss()
+    unregistered = []
+    unregister = H._cuda_host_unregister
+    H._cuda_host_unregister = lambda ptr: (unregistered.append(ptr),
+                                           unregister(ptr))
+    try:
+        del bf16
+        gc.collect()
+        torch.cuda.empty_cache()
+        _release_pinned()
+    finally:
+        H._cuda_host_unregister = unregister
     rss3 = _rss()
-    check(rss2 - rss3 >= host_bytes + acc_bytes - TIER_RSS_SLACK,
+    check(rss2 - rss3 >= host_bytes + acc_bytes - TIER_RSS_SLACK
+          and unregistered.count(host_ptr) == 1,
           f"releasing the Terabyte tiers gave back {rss2 - rss3} B of the "
-          f"host's resident set, not {host_bytes + acc_bytes} B")
-    print(f"Terabyte tiers released and unregistered: host resident set "
-          f"{rss2 / 1e9:.3f} -> {rss3 / 1e9:.3f} GB, MemAvailable "
+          f"host's resident set, not {host_bytes + acc_bytes} B; "
+          f"unregistered {unregistered} (the host tier at {host_ptr})")
+    print(f"Terabyte tiers released and unregistered (the host tier's "
+          f"mapping once, when its last view died: {len(unregistered)} "
+          f"unregistrations, the tier and the accumulator): host resident "
+          f"set {rss2 / 1e9:.3f} -> {rss3 / 1e9:.3f} GB, MemAvailable "
           f"{_meminfo()['MemAvailable']} B, device memory allocated "
           f"{torch.cuda.memory_allocated(DEV) / 1e9:.3f} GB")
 
-    args = ["train", "--config", "terabyte", "--feature-size",
-            str(TB_FEATURE), "--interaction", "fused", "--hbm-budget-gb",
-            str(TB_BUDGET_GB), "--optimizer", "rowwise_adagrad", "--lr",
-            str(FULL_LR), "--steps", "2", "--batch-size", str(TRAIN_BATCH),
-            "--log-every", "1", "--device", DEV.type]
-    res = _cli(args)
-    line = _line(args, res)
-    lines = _loss_lines(res.stderr)
-    # the status lines print 5 decimals: held against the in-process
-    # losses rounded alike
-    diff = max(abs(a - round(b, 5)) for a, b in zip(lines, cli_losses)) \
-        if len(lines) == 2 else float("inf")
-    final = abs(line["final_loss"] - cli_losses[-1])
-    check(line["steps"] == 2 and diff <= 1e-5 and final <= 1e-5
-          and f"host-tier tables: {list(TB_HOST_TABLES)} "
-          f"({TB_HOST_ROWS:,} rows)" in res.stderr,
-          f"train --config terabyte: {lines} (final {line['final_loss']}) vs "
-          f"in process {cli_losses}; {res.stderr[-800:]}")
-    peak = res.peak_rss.get("VmRSS", 0)
-    check(host_bytes + acc_bytes <= peak < host_bytes + acc_bytes + 16 * GIB,
-          f"train --config terabyte: peak resident set {res.peak_rss}")
-    print(f"train --config terabyte --feature-size {TB_FEATURE} --interaction"
-          f" fused --hbm-budget-gb {TB_BUDGET_GB} --optimizer "
-          f"rowwise_adagrad --lr {FULL_LR}, 2 steps at B={TRAIN_BATCH}: loss "
-          f"lines {lines} "
-          f"vs in process {[round(x, 7) for x in cli_losses]} (|diff| "
-          f"{diff:.3g}; final loss {final:.3g}); wall time {res.seconds:.2f}"
-          f" s, peak resident set " + ", ".join(
-              f"{k} {v / 1e9:.3f} GB" for k, v in res.peak_rss.items()))
+    with _scratch() as tmp:
+        args = ["train", "--config", "terabyte", "--feature-size",
+                str(TB_FEATURE), "--interaction", "fused", "--hbm-budget-gb",
+                str(TB_BUDGET_GB), "--optimizer", "rowwise_adagrad", "--lr",
+                str(FULL_LR), "--steps", str(n), "--batch-size",
+                str(TRAIN_BATCH), "--log-every", "1", "--device", DEV.type,
+                "--profile-dir", str(tmp / "two-tier")]
+        res = _cli(args)
+        line = _line(args, res)
+        lines = _loss_lines(res.stderr)
+        # the status lines print 5 decimals: held against the in-process
+        # losses rounded alike
+        diff = max(abs(a - round(b, 5)) for a, b in zip(lines, cli_losses)) \
+            if len(lines) == n else float("inf")
+        final = abs(line["final_loss"] - cli_losses[-1])
+        check(line["steps"] == n and diff <= 1e-5 and final <= 1e-5
+              and f"host-tier tables: {list(TB_HOST_TABLES)} "
+              f"({TB_HOST_ROWS:,} rows)" in res.stderr,
+              f"train --config terabyte: {lines} (final "
+              f"{line['final_loss']}) vs in process {cli_losses}; "
+              f"{res.stderr[-800:]}")
+        peak = res.peak_rss.get("VmRSS", 0)
+        check(host_bytes + acc_bytes <= peak
+              < host_bytes + acc_bytes + 16 * GIB,
+              f"train --config terabyte: peak resident set {res.peak_rss}")
+        print(f"train --config terabyte --feature-size {TB_FEATURE} "
+              f"--interaction fused --hbm-budget-gb {TB_BUDGET_GB} "
+              f"--optimizer rowwise_adagrad --lr {FULL_LR} --profile-dir, "
+              f"{n} steps at B={TRAIN_BATCH}: loss lines {lines} vs in "
+              f"process {[round(x, 7) for x in cli_losses]} (|diff| "
+              f"{diff:.3g}; final loss {final:.3g}); wall time "
+              f"{res.seconds:.2f} s, draw {_drawn_s(res.stderr):.2f} s, "
+              f"training loop {line['seconds']} s (s at each step's line: "
+              f"{_loop_seconds(res.stderr, TRAIN_BATCH)}), peak resident set "
+              + ", ".join(f"{k} {v / 1e9:.3f} GB"
+                          for k, v in res.peak_rss.items()))
+        tier_prof = _cli_profile("two-tier CLI's row-wise steps",
+                                 tmp / "two-tier")
+        _tb_sharded_cli(res, line, lines, need, tmp / "sharded", tier_prof)
 
 
 # -- the sharded CLI -----------------------------------------------------------
@@ -4517,6 +4935,19 @@ def _loss_lines(stderr: str) -> list:
             if line.startswith("step ")]
 
 
+def _loop_seconds(stderr: str, batch: int) -> list:
+    """The seconds from the training loop's start to each status line of
+    `train --log-every 1` at ``batch`` examples a step (from the examples/s
+    the line prints over the steps so far), to 3 decimals."""
+    out = []
+    for line in stderr.splitlines():
+        if line.startswith("step "):
+            f = line.split()
+            eps = float(f[4].lstrip("(").replace(",", ""))
+            out.append(round(int(f[1]) * batch / eps, 3))
+    return out
+
+
 def phase_data() -> None:
     """The Criteo pipeline at full Kaggle fs=128 width: preprocess, train
     from the file with prefetch, --validate-data, and the step fed from
@@ -4828,6 +5259,10 @@ def _status(pid: int) -> dict:
 
 
 _RUNNING = []   # the _Cli processes not yet waited for
+# a _Cli starts under _START; once main's cleanup has set _STOPPING under
+# it, none starts (a _CliChain's thread may be about to start one)
+_START = threading.Lock()
+_STOPPING = threading.Event()
 
 
 class _Cli:
@@ -4841,10 +5276,13 @@ class _Cli:
         self.out = self.err = ""
         self._done = threading.Event()
         self.t0 = time.perf_counter()
-        self.proc = subprocess.Popen(
-            [sys.executable, "-m", "dlrm_tpu_torch", *args], cwd=REPO,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        _RUNNING.append(self)
+        with _START:
+            check(not _STOPPING.is_set(), f"{args[0]} not started: the "
+                  f"run is stopping")
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "dlrm_tpu_torch", *args], cwd=REPO,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            _RUNNING.append(self)
         self._reader = threading.Thread(target=self._read, daemon=True)
         self._sampler = threading.Thread(target=self._sample, daemon=True)
         self._reader.start()
@@ -4891,6 +5329,32 @@ class _Cli:
         return res
 
 
+class _CliChain:
+    """:class:`_Cli` runs one after another, each started when the one
+    before has exited 0, in a thread beside whatever this process does
+    next; :meth:`wait` returns their results in order, or raises what
+    stopped the chain."""
+
+    def __init__(self, runs: list):
+        self.results, self.error = [], None
+        self._thread = threading.Thread(target=self._run, args=(runs,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self, runs: list) -> None:
+        try:
+            for args in runs:
+                self.results.append(_Cli(args).wait())
+        except Exception as e:     # raised again by wait()
+            self.error = e
+
+    def wait(self) -> list:
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.results
+
+
 def _cli(args: list, ok: bool = True) -> subprocess.CompletedProcess:
     """:class:`_Cli` of ``args``, waited for."""
     return _Cli(args).wait(ok)
@@ -4924,7 +5388,15 @@ def _write_dac(path: str, n: int, rng, sizes=TABLES) -> None:
 
 def phase_entry_points() -> None:
     """`python -m dlrm_tpu_torch predict`, `train` and `eval` on the
-    card."""
+    card.  At the tiny config's widths the CLI processes that need none of
+    each other's results run together (predict, the three trains and the
+    first checkpointed train; then eval beside the checkpoint chain), each
+    held to the same work in process once it has ended; all of it beside
+    the full-width checkpoint chain (`_full_width_chain`), which
+    `_full_width_entry_points` then takes up.  The processes run together
+    (`_Cli`, `_CliChain`) only to keep the whole smoke under 1100 s: one
+    after another, this phase took 264 s on the H100 where it now takes
+    196 s."""
     from dlrm_tpu_torch import init_params, tiny_config, train
     from dlrm_tpu_torch.data.criteo import DACLoader, load
     from dlrm_tpu_torch.data.synthetic import ClickthroughModel
@@ -4939,16 +5411,38 @@ def phase_entry_points() -> None:
     tables = ",".join(map(str, TABLES))
     rng = np.random.default_rng(7)
     cuda = DEV
-    with _scratch() as tmp:
+    with _scratch() as fw_tmp, _scratch() as tmp:
+        chain = _full_width_chain(fw_tmp)
         data, pz, out = (str(tmp / f)
                          for f in ("data.bin", "params.npz", "scores.npy"))
         _write_dac(data, n, rng)
         params = init_params(torch.Generator().manual_seed(11), config)
         save_npz(pz, params_to_numpy(params))
-        line = _run_cli(["predict", "--config", "tiny", "--table-sizes",
-                         tables, "--data", data, "--params", pz, "--out",
-                         out, "--batch-size", "256", "--interaction", "fused",
-                         "--device", DEV.type])
+        model = ["--config", "tiny", "--table-sizes", tables,
+                 "--interaction", "fused", "--device", DEV.type]
+        predict = ["predict", *model, "--data", data, "--params", pz,
+                   "--out", out, "--batch-size", "256"]
+        runs = {
+            "skewed": (["--synthetic", "skewed", "--steps", "20",
+                        "--batch-size", "128"],
+                       lambda: ClickthroughModel(config, seed=12345).stream(
+                           128, 20, seed=1)),
+            "data": (["--data", data, "--shuffle-rows", "--shuffle-window",
+                      "2", "--epochs", "2", "--batch-size", "128"],
+                     lambda: _two_epochs(DACLoader(
+                         load(data), 128, shuffle_rows=True,
+                         shuffle_window=2, seed=0))),
+        }
+        # the full recipe: row-wise Adagrad in blocks of 4 (10 steps: 4, 4
+        # and a remainder of 2), evaluated after
+        rowwise = ["train", *model, "--optimizer", "rowwise_adagrad",
+                   "--update-interval", "4", "--eval-after", "--synthetic",
+                   "skewed", "--steps", "10", "--batch-size", "128"]
+        started = {"predict": _Cli(predict), "rowwise": _Cli(rowwise),
+                   **{name: _Cli(["train", *model, *flags])
+                      for name, (flags, _) in runs.items()},
+                   "ckpt": _ckpt_first(tmp, model)}
+        line = _line(predict, started["predict"].wait())
         check(line["examples"] == n and line["out"] == out,
               f"predict line {line}")
         got = np.load(out)
@@ -4965,21 +5459,8 @@ def phase_entry_points() -> None:
                             config, cuda)
             return train(p, data_iter, config=config, lr=0.1)["losses"][-1]
 
-        runs = {
-            "skewed": (["--synthetic", "skewed", "--steps", "20",
-                        "--batch-size", "128"],
-                       lambda: ClickthroughModel(config, seed=12345).stream(
-                           128, 20, seed=1)),
-            "data": (["--data", data, "--shuffle-rows", "--shuffle-window",
-                      "2", "--epochs", "2", "--batch-size", "128"],
-                     lambda: _two_epochs(DACLoader(
-                         load(data), 128, shuffle_rows=True,
-                         shuffle_window=2, seed=0))),
-        }
         for name, (flags, stream) in runs.items():
-            line = _run_cli(["train", "--config", "tiny", "--table-sizes",
-                             tables, "--interaction", "fused", "--device",
-                             DEV.type, *flags])
+            line = _line(["train"], started[name].wait())
             want_steps = 20 if name == "skewed" else 2 * (n // 128)
             check(line["steps"] == want_steps and
                   np.isfinite(line["final_loss"]), f"train line {line}")
@@ -4991,14 +5472,7 @@ def phase_entry_points() -> None:
             print(f"train {name}: CLI vs in-process final loss |diff| "
                   f"{diff:.3g}")
 
-        # the full recipe: row-wise Adagrad in blocks of 4 (10 steps: 4, 4
-        # and a remainder of 2), evaluated after
-        line = _run_cli(["train", "--config", "tiny", "--table-sizes", tables,
-                         "--interaction", "fused", "--device", DEV.type,
-                         "--optimizer", "rowwise_adagrad",
-                         "--update-interval", "4", "--eval-after",
-                         "--synthetic", "skewed", "--steps", "10",
-                         "--batch-size", "128"])
+        line = _line(rowwise, started["rowwise"].wait())
         p = init_params(torch.Generator(cuda).manual_seed(config.seed),
                         config, cuda)
         state = init_opt_state(p, config=config, optimizer="rowwise_adagrad")
@@ -5023,11 +5497,13 @@ def phase_entry_points() -> None:
         print(f"train rowwise_adagrad K=4 + eval: CLI vs in process: final "
               f"loss, eval loss, AUC |diff| {[f'{d:.3g}' for d in diffs]}")
 
+        pz = str(tmp / "trained.npz")
         save_npz(pz, params_to_numpy(p))
-        line = _run_cli(["eval", "--config", "tiny", "--table-sizes", tables,
-                         "--interaction", "fused", "--device", DEV.type,
-                         "--data", data, "--params", pz, "--batch-size",
-                         "256"])
+        ev_args = ["eval", *model, "--data", data, "--params", pz,
+                   "--batch-size", "256"]
+        ev = _Cli(ev_args)
+        _ckpt_entry_points(tmp, config, data, model, started["ckpt"])
+        line = _line(ev_args, ev.wait())
         want = evaluate(p, DACLoader(load(data), 256, drop_remainder=False),
                         config)
         diffs = [abs(line[k] - want[k]) for k in ("loss", "auc", "accuracy")]
@@ -5036,15 +5512,32 @@ def phase_entry_points() -> None:
         print(f"eval --params: CLI vs in process over {n} rows (ragged tail "
               f"of {n % 256}): loss, AUC, accuracy |diff| "
               f"{[f'{d:.3g}' for d in diffs]}")
-        _ckpt_entry_points(tmp, config, data, tables)
-    _full_width_entry_points()
+        _full_width_entry_points(fw_tmp, chain)
 
 
-def _ckpt_entry_points(tmp: Path, config, data: str, tables: str) -> None:
-    """At the tiny config's widths, scheduled SGD: `train --ckpt-dir` and
-    its resume, `eval --ckpt-dir`, `export --quantize int8` with `predict
-    --ckpt-dir` on the artifact, in subprocesses on the card, held against
-    the port in process."""
+_CKPT_SCHED = ["--lr-schedule", "warmup_poly_decay", "--warmup-steps", "2",
+               "--decay-start", "3", "--decay-steps", "4"]
+
+
+def _ckpt_train(tmp: Path, model: list) -> list:
+    """`train --ckpt-dir` at the tiny config's widths, scheduled SGD, a save
+    every 2 steps (``--steps`` to add)."""
+    return ["train", *model, "--synthetic", "skewed", "--batch-size", "128",
+            "--save-interval", "2", "--ckpt-dir", str(tmp / "ck"),
+            *_CKPT_SCHED]
+
+
+def _ckpt_first(tmp: Path, model: list) -> _Cli:
+    """The checkpoint chain's first run, 4 steps, started now."""
+    return _Cli(_ckpt_train(tmp, model) + ["--steps", "4"])
+
+
+def _ckpt_entry_points(tmp: Path, config, data: str, model: list,
+                       first: _Cli) -> None:
+    """At the tiny config's widths, scheduled SGD: `train --ckpt-dir`
+    (``first``, already started) and its resume, `eval --ckpt-dir`,
+    `export --quantize int8` with `predict --ckpt-dir` on the artifact, in
+    subprocesses on the card, held against the port in process."""
     from dlrm_tpu_torch import init_params
     from dlrm_tpu_torch.data.criteo import DACLoader, load
     from dlrm_tpu_torch.data.synthetic import ClickthroughModel
@@ -5055,14 +5548,9 @@ def _ckpt_entry_points(tmp: Path, config, data: str, tables: str) -> None:
     from dlrm_tpu_torch.train.optim import make_schedule
     from dlrm_tpu_torch.train.train import make_train_step
 
-    model = ["--config", "tiny", "--table-sizes", tables, "--interaction",
-             "fused", "--device", DEV.type]
     d, q = str(tmp / "ck"), str(tmp / "q")
-    sched = ["--lr-schedule", "warmup_poly_decay", "--warmup-steps", "2",
-             "--decay-start", "3", "--decay-steps", "4"]
-    train = ["train", *model, "--synthetic", "skewed", "--batch-size", "128",
-             "--save-interval", "2", "--ckpt-dir", d, *sched]
-    first = _run_cli(train + ["--steps", "4"])
+    train = _ckpt_train(tmp, model)
+    first = _line(train, first.wait())
     second = _run_cli(train + ["--steps", "6"])
     check(first["steps"] == 4 and second["steps"] == 2
           and all_steps(d) == [2, 4, 6], f"train --ckpt-dir: {first}, "
@@ -5090,15 +5578,18 @@ def _ckpt_entry_points(tmp: Path, config, data: str, tables: str) -> None:
           f"checkpoints {all_steps(d)}; vs in process: final loss, tables, "
           f"dense parameters |diff| {[f'{x:.3g}' for x in diffs]}")
 
-    line = _run_cli(["eval", *model, "--data", data, "--ckpt-dir", d,
-                     "--batch-size", "256"])
+    ev_args = ["eval", *model, "--data", data, "--ckpt-dir", d,
+               "--batch-size", "256"]
+    ex_args = ["export", *model[:4], "--ckpt-dir", d, "--out", q,
+               "--quantize", "int8"]
+    ev, ex = _Cli(ev_args), _Cli(ex_args)   # both read the checkpoint only
+    line = _line(ev_args, ev.wait())
     want = evaluate(saved, DACLoader(load(data), 256, drop_remainder=False),
                     config)
     ediff = [abs(line[k] - want[k]) for k in ("loss", "auc", "accuracy")]
     check(line["examples"] == want["examples"] and max(ediff) <= 1e-6,
           f"eval --ckpt-dir: {line} vs in process {want}")
-    line = _run_cli(["export", *model[:4], "--ckpt-dir", d, "--out", q,
-                     "--quantize", "int8"], on_device=False)
+    line = _line(ex_args, ex.wait(), on_device=False)
     check(line["quantized"] == "int8", f"export line {line}")
     out = str(tmp / "q.npy")
     _run_cli(["predict", *model, "--data", data, "--ckpt-dir", q, "--out",
@@ -5129,16 +5620,49 @@ def _chunked_max_diff(a: torch.Tensor, b: torch.Tensor,
                 .item() for i in range(0, a.shape[0], rows)), default=0.0)
 
 
-def _full_width_entry_points() -> None:
+def _fw_model() -> list:
+    """The model flags of the full-width entry points."""
+    return ["--config", "kaggle", "--feature-size", "128", "--interaction",
+            "fused", "--device", DEV.type]
+
+
+def _fw_train(tmp: Path) -> list:
+    return ["train", *_fw_model(), "--batch-size", str(TRAIN_BATCH),
+            "--optimizer", "rowwise_adagrad", "--lr", str(FULL_LR),
+            "--ckpt-dir", str(tmp / "ck"), "--save-interval", "2",
+            "--max-to-keep", "1"]
+
+
+def _full_width_chain(tmp: Path) -> _CliChain:
+    """`train --ckpt-dir` at full width (row-wise Adagrad) for 2 steps,
+    then its resume to 4, in ``tmp`` (its free space checked first),
+    started now one after the other in a thread."""
+    from dlrm_tpu_torch import kaggle_config
+
+    config = kaggle_config(feature_size=128)
+    table_bytes = config.total_rows * config.feature_size * 4
+    # two checkpoints while the older is retired, and the artifact
+    need = 2 * (table_bytes + config.total_rows * 4) + INT8_BYTES + GIB
+    free = shutil.disk_usage(tmp).free
+    check(free > need, f"full-width CLI: {free} B free under {tmp}, the "
+          f"run needs {need} B")
+    return _CliChain([_fw_train(tmp) + ["--steps", steps]
+                      for steps in ("2", "4")])
+
+
+def _full_width_entry_points(tmp: Path, chain: _CliChain) -> None:
     """Kaggle fs=128 at full width (f32, fused, B=32768) through the CLI on
-    the card: `train --ckpt-dir` with row-wise Adagrad, 2 steps and a
-    resume to 4, held to the same 4 steps in process; `eval --ckpt-dir`
+    the card, in ``tmp``: `train --ckpt-dir` with row-wise Adagrad, 2
+    steps and a resume to 4 (``chain``, `_full_width_chain`, started
+    earlier), held to the same 4 steps in process; `eval --ckpt-dir`
     held to `evaluate` of the checkpoint; `export --quantize int8` (these
     two run together, beside the steps in process), then
     `predict --ckpt-dir` on the artifact held to the card's quantizer in
     process; each process's peak resident set, which must stay far below
-    the tables' bytes; then `instrument` held to the instrumented step in
-    process, `train --profile-dir` and `bench`."""
+    the tables' bytes; `instrument` and `train --profile-dir` (started
+    together once the eval has ended, beside the export, which works on
+    the host) held to the instrumented step in process and to the
+    trace's names; then `bench` alone."""
     from dlrm_tpu_torch import init_params, kaggle_config
     from dlrm_tpu_torch.data.criteo import DACLoader, load
     from dlrm_tpu_torch.data.synthetic import batch_stream, random_batch
@@ -5150,106 +5674,121 @@ def _full_width_entry_points() -> None:
     from dlrm_tpu_torch.utils.telemetry import InstrumentedTrainer, donothing
 
     config = kaggle_config(feature_size=128, interaction_impl="fused")
-    model = ["--config", "kaggle", "--feature-size", "128", "--interaction",
-             "fused", "--device", DEV.type]
+    model = _fw_model()
     bsz = str(TRAIN_BATCH)
     n = 2 * TRAIN_BATCH + 4464          # two batches and a ragged tail
     table_bytes = config.total_rows * config.feature_size * 4
     rss = {}
-    with _scratch() as tmp:
-        d, q, data, out = (str(tmp / f) for f in ("ck", "q", "data.bin",
-                                                   "scores.npy"))
-        # two checkpoints while the older is retired, and the artifact
-        need = 2 * (table_bytes + config.total_rows * 4) + INT8_BYTES + GIB
-        free = shutil.disk_usage(tmp).free
-        check(free > need, f"full-width CLI: {free} B free under {tmp}, "
-              f"the run needs {need} B")
-        _write_dac(data, n, np.random.default_rng(9), config.table_sizes)
-        train = ["train", *model, "--batch-size", bsz, "--optimizer",
-                 "rowwise_adagrad", "--lr", str(FULL_LR), "--ckpt-dir", d,
-                 "--save-interval", "2", "--max-to-keep", "1"]
-        lines = []
-        for steps in (2, 4):
-            res = _cli(train + ["--steps", str(steps)])
-            lines.append(_line(train, res))
-            rss[f"train --steps {steps}"] = res
-        check(lines[0]["steps"] == 2 and lines[1]["steps"] == 2
-              and "resumed from step 2" in res.stderr
-              and all_steps(d) == [4], f"train --ckpt-dir at full width: "
-              f"{lines}, checkpoints {all_steps(d)}")
-        # eval (on the card) and export (on the host) read the step-4
-        # checkpoint beside the steps in process
-        ev_args = ["eval", *model, "--data", data, "--ckpt-dir", d,
-                   "--batch-size", bsz]
-        ex_args = ["export", *model[:4], "--ckpt-dir", d, "--out", q,
-                   "--quantize", "int8"]
-        ev_cli, ex_cli = _Cli(ev_args), _Cli(ex_args)
-        # in process: the same init and 2 steps, then (the resumed run
-        # restarts the stream from --seed) the same 2 batches again
-        p = init_params(torch.Generator(DEV).manual_seed(config.seed),
-                        config, DEV)
-        state = init_opt_state(p, config=config, optimizer="rowwise_adagrad")
-        step = make_train_step_opt(config, optimizer="rowwise_adagrad",
-                                   lr=FULL_LR)
-        stream = list(batch_stream(config, TRAIN_BATCH, 2, seed=0))
-        for b in stream + stream:
-            loss = float(step(p, state, *_to_dev(b)))
-        saved, at = restore_checkpoint(d, device=DEV)
-        diffs = {"loss": abs(loss - lines[1]["final_loss"]),
-                 "tables": _chunked_max_diff(saved["params"]["emb"],
-                                             p["emb"]),
-                 "dense": _max_dense_diff(saved["params"], p),
-                 "accumulators": _max_diff(_tensors(saved["opt"]),
-                                           _tensors(state))}
-        # duplicate ids are summed by atomics in another order a run, and
-        # Adagrad from a zero accumulator magnifies that in the weights
-        # (ROADMAP.md section 3: 1e-3 from zero)
-        check(at == 4 and saved["opt"]["count"] == 4
-              and diffs["loss"] <= 1e-5 and diffs["accumulators"] <= 1e-6
-              and max(diffs["tables"], diffs["dense"]) <= 1e-3,
-              f"train --ckpt-dir at full width vs in process: step {at}, "
-              f"count {saved['opt']['count']}, {diffs}")
-        print(f"train --ckpt-dir at full width (Kaggle fs=128, row-wise "
-              f"Adagrad, lr {FULL_LR}, B={TRAIN_BATCH}), 2 steps then a "
-              f"resume to 4: checkpoints {all_steps(d)}; vs in process |diff| "
-              + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items()))
-        saved = saved["params"]
-        del p, state
-        torch.cuda.empty_cache()
+    d, q, data, out = (str(tmp / f) for f in ("ck", "q", "data.bin",
+                                               "scores.npy"))
+    _write_dac(data, n, np.random.default_rng(9), config.table_sizes)
+    train = _fw_train(tmp)
+    lines = []
+    for steps, res in zip((2, 4), chain.wait()):
+        lines.append(_line(train, res))
+        rss[f"train --steps {steps}"] = res
+    check(lines[0]["steps"] == 2 and lines[1]["steps"] == 2
+          and "resumed from step 2" in res.stderr
+          and all_steps(d) == [4], f"train --ckpt-dir at full width: "
+          f"{lines}, checkpoints {all_steps(d)}")
+    # eval (on the card) and export (on the host) read the step-4
+    # checkpoint beside the steps in process
+    ev_args = ["eval", *model, "--data", data, "--ckpt-dir", d,
+               "--batch-size", bsz]
+    ex_args = ["export", *model[:4], "--ckpt-dir", d, "--out", q,
+               "--quantize", "int8"]
+    ev_cli, ex_cli = _Cli(ev_args), _Cli(ex_args)
+    # in process: the same init and 2 steps, then (the resumed run
+    # restarts the stream from --seed) the same 2 batches again
+    p = init_params(torch.Generator(DEV).manual_seed(config.seed),
+                    config, DEV)
+    state = init_opt_state(p, config=config, optimizer="rowwise_adagrad")
+    step = make_train_step_opt(config, optimizer="rowwise_adagrad",
+                               lr=FULL_LR)
+    stream = list(batch_stream(config, TRAIN_BATCH, 2, seed=0))
+    for b in stream + stream:
+        loss = float(step(p, state, *_to_dev(b)))
+    saved, at = restore_checkpoint(d, device=DEV)
+    diffs = {"loss": abs(loss - lines[1]["final_loss"]),
+             "tables": _chunked_max_diff(saved["params"]["emb"],
+                                         p["emb"]),
+             "dense": _max_dense_diff(saved["params"], p),
+             "accumulators": _max_diff(_tensors(saved["opt"]),
+                                       _tensors(state))}
+    # duplicate ids are summed by atomics in another order a run, and
+    # Adagrad from a zero accumulator magnifies that in the weights
+    # (ROADMAP.md section 3: 1e-3 from zero)
+    check(at == 4 and saved["opt"]["count"] == 4
+          and diffs["loss"] <= 1e-5 and diffs["accumulators"] <= 1e-6
+          and max(diffs["tables"], diffs["dense"]) <= 1e-3,
+          f"train --ckpt-dir at full width vs in process: step {at}, "
+          f"count {saved['opt']['count']}, {diffs}")
+    print(f"train --ckpt-dir at full width (Kaggle fs=128, row-wise "
+          f"Adagrad, lr {FULL_LR}, B={TRAIN_BATCH}), 2 steps then a "
+          f"resume to 4: checkpoints {all_steps(d)}; vs in process |diff| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items()))
+    saved = saved["params"]
+    del p, state
+    torch.cuda.empty_cache()
 
-        want = evaluate(saved, DACLoader(load(data), TRAIN_BATCH,
-                                         drop_remainder=False), config)
-        res = ev_cli.wait()
-        line, rss["eval --ckpt-dir"] = _line(ev_args, res), res
-        ediff = [abs(line[k] - want[k]) for k in ("loss", "auc", "accuracy")]
-        check(line["examples"] == n and max(ediff) <= 1e-6,
-              f"eval --ckpt-dir at full width: {line} vs in process {want}")
-        res = ex_cli.wait()
-        line = _line(ex_args, res, on_device=False)
-        rss["export --quantize int8"] = res
-        check(line["quantized"] == "int8" and line["table_bytes"] ==
-              INT8_BYTES and line["total_rows"] == config.total_rows,
-              f"export line {line}")
-        args = ["predict", *model, "--data", data, "--ckpt-dir", q, "--out",
-                out, "--batch-size", bsz]
-        res = _cli(args)
-        line, rss["predict --ckpt-dir (int8)"] = _line(args, res), res
-        qp = quantize_params(saved, config)
-        want = np.concatenate([
-            score_batch(qp, b, config, DEV) for b in DACLoader(
-                load(data), TRAIN_BATCH, drop_remainder=False)])
-        qdiff = float(np.abs(np.load(out) - want).max())
-        check(line["examples"] == n and qdiff <= 1e-6,
-              f"predict on the full-width int8 artifact vs in process: "
-              f"{qdiff}")
-        print(f"at full width: eval --ckpt-dir vs in process over {n} rows "
-              f"(ragged tail of {n % TRAIN_BATCH}): loss, AUC, accuracy "
-              f"|diff| {[f'{x:.3g}' for x in ediff]}; export --quantize "
-              f"int8 ({line['examples']} rows scored; {INT8_BYTES} B of "
-              f"int8 tables), then predict --ckpt-dir on the artifact vs "
-              f"the card's quantizer in process: {qdiff:.3g}")
-        del saved, qp
-        torch.cuda.empty_cache()
+    want = evaluate(saved, DACLoader(load(data), TRAIN_BATCH,
+                                     drop_remainder=False), config)
+    res = ev_cli.wait()
+    line, rss["eval --ckpt-dir"] = _line(ev_args, res), res
+    ediff = [abs(line[k] - want[k]) for k in ("loss", "auc", "accuracy")]
+    check(line["examples"] == n and max(ediff) <= 1e-6,
+          f"eval --ckpt-dir at full width: {line} vs in process {want}")
+    # two SGD processes of one table copy each, beside the export
+    inst_args = ["instrument", *model, "--batch-size", bsz, "--steps",
+                 "3"]
+    prof = tmp / "prof"
+    inst_cli, prof_cli = _Cli(inst_args), _Cli([
+        "train", *model, "--steps", "8", "--batch-size", bsz,
+        "--profile-dir", str(prof)])
+    res = ex_cli.wait()
+    line = _line(ex_args, res, on_device=False)
+    rss["export --quantize int8"] = res
+    check(line["quantized"] == "int8" and line["table_bytes"] ==
+          INT8_BYTES and line["total_rows"] == config.total_rows,
+          f"export line {line}")
+    args = ["predict", *model, "--data", data, "--ckpt-dir", q, "--out",
+            out, "--batch-size", bsz]
+    res = _cli(args)
+    line, rss["predict --ckpt-dir (int8)"] = _line(args, res), res
+    qp = quantize_params(saved, config)
+    want = np.concatenate([
+        score_batch(qp, b, config, DEV) for b in DACLoader(
+            load(data), TRAIN_BATCH, drop_remainder=False)])
+    qdiff = float(np.abs(np.load(out) - want).max())
+    check(line["examples"] == n and qdiff <= 1e-6,
+          f"predict on the full-width int8 artifact vs in process: "
+          f"{qdiff}")
+    print(f"at full width: eval --ckpt-dir vs in process over {n} rows "
+          f"(ragged tail of {n % TRAIN_BATCH}): loss, AUC, accuracy "
+          f"|diff| {[f'{x:.3g}' for x in ediff]}; export --quantize "
+          f"int8 ({line['examples']} rows scored; {INT8_BYTES} B of "
+          f"int8 tables), then predict --ckpt-dir on the artifact vs "
+          f"the card's quantizer in process: {qdiff:.3g}")
+    del saved, qp
+    torch.cuda.empty_cache()
+
+    line = _line(inst_args, inst_cli.wait())
+    p = init_params(torch.Generator(DEV).manual_seed(config.seed),
+                    config, DEV)
+    rng = np.random.default_rng(0)
+    trainer = InstrumentedTrainer(config, 0.1)
+    for _ in range(3):
+        loss = trainer.step(p, random_batch(rng, config, TRAIN_BATCH),
+                            donothing)
+    del p
+    torch.cuda.empty_cache()
+    check(len(line["phase_ms"]) == 14 and abs(line["loss"] - loss) <= 1e-5,
+          f"instrument: {line} vs in process loss {loss}")
+    res = prof_cli.wait()
+    (trace,) = prof.glob("*.json")
+    size = trace.stat().st_size
+    names = {e.get("name") for e in json.loads(trace.read_text())[
+        "traceEvents"]}
     print(f"full-width CLI, each process's wall time and peak resident set "
           f"(GB; sampled every 2 ms from /proc/<pid>/status; eval and export"
           f" ran together beside the steps in process), the f32 "
@@ -5264,35 +5803,16 @@ def _full_width_entry_points() -> None:
         check(0 < r.peak_rss.get("VmRSS", 0) < bound, f"{k}: peak resident "
               f"set {r.peak_rss}, more than {bound} B")
 
-    args = ["instrument", *model, "--batch-size", bsz, "--steps", "3"]
-    line = _run_cli(args)
-    p = init_params(torch.Generator(DEV).manual_seed(config.seed), config,
-                    DEV)
-    rng = np.random.default_rng(0)
-    trainer = InstrumentedTrainer(config, 0.1)
-    for _ in range(3):
-        loss = trainer.step(p, random_batch(rng, config, TRAIN_BATCH),
-                            donothing)
-    del p
-    torch.cuda.empty_cache()
-    check(len(line["phase_ms"]) == 14 and abs(line["loss"] - loss) <= 1e-5,
-          f"instrument: {line} vs in process loss {loss}")
-    with _scratch() as tmp:
-        prof = tmp / "prof"
-        res = _cli(["train", *model, "--steps", "8", "--batch-size", bsz,
-                    "--profile-dir", str(prof)])
-        (trace,) = prof.glob("*.json")
-        size = trace.stat().st_size
-        names = {e.get("name") for e in json.loads(trace.read_text())[
-            "traceEvents"]}
     kernels = {k for k in ("interaction_fwd_kernel", "interaction_bwd_kernel")
                if any(k in m for m in names if m)}
     check(set(_SCOPES) <= names and len(kernels) == 2
           and "profile written" in res.stderr,
           f"train --profile-dir: scopes {set(_SCOPES) & names}, kernels "
           f"{kernels}")
-    print(f"at full width: instrument vs in process: loss |diff| "
-          f"{abs(line['loss'] - loss):.3g}; train --profile-dir wrote "
+    print(f"at full width (both beside the export): instrument vs in "
+          f"process: loss |diff| {abs(line['loss'] - loss):.3g} (instrument "
+          f"{inst_cli.seconds:.2f} s); train --profile-dir "
+          f"({prof_cli.seconds:.2f} s) wrote "
           f"{size} B of trace naming the four phase scopes "
           f"and {sorted(kernels)}")
     line = _run_cli(["bench", "--config", "kaggle", "--feature-size", "128",
@@ -5329,6 +5849,8 @@ def main() -> int:
             kern.update(phase() or {})
             print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
     finally:
+        with _START:
+            _STOPPING.set()
         for c in list(_RUNNING):    # a phase failed with a CLI running
             c.stop()
     rows = []

@@ -991,12 +991,14 @@ FOLD_CHUNK = 1 << 26  # elements folded at a time (256 MiB of f32)
 def _xor_fold(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     """The XOR of every element's f32 bits, as a 0-d int32 tensor on
     ``device``.  A chunk of ``FOLD_CHUNK`` elements at a time (a host
-    tensor's chunks are copied to ``device`` first), each folded by
-    halving: torch has no XOR reduction."""
+    tensor's chunks are copied to ``device`` in their own dtype first, and
+    widened to f32 there: a bf16 chunk widened on the host would cost the
+    host CPU a pass over it), each folded by halving: torch has no XOR
+    reduction."""
     flat = x.detach().reshape(-1)
     word = torch.zeros((), dtype=torch.int32, device=device)
     for lo in range(0, flat.numel(), FOLD_CHUNK):
-        bits = flat[lo:lo + FOLD_CHUNK].to(device, torch.float32).view(
+        bits = flat[lo:lo + FOLD_CHUNK].to(device).to(torch.float32).view(
             torch.int32)
         while bits.numel() > 1:
             half = bits.numel() // 2

@@ -1049,19 +1049,35 @@ def init_tiered_params(params: dict, plan: TierPlan, config: DLRMConfig,
 
 def draw_tiered_params(generator: torch.Generator, plan: TierPlan,
                        config: DLRMConfig, device=None,
-                       emb_init: str = "scaled_uniform") -> dict:
+                       emb_init: str = "scaled_uniform",
+                       out: Optional[TieredEmb] = None) -> dict:
     """Tiered parameters drawn straight into their tiers: the same bits as
     :func:`init_tiered_params` of ``models.dlrm.init_params`` from the same
     generator, with no full stack anywhere (the card holds the device tier
-    and one staging chunk of the draws, ``models.dlrm.init_tables``)."""
+    and one staging chunk of the draws, ``models.dlrm.init_tables``).
+
+    ``out``: tiers to draw into in place, of the plan's shapes in the
+    config's dtype (the device tier on ``device``, the host tier in host
+    memory), e.g. another model's tiers of the same bytes viewed in this
+    dtype; nothing is then allocated or registered for the tables."""
     from dlrm_tpu_torch.models.dlrm import init_dense, init_tables
 
     device = generator.device if device is None else torch.device(device)
     d = config.feature_size
+    if out is None:
+        dev = torch.empty((plan.device_rows, d),
+                          dtype=config.embedding_dtype, device=device)
+        host = _host_empty((plan.host_rows, d), config.embedding_dtype,
+                           device)
+    else:
+        dev, host = out.dev, out.host
+        check_tiered_storage(TieredEmb(dev, host, plan), config)
+        if dev.dtype != config.embedding_dtype \
+                or dev.device.type != device.type:
+            raise ValueError(f"out= tiers of {dev.dtype} on {dev.device}; "
+                             f"the draw makes {config.embedding_dtype} on "
+                             f"{device}")
     dense = init_dense(generator, config, device)
-    dev = torch.empty((plan.device_rows, d), dtype=config.embedding_dtype,
-                      device=device)
-    host = _host_empty((plan.host_rows, d), config.embedding_dtype, device)
     dst = [None] * config.num_tables
     for tables, offsets, stack in ((plan.device_tables, plan.device_offsets,
                                     dev),

@@ -1340,6 +1340,7 @@ def cmd_train(args) -> int:
                   if plan.ici_n else "") if plan.sharded else ""))
         generator = torch.Generator(device).manual_seed(config.seed)
         shard = None
+        t0 = time.perf_counter()
         if plan.sharded:
             shard = _shard_setup(args, config, plan, gang, say)
             params = _shard_params(config, shard, generator, device)
@@ -1347,6 +1348,9 @@ def cmd_train(args) -> int:
             params = _tier_params(args, config, generator, device, say)
         else:
             params = init_params(generator, config, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        say(f"parameters drawn in {time.perf_counter() - t0:.2f} s")
         result = run_training(args, config, params, say=say, plan=plan,
                               shard=shard)
         if gang is None or gang.lead:

@@ -42,16 +42,18 @@ from torch_gang_worker import (jax_opt_arrays, jax_sharded_arrays, lead_line,
 OPTIMIZERS = ("adagrad", "rowwise_adagrad")
 
 
-def logical_acc(opt: dict, p, config) -> np.ndarray:
+def logical_acc(opt: dict, p, config, emb=pemb) -> np.ndarray:
     """The logical accumulator stack of a sharded optimizer state (the JAX
-    layout, numpy): ``(R, D)``, or ``(R, 1)`` row-wise."""
-    out = pemb.unshard_tables(opt["emb_acc"], p, config,
-                              host=opt.get("emb_acc_h"))
+    layout, numpy): ``(R, D)``, or ``(R, 1)`` row-wise; ``emb``: the
+    package whose ``unshard_tables`` and ``unshard_col_tables`` read it
+    (the placement ``p`` is that package's)."""
+    out = emb.unshard_tables(opt["emb_acc"], p, config,
+                             host=opt.get("emb_acc_h"))
     for j, t in enumerate(p.col_sharded):
         c = opt["emb_acc_cs"][j]
         go = config.table_offsets[t]
         out[go:go + config.table_sizes[t]] = (
-            c[:, None] if c.ndim == 1 else pemb.unshard_col_tables([c], p)[0])
+            c[:, None] if c.ndim == 1 else emb.unshard_col_tables([c], p)[0])
     return out
 
 

@@ -59,8 +59,9 @@ CASES = {
 
 
 def _flags(case: dict) -> list:
-    out = ["--optimizer", case["optimizer"], "--max-rows-per-shard",
-           str(case["max_rows_per_shard"])]
+    out = ["--optimizer", case["optimizer"]]
+    if case["max_rows_per_shard"] is not None:
+        out += ["--max-rows-per-shard", str(case["max_rows_per_shard"])]
     if case["col_sharded_tables"]:
         out += ["--col-sharded-tables",
                 ",".join(map(str, case["col_sharded_tables"]))]
@@ -74,12 +75,17 @@ def _places(case: dict) -> dict:
                                  "host_tables")}
 
 
-def _plant(case: dict, jdir: Path, tmp: Path) -> dict:
-    """The same step-0 state in both CLIs' checkpoints; returns what the
-    comparison needs."""
-    flags = [*TRAIN, *_flags(case)]
-    jcfg = jrun._build_config(jrun.build_parser().parse_args(flags))
-    cfg = _cfg()
+def _plant(case: dict, jdir: Path, tmp: Path, train=TRAIN, cfg=None,
+           shards: int = 2, jflags=()) -> dict:
+    """The same step-0 state in both CLIs' checkpoints: the JAX CLI's on
+    8 devices, the port's on ``shards`` (``train``: the model's flags,
+    ``cfg``: the port's config of them, default the tiny one; ``jflags``:
+    the JAX CLI's own); returns what the comparison needs."""
+    flags = [*train, *_flags(case)]
+    jcfg = jrun._build_config(jrun.build_parser().parse_args(
+        [*flags, *jflags]))
+    cfg = _cfg() if cfg is None else cfg
+    tables = cfg.table_sizes
     places = _places(case)
     cs = tuple(case["col_sharded_tables"])
     jp = jax_plan(jcfg.table_sizes, 8, pack=jcfg.pack if not cs else 1,
@@ -95,7 +101,7 @@ def _plant(case: dict, jdir: Path, tmp: Path) -> dict:
     if jp.host_row_sharded:
         jsh["emb_h"] = jpemb.shard_host_tables(jparams["emb"], jp, jcfg)
     np_params = jax_params_to_numpy(jparams, jcfg)
-    p2 = plan_placement(TABLES, 2, **places)
+    p2 = plan_placement(tables, shards, **places)
     sh2 = {"bottom": np_params["bottom"], "top": np_params["top"],
            "emb": pemb.shard_tables(np_params["emb"], p2, cfg),
            "emb_cs": pemb.shard_col_tables(np_params["emb"], p2, cfg)}
@@ -114,7 +120,7 @@ def _plant(case: dict, jdir: Path, tmp: Path) -> dict:
                          for k in ("w", "b")} for layer in sh2[part]]
                  for part in ("bottom", "top")}
 
-        def layout(p):  # the sharded layout of ``acc`` under plan p
+        def layout(p, pemb=pemb, cfg=cfg):  # ``acc`` under plan p
             return {"dense": dense, "count": 0,
                     "emb_acc": pemb.shard_tables(acc[:, None], p, cfg),
                     "emb_acc_cs": tuple(
@@ -123,11 +129,10 @@ def _plant(case: dict, jdir: Path, tmp: Path) -> dict:
                     "emb_acc_h": pemb.shard_host_tables(acc[:, None], p, cfg)
                     if p.host_row_sharded else ()}
 
-        # pack 1 (a column-sharded table): the port's plan at 8 shards is
-        # the JAX package's, field for field
-        p8 = plan_placement(TABLES, 8, **places)
-        jopt = jax_opt_state(layout(p8), jdev, jcfg, case["optimizer"], 0.1,
-                             mesh)
+        # the JAX package's own layout of a row-wise accumulator: one scalar
+        # a logical row, (N, local_rows, pack), pack lanes of width 1
+        jopt = jax_opt_state(layout(jp, jpemb, jcfg), jdev, jcfg,
+                             case["optimizer"], 0.1, mesh)
         jpay = {"params": jdev, "opt": jopt}
         opt2 = layout(p2)
     with jck.CheckpointManager(str(jdir)) as mgr:
@@ -136,11 +141,12 @@ def _plant(case: dict, jdir: Path, tmp: Path) -> dict:
     arrays = jax_sharded_arrays(sh2)
     if opt2 is not None:
         arrays.update(jax_opt_arrays(opt2))
-    run_gang(tmp / "plant", 2, {
+    run_gang(tmp / "plant", shards, {
         "config": spec_config(cfg), "placement": places, "mesh": None,
         "task": "save", "optimizer": case["optimizer"], "ckpt": str(tdir),
         "step": 0}, arrays)
-    return {"flags": flags, "jcfg": jcfg, "jp": jp, "p2": p2, "tdir": tdir}
+    return {"flags": flags, "jcfg": jcfg, "jp": jp, "p2": p2, "tdir": tdir,
+            "cfg": cfg, "places": places}
 
 
 def _jax_state(jdir: Path, jp, jcfg, optimizer: str) -> tuple:
@@ -160,14 +166,14 @@ def _jax_state(jdir: Path, jp, jcfg, optimizer: str) -> tuple:
     if optimizer == "sgd":
         return logical_t, dense, None, None, None
     o = payload["opt"]
-    p8 = plan_placement(TABLES, 8, max_rows_per_shard=1000,
-                        col_sharded_tables=jp.col_sharded,
-                        host_tables=jp.host_row_sharded)
+    # the JAX package's placement unshards its (N, local_rows, pack)
+    # row-wise accumulators as a stack of width 1
     acc = logical_acc({"emb_acc": np.asarray(o["emb_acc"]),
-                       "emb_acc_h": np.asarray(o["emb_acc_h"]),
+                       "emb_acc_h": np.asarray(o["emb_acc_h"])
+                       if jp.host_row_sharded else None,
                        "emb_acc_cs": tuple(np.asarray(a)
                                            for a in o["emb_acc_cs"])},
-                      p8, _cfg())
+                      jp, jcfg, jpemb)
     rss = o["dense"][0]
     rss = rss["sum_of_squares"] if isinstance(rss, dict) \
         else rss.sum_of_squares
@@ -176,7 +182,8 @@ def _jax_state(jdir: Path, jp, jcfg, optimizer: str) -> tuple:
     return logical_t, dense, acc, dacc, int(np.asarray(o["count"]))
 
 
-def _torch_state(tdir: Path, p2, optimizer: str) -> tuple:
+def _torch_state(tdir: Path, p2, optimizer: str, cfg=None) -> tuple:
+    cfg = _cfg() if cfg is None else cfg
     got, _ = ck.restore_checkpoint(str(tdir))
     prm = got["params"] if "opt" in got else got
     sh = {"emb": prm["emb"].numpy(),
@@ -185,17 +192,17 @@ def _torch_state(tdir: Path, p2, optimizer: str) -> tuple:
     dense = {part: [{k: v.numpy() for k, v in l.items()} for l in prm[part]]
              for part in ("bottom", "top")}
     if optimizer == "sgd":
-        return logical(sh, p2, _cfg()), dense, None, None, None
+        return logical(sh, p2, cfg), dense, None, None, None
     o = got["opt"]
     acc = logical_acc({"emb_acc": o["emb_acc"].numpy(),
                        "emb_acc_h": o["emb_acc_h"].numpy()
                        if o["emb_acc_h"] is not None else None,
                        "emb_acc_cs": tuple(a.numpy()
                                            for a in o["emb_acc_cs"])},
-                      p2, _cfg())
+                      p2, cfg)
     dacc = {part: [{k: v.numpy() for k, v in l.items()}
                    for l in o["dense"][part]] for part in ("bottom", "top")}
-    return logical(sh, p2, _cfg()), dense, acc, dacc, o["count"]
+    return logical(sh, p2, cfg), dense, acc, dacc, o["count"]
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
@@ -216,7 +223,7 @@ def runs(request, tmp_path_factory):
     return request.param, case, plant, jdir, lines
 
 
-def _jax_cli(flags, steps, jdir, extra) -> dict:
+def _jax_cli(flags, steps, jdir, extra=()) -> dict:
     import contextlib
     import io
 
