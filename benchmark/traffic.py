@@ -1,0 +1,205 @@
+"""The one generator of every traffic mix: a pool of batches made on the
+device from ``--seed`` in set-up and held in host memory, which the window
+then cycles through.
+
+The id law is ``ClickthroughModel``'s (``dlrm_tpu_torch/data/synthetic.py``)
+without its stored tables: per table, a rank is drawn from Zipf(a) (numpy's
+``random_zipf`` rejection sampler, vectorised) and clamped at the table's
+last row, then scattered over the rows by a seeded affine bijection
+``row = (a * rank + c) mod n`` with ``gcd(a, n) = 1``, computed rather than
+stored (a stored permutation is 8 B a row: 1.6 GB at Terabyte's sizes).
+Dense features are N(0, 1).  Labels are Bernoulli over a planted logit: a
+linear term on the dense features, one affinity a table hashed from the
+id's rank, and N(0, NOISE) noise, at ClickthroughModel's constants.  A
+``uniform`` law draws every row with equal chance (``random_batch``'s law).
+
+A mix file gives ``batch``, ``pool_batches`` and ``ids`` (``law``, ``a``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+MASK64 = (1 << 64) - 1
+M31 = (1 << 31) - 1
+RAND_INT_MAX = (1 << 63) - 1
+
+# the planted logit's constants, ClickthroughModel's: its ``noise`` default,
+# the dense weights' N(0, 0.3), and a table's affinity spread 1.5/sqrt(T)
+NOISE = 0.5
+DENSE_W_STD = 0.3
+AFFINITY = 1.5
+
+
+def splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & MASK64
+    return x ^ (x >> 31)
+
+
+def stream_seed(seed: int, stream: int) -> int:
+    """A generator seed for one stream of a run (weights, traffic, ...),
+    from ``--seed``, which may exceed 32 bits."""
+    return splitmix64(splitmix64(int(seed) & MASK64) ^ stream) & (MASK64 >> 1)
+
+
+def bijection(seed: int, table: int, n: int):
+    """(a, c) of the table's rank-to-row bijection ``(a * r + c) mod n``."""
+    h1 = splitmix64(stream_seed(seed, 2) ^ (table * 0x9E37))
+    h2 = splitmix64(h1)
+    if n <= 2:
+        return 1, h2 % n
+    a = h1 % (n - 1) + 1
+    while math.gcd(a, n) != 1:
+        a = a % (n - 1) + 1
+    return a, h2 % n
+
+
+def scatter(ranks: torch.Tensor, a: torch.Tensor, c: torch.Tensor,
+            n: torch.Tensor) -> torch.Tensor:
+    """Rows of int64 ranks under the bijections (a, c, n broadcast)."""
+    return (ranks * a + c) % n
+
+
+def zipf_ranks(gen: torch.Generator, n: torch.Tensor, a: float
+               ) -> torch.Tensor:
+    """0-based Zipf(a) ranks, one for each entry of ``n`` (int64, the
+    table's rows), clamped at ``n - 1``: numpy's ``random_zipf``, drawn
+    in float64 on the generator's device until every entry is accepted."""
+    am1 = a - 1.0
+    b = 2.0 ** am1
+    umin = float(RAND_INT_MAX) ** -am1
+    dev = n.device
+    out = torch.empty(n.shape, dtype=torch.float64, device=dev)
+    flat = out.view(-1)
+    pending = torch.arange(flat.numel(), device=dev)
+    while pending.numel():
+        m = pending.numel()
+        u01 = torch.rand(m, dtype=torch.float64, generator=gen, device=dev)
+        v = torch.rand(m, dtype=torch.float64, generator=gen, device=dev)
+        u = u01 * umin + (1.0 - u01)
+        x = torch.floor(u.pow(-1.0 / am1))
+        ok = (x <= float(RAND_INT_MAX)) & (x >= 1.0)
+        t = (1.0 + 1.0 / x).pow(am1)
+        ok &= v * x * (t - 1.0) / (b - 1.0) <= t / b
+        flat[pending[ok]] = x[ok]
+        pending = pending[~ok]
+    last = (n - 1).to(torch.float64)
+    return torch.minimum(out - 1.0, last).to(torch.int64)
+
+
+def hash_unit(x: torch.Tensor) -> torch.Tensor:
+    """Non-negative int64 values below 2**31 -> float64 in [0, 1)."""
+    for k in (0x2C1B3C6D, 0x297A2D39):
+        x = ((x ^ (x >> 15)) * k) & M31
+    x = x ^ (x >> 16)
+    return x.to(torch.float64) / float(1 << 31)
+
+
+@dataclasses.dataclass
+class Pool:
+    """``n`` batches of ``batch`` examples in host memory: ``dense`` (n, B,
+    13) f32, ``sparse`` (n, B, T) int32 per-table ids, ``labels`` (n, B)
+    f32; pinned for a mix that feeds ``device_prefetch``."""
+
+    dense: torch.Tensor
+    sparse: torch.Tensor
+    labels: torch.Tensor
+    seconds: float = 0.0
+
+    def __len__(self) -> int:
+        return self.dense.shape[0]
+
+    def batch(self, i: int) -> Dict[str, torch.Tensor]:
+        i %= len(self)
+        return {"dense": self.dense[i], "sparse": self.sparse[i],
+                "labels": self.labels[i]}
+
+    def numpy_batch(self, i: int) -> Dict[str, np.ndarray]:
+        return {k: v.numpy() for k, v in self.batch(i).items()}
+
+
+def draw(traffic: dict, table_sizes: Sequence[int], num_dense: int,
+         seed: int, n_batches: int, batch: int, device,
+         first: int = 0) -> Dict[str, torch.Tensor]:
+    """Batches ``first .. first + n_batches - 1`` of the mix on ``device``:
+    (dense, sparse, labels).  Batch ``i`` is the same whatever chunk it is
+    drawn in: each batch has a generator of its own."""
+    device = torch.device(device)
+    ids = traffic["ids"]
+    law = ids["law"]
+    if law not in ("zipf", "uniform"):
+        raise ValueError(f"unknown id law {law!r}")
+    t = len(table_sizes)
+    n = torch.tensor(table_sizes, dtype=torch.int64, device=device)
+    ac = [bijection(seed, k, s) for k, s in enumerate(table_sizes)]
+    a = torch.tensor([x for x, _ in ac], dtype=torch.int64, device=device)
+    c = torch.tensor([y for _, y in ac], dtype=torch.int64, device=device)
+    g = torch.Generator(device).manual_seed(stream_seed(seed, 3))
+    dense_w = torch.randn(num_dense, generator=g, device=device,
+                          dtype=torch.float32) * DENSE_W_STD
+    scale = AFFINITY / math.sqrt(t)
+    salt = stream_seed(seed, 4) & M31
+    cols = torch.arange(t, device=device, dtype=torch.int64)
+    dense_out, sparse_out, label_out = [], [], []
+    for i in range(first, first + n_batches):
+        gi = torch.Generator(device).manual_seed(stream_seed(seed, 1000 + i))
+        dense = torch.randn((batch, num_dense), generator=gi, device=device,
+                            dtype=torch.float32)
+        shape_n = n.expand(batch, t)
+        if law == "zipf":
+            ranks = zipf_ranks(gi, shape_n, float(ids["a"]))
+            rows = scatter(ranks, a, c, n)
+        else:
+            u = torch.rand((batch, t), dtype=torch.float64, generator=gi,
+                           device=device)
+            rows = torch.minimum((u * n).to(torch.int64), n - 1)
+            ranks = rows
+        aff = hash_unit((ranks * 0x9E37 + cols * 0x85EB + salt) & M31)
+        logit = (dense @ dense_w).double() + (
+            (2.0 * aff - 1.0) * (scale * math.sqrt(3.0))).sum(dim=1)
+        logit += torch.randn(batch, generator=gi, device=device,
+                             dtype=torch.float64) * NOISE
+        p = torch.sigmoid(logit)
+        labels = (torch.rand(batch, generator=gi, device=device,
+                             dtype=torch.float64) < p).to(torch.float32)
+        dense_out.append(dense)
+        sparse_out.append(rows.to(torch.int32))
+        label_out.append(labels)
+    return {"dense": torch.stack(dense_out), "sparse": torch.stack(sparse_out),
+            "labels": torch.stack(label_out)}
+
+
+def make_pool(traffic: dict, table_sizes: Sequence[int], num_dense: int,
+              seed: int, device, *, batch: int, n_batches: int,
+              pinned: bool, chunk: int = 8) -> Pool:
+    """The mix's pool, drawn on ``device`` ``chunk`` batches at a time into
+    host tensors (pinned when ``pinned``)."""
+    import time
+
+    t0 = time.perf_counter()
+    t = len(table_sizes)
+    pin = pinned and torch.device(device).type == "cuda"
+    pool = Pool(
+        dense=torch.empty((n_batches, batch, num_dense), dtype=torch.float32,
+                          pin_memory=pin),
+        sparse=torch.empty((n_batches, batch, t), dtype=torch.int32,
+                           pin_memory=pin),
+        labels=torch.empty((n_batches, batch), dtype=torch.float32,
+                           pin_memory=pin))
+    for lo in range(0, n_batches, chunk):
+        k = min(chunk, n_batches - lo)
+        part = draw(traffic, table_sizes, num_dense, seed, k, batch, device,
+                    first=lo)
+        for key in ("dense", "sparse", "labels"):
+            getattr(pool, key)[lo:lo + k].copy_(part[key], non_blocking=pin)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    pool.seconds = time.perf_counter() - t0
+    return pool
