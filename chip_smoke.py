@@ -712,6 +712,13 @@ def _fused_vs_gram_steps(fused_params, gram_params, batches, config,
 _SCOPES = ("lookup", "bottom_mlp", "interaction", "top_mlp")
 _TIER_SCOPES = ("lookup_host_tier", "host_tier_update",
                 "host_tier_prefetch_next")
+# the step's own spans (utils/telemetry.py): the loss, the gradient's split,
+# the dense optimizer, the dedup, the backward's stages, the prefetch's take,
+# scoring's copies
+_STEP_SCOPES = ("loss", "grad_split", "dense_apply", "dedup", "autograd.bwd",
+                "loss.bwd", "top_mlp.bwd", "interaction.bwd",
+                "bottom_mlp.bwd", "prefetch.take", "score_batch.h2d",
+                "score_batch.readback")
 # the sharded path's scopes (parallel/embedding.py, the sharded step): the
 # profile prints the CUDA time under each
 _SHARD_SCOPES = ("a2a_fwd", "rs_reduce_scatter", "cs_a2a_fwd",
@@ -777,7 +784,7 @@ def _profile_steps(what: str, run, batches, steps: int = 5,
             continue
         if evt.key in _SHARD_SCOPES or evt.key.startswith(_NCCL_RANGE):
             scoped[evt.key] = evt.device_time_total
-        if evt.key in _SCOPES + _TIER_SCOPES + _SHARD_SCOPES \
+        if evt.key in _SCOPES + _TIER_SCOPES + _SHARD_SCOPES + _STEP_SCOPES \
                 or evt.key.startswith(_NCCL_RANGE):
             continue
         us = evt.self_device_time_total

@@ -30,6 +30,8 @@ from typing import Callable, Dict, Iterable, Iterator
 import numpy as np
 import torch
 
+from dlrm_tpu_torch.utils.telemetry import count, phase_scope, recording
+
 
 class _End:
     """End of the stream, with the source's exception if it raised."""
@@ -93,7 +95,10 @@ def _ahead(source: Iterable, size: int, put: Callable, take: Callable
     on a background thread at most ``size`` batches ahead of the consumer.
 
     Abandoning the iterator stops the thread once it next asks for a
-    slot; it holds at most ``size`` batches until then.
+    slot; it holds at most ``size`` batches until then.  The consumer's
+    wait and take run under the span ``prefetch.take`` (never open across
+    the ``yield``), counted by ``prefetch.takes`` and, when no batch was
+    queued yet, ``prefetch.empty``.
     """
     q: "queue.Queue" = queue.Queue()
     slots = threading.Semaphore(size)
@@ -120,13 +125,20 @@ def _ahead(source: Iterable, size: int, put: Callable, take: Callable
                      name="dlrm-prefetch").start()
     try:
         while True:
-            item = q.get()
-            if isinstance(item, _End):
-                if item.exc is not None:
-                    raise item.exc
-                return
-            slots.release()  # the consumer owns this batch now
-            yield take(item)
+            # the producer thread may have started before a profiler: only
+            # the consumer's side is seen, so it is named and counted here
+            with phase_scope("prefetch.take"):
+                if recording():
+                    count("prefetch.takes")
+                    count("prefetch.empty", q.empty())
+                item = q.get()
+                if isinstance(item, _End):
+                    if item.exc is not None:
+                        raise item.exc
+                    return
+                slots.release()  # the consumer owns this batch now
+                batch = take(item)
+            yield batch
     finally:
         stop.set()
         slots.release()  # wake a producer waiting for a slot

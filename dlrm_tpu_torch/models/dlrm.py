@@ -27,7 +27,8 @@ from dlrm_tpu_torch.ops.interaction_fused import fused_dot_interaction
 from dlrm_tpu_torch.ops.loss import bce_loss
 from dlrm_tpu_torch.ops.mlp import init_mlp, mlp_apply
 from dlrm_tpu_torch.ops.quant import QuantEmb, check_quant_storage
-from dlrm_tpu_torch.utils.telemetry import phase_scope
+from dlrm_tpu_torch.utils.telemetry import (NO_BACKWARD_SPANS, BackwardSpans,
+                                            backward_spans, phase_scope)
 
 _INTERACTIONS = {
     "gram": dot_interaction,
@@ -101,23 +102,36 @@ def init_params(generator: torch.Generator, config: DLRMConfig,
 
 
 def forward_from_pooled(dense_params: dict, pooled: torch.Tensor,
-                        dense: torch.Tensor, config: DLRMConfig
+                        dense: torch.Tensor, config: DLRMConfig,
+                        spans: BackwardSpans = NO_BACKWARD_SPANS
                         ) -> torch.Tensor:
     """Forward pass given already-pooled embedding vectors (B, T, D).  The
     stages run under the phase scopes ``bottom_mlp``, ``interaction`` and
-    ``top_mlp`` (``utils/telemetry.phase_scope``)."""
+    ``top_mlp`` (``utils/telemetry.phase_scope``).
+
+    ``spans`` (:func:`loss_from_pooled` passes them): marks at the
+    stages' boundaries that name their backward ``top_mlp.bwd``,
+    ``interaction.bwd`` (the fused interaction names its own) and
+    ``bottom_mlp.bwd``.  The bottom MLP's input takes no gradient, so that
+    span closes where its first weight's gradient is done."""
     cd = config.compute_dtype
     cd = None if cd == dense_params["bottom"][0]["w"].dtype else cd
+    first, *rest = dense_params["bottom"]
+    bottom = [dict(first, w=spans.mark(first["w"], close="bottom_mlp.bwd")),
+              *rest]
     with phase_scope("bottom_mlp"):
-        x = mlp_apply(dense_params["bottom"], dense, final="relu",
-                      compute_dtype=cd)
+        x = mlp_apply(bottom, dense, final="relu", compute_dtype=cd)
+    x = spans.mark(x, close="interaction.bwd", open="bottom_mlp.bwd")
     with phase_scope("interaction"):
         z = _INTERACTIONS[config.interaction_impl](
             x, pooled.to(x.dtype), pad_to=config.interaction_pad_to)
+    fused = config.interaction_impl == "fused"
+    z = spans.mark(z, close="top_mlp.bwd",
+                   open=None if fused else "interaction.bwd")
     with phase_scope("top_mlp"):
         out = mlp_apply(dense_params["top"], z, final="sigmoid",
                         compute_dtype=cd)
-    return out[:, 0]
+    return spans.mark(out[:, 0], close="loss.bwd", open="top_mlp.bwd")
 
 
 def loss_from_pooled(dense_params: dict, pooled: torch.Tensor,
@@ -126,13 +140,19 @@ def loss_from_pooled(dense_params: dict, pooled: torch.Tensor,
     """BCE loss of the dense tower given pooled embeddings: the one loss
     closure of every training path.  With ``config.remat`` the dense tower
     runs under ``torch.utils.checkpoint`` and is recomputed on backward
-    (the counterpart of ``jax.checkpoint``); the gradients are the same."""
+    (the counterpart of ``jax.checkpoint``); the gradients are the same.
+    The loss runs under the phase scope ``loss``; while a profiler
+    records, the backward's stages are named
+    (``utils/telemetry.BackwardSpans``), the loss's own ``loss.bwd``."""
+    spans = backward_spans()
     if config.remat:
         out = checkpoint(forward_from_pooled, dense_params, pooled, dense,
-                         config, use_reentrant=False)
+                         config, spans, use_reentrant=False)
     else:
-        out = forward_from_pooled(dense_params, pooled, dense, config)
-    return bce_loss(out, labels)
+        out = forward_from_pooled(dense_params, pooled, dense, config, spans)
+    with phase_scope("loss"):
+        loss = bce_loss(out, labels)
+    return spans.mark(loss, open="loss.bwd")
 
 
 def forward(params: dict, dense: torch.Tensor, sparse: torch.Tensor,

@@ -156,7 +156,8 @@ def sparse_value_and_grad(loss_fn: Callable, *,
     ``dense_grads`` mirrors ``dense_params``; nothing is accumulated in
     ``.grad``.  ``pool_fn(rows)`` replaces the plain sum-pool (training
     passes :func:`mixed_pool`).  ``value`` is detached.  The gather and
-    the pool run under the phase scope ``lookup``.
+    the pool run under the phase scope ``lookup``, the backward's call
+    under ``autograd.bwd``.
     """
     pool_fn = pool if pool_fn is None else pool_fn
 
@@ -168,7 +169,8 @@ def sparse_value_and_grad(loss_fn: Callable, *,
         live = tree_map(lambda p: p.detach().requires_grad_(), dense_params)
         loss = loss_fn(live, pooled, *args)
         leaves = tree_leaves(live)
-        grads = torch.autograd.grad(loss, leaves + [rows])
+        with phase_scope("autograd.bwd"):
+            grads = torch.autograd.grad(loss, leaves + [rows])
         it = iter(grads)
         dgrads = tree_map(lambda _: next(it), live)
         drows = grads[-1]
@@ -198,11 +200,13 @@ def sum_duplicates(grad: SparseGrad) -> SparseGrad:
     """The distinct ids in ascending order with the f32 sum of each one's
     rows (no padding slots, so the length depends on the data; on CUDA
     ``unique`` reads it back, a host sync, and the sums run in a changing
-    order)."""
-    uniq, inverse = torch.unique(grad.ids, sorted=True, return_inverse=True)
-    rows = torch.zeros((uniq.shape[0], grad.rows.shape[1]),
-                       dtype=torch.float32, device=grad.rows.device)
-    rows.index_add_(0, inverse, grad.rows.float())
+    order), under the span ``dedup``."""
+    with phase_scope("dedup"):
+        uniq, inverse = torch.unique(grad.ids, sorted=True,
+                                     return_inverse=True)
+        rows = torch.zeros((uniq.shape[0], grad.rows.shape[1]),
+                           dtype=torch.float32, device=grad.rows.device)
+        rows.index_add_(0, inverse, grad.rows.float())
     return SparseGrad(ids=uniq, rows=rows)
 
 
@@ -230,11 +234,13 @@ def split_by_tables(grad: SparseGrad, batch: int, num_tables: int,
                     tables: Sequence[int]) -> SparseGrad:
     """The entries of a per-hit gradient over all tables (as
     :func:`sparse_value_and_grad` returns it, flattened from (B, T[, H]))
-    that belong to ``tables``, in their original order."""
-    idx = torch.as_tensor(tables, device=grad.ids.device)
-    ids = grad.ids.reshape(batch, num_tables, -1).index_select(1, idx)
-    rows = grad.rows.reshape(batch, num_tables, -1, grad.rows.shape[-1]
-                             ).index_select(1, idx)
+    that belong to ``tables``, in their original order; under the span
+    ``grad_split`` (on CUDA the table indices' copy is a host sync)."""
+    with phase_scope("grad_split"):
+        idx = torch.as_tensor(tables, device=grad.ids.device)
+        ids = grad.ids.reshape(batch, num_tables, -1).index_select(1, idx)
+        rows = grad.rows.reshape(batch, num_tables, -1, grad.rows.shape[-1]
+                                 ).index_select(1, idx)
     return SparseGrad(ids=ids.reshape(-1),
                       rows=rows.reshape(-1, rows.shape[-1]))
 

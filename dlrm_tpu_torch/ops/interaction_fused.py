@@ -31,6 +31,7 @@ import torch
 
 from dlrm_tpu_torch.ops.interaction import (_pad_width, stack_features,
                                             tril_flat_indices)
+from dlrm_tpu_torch.utils.telemetry import phase_scope
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_SMEM_TARGET = 75 * 1024      # a forward block's shared memory: three an SM
@@ -413,7 +414,8 @@ class _FusedInteraction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, feats = ctx.saved_tensors
-        dx, dfeats = interaction_bwd(g, x, feats)
+        with phase_scope("interaction.bwd"):
+            dx, dfeats = interaction_bwd(g, x, feats)
         return dx, dfeats, None
 
 
@@ -430,8 +432,9 @@ class _FusedInteractionT(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (t,) = ctx.saved_tensors
-        dt = torch.empty_like(t, memory_format=torch.contiguous_format)
-        interaction_bwd(g, t[:, 0], t[:, 1:], out=(dt[:, 0], dt[:, 1:]))
+        with phase_scope("interaction.bwd"):
+            dt = torch.empty_like(t, memory_format=torch.contiguous_format)
+            interaction_bwd(g, t[:, 0], t[:, 1:], out=(dt[:, 0], dt[:, 1:]))
         return dt, None
 
 

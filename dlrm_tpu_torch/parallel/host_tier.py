@@ -61,7 +61,7 @@ from dlrm_tpu_torch.config import DLRMConfig
 from dlrm_tpu_torch.ops import embedding as emb_ops
 from dlrm_tpu_torch.train import optim
 from dlrm_tpu_torch.train import train as train_lib
-from dlrm_tpu_torch.utils.telemetry import phase_scope
+from dlrm_tpu_torch.utils.telemetry import count, phase_scope
 
 GIB = 1 << 30
 
@@ -422,7 +422,10 @@ def host_gather(table: torch.Tensor, ids: torch.Tensor,
 
     CPU ids: the plain version.  CUDA ids: the kernel on the pinned stack
     (visiting the ids in the order of :func:`gather_plan`), or an error;
-    ``host_gather.launches`` counts launches."""
+    ``host_gather.launches`` counts launches.  The counter
+    ``host_tier.gather_bytes`` adds the bytes moved: a row a hit."""
+    count("host_tier.gather_bytes",
+          ids.numel() * table.shape[1] * table.element_size())
     if ids.device.type == "cpu":
         return host_gather_reference(table, ids, out, cols)
     _check_table(table, "host_gather")
@@ -481,7 +484,11 @@ def host_update_rows(table: torch.Tensor, ids: torch.Tensor,
     (f32 or bf16).
 
     CPU ids: the plain version.  CUDA ids: the kernel on the pinned stack,
-    or an error; ``host_update_rows.launches`` counts launches."""
+    or an error; ``host_update_rows.launches`` counts launches.  The
+    counter ``host_tier.update_bytes`` adds the bytes moved: each row read
+    and written back."""
+    count("host_tier.update_bytes",
+          2 * ids.numel() * table.shape[1] * table.element_size())
     if ids.device.type == "cpu":
         return host_update_rows_reference(table, ids, upd)
     _check_table(table, "host_update_rows")
@@ -683,7 +690,8 @@ def _tier_forward_backward(dense_params: dict, emb: TieredEmb, dense, sparse,
     T_host[* H], D) tensor to take the host tier's gradient rows into.
 
     Returns (loss, dense grads, the device tier's per-hit SparseGrad (ids
-    of the device stack) or None, the host tier's or None)."""
+    of the device stack) or None, the host tier's or None); the tiers'
+    split runs under the span ``grad_split``."""
     from dlrm_tpu_torch.models.dlrm import loss_from_pooled
 
     plan = emb.plan
@@ -696,30 +704,32 @@ def _tier_forward_backward(dense_params: dict, emb: TieredEmb, dense, sparse,
                             dense_params)
     loss = loss_from_pooled(live, pooled, dense, labels, config)
     leaves = emb_ops.tree_leaves(live)
-    grads = torch.autograd.grad(loss, leaves + [rows])
+    with phase_scope("autograd.bwd"):
+        grads = torch.autograd.grad(loss, leaves + [rows])
     it = iter(grads)
     dgrads = emb_ops.tree_map(lambda _: next(it), live)
     drows = grads[-1]
     d = drows.shape[-1]
     tiers = []
-    for tables, offsets, out in ((plan.device_tables, plan.device_offsets,
-                                  None),
-                                 (plan.host_tables, plan.host_offsets,
-                                  host_out)):
-        if not tables:
-            tiers.append(None)
-            continue
-        ids = _tier_ids(sparse, tables, offsets).reshape(-1)
-        if len(tables) == len(plan.table_sizes):
-            g = drows.reshape(-1, d)
-        elif out is not None:
-            g = torch.index_select(drows, 1, _index(tables, drows.device),
-                                   out=out.view(drows.shape[0], len(tables),
-                                                *drows.shape[2:]))
-            g = out
-        else:
-            g = drows.index_select(1, _index(tables, drows.device))
-        tiers.append(emb_ops.SparseGrad(ids=ids, rows=g.reshape(-1, d)))
+    with phase_scope("grad_split"):
+        for tables, offsets, out in (
+                (plan.device_tables, plan.device_offsets, None),
+                (plan.host_tables, plan.host_offsets, host_out)):
+            if not tables:
+                tiers.append(None)
+                continue
+            ids = _tier_ids(sparse, tables, offsets).reshape(-1)
+            if len(tables) == len(plan.table_sizes):
+                g = drows.reshape(-1, d)
+            elif out is not None:
+                g = torch.index_select(
+                    drows, 1, _index(tables, drows.device),
+                    out=out.view(drows.shape[0], len(tables),
+                                 *drows.shape[2:]))
+                g = out
+            else:
+                g = drows.index_select(1, _index(tables, drows.device))
+            tiers.append(emb_ops.SparseGrad(ids=ids, rows=g.reshape(-1, d)))
     return loss.detach(), dgrads, tiers[0], tiers[1]
 
 
@@ -784,11 +794,11 @@ def _host_sgd(emb: TieredEmb, grad: emb_ops.SparseGrad, lr: float) -> None:
 def _sgd_apply(params: dict, dgrads: dict, dev, host, lr: float) -> None:
     emb = params["emb"]
     with torch.no_grad():
-        for p, g in zip(emb_ops.tree_leaves(_dense(params)),
-                        emb_ops.tree_leaves(dgrads)):
-            p.sub_(g * lr)
+        optim.apply_dense("sgd", emb_ops.tree_leaves(_dense(params)),
+                          emb_ops.tree_leaves(dgrads), None, lr)
         if dev is not None:
-            emb_ops.apply_sparse_sgd(emb.dev, dev, lr)
+            with phase_scope("sparse_update"):
+                emb_ops.apply_sparse_sgd(emb.dev, dev, lr)
         if host is not None:
             _host_sgd(emb, host, lr)
 

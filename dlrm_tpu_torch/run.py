@@ -345,13 +345,19 @@ def _crossed(prev: int, cur: int, every: Optional[int]) -> bool:
 def score_batch(params: dict, batch: dict, config,
                 device: torch.device) -> np.ndarray:
     """CTR scores (B,) f32 of one numpy batch: the scoring step of
-    ``predict``."""
+    ``predict``.  The copies to the device run under the span
+    ``score_batch.h2d``, the scores' copy back under
+    ``score_batch.readback``."""
     from dlrm_tpu_torch.models.dlrm import forward
+    from dlrm_tpu_torch.utils.telemetry import phase_scope
 
-    dense = torch.from_numpy(batch["dense"]).to(device)
-    sparse = torch.from_numpy(batch["sparse"]).to(device)
+    with phase_scope("score_batch.h2d"):
+        dense = torch.from_numpy(batch["dense"]).to(device)
+        sparse = torch.from_numpy(batch["sparse"]).to(device)
     with torch.inference_mode():
-        return forward(params, dense, sparse, config).float().cpu().numpy()
+        scores = forward(params, dense, sparse, config)
+        with phase_scope("score_batch.readback"):
+            return scores.float().cpu().numpy()
 
 
 def _read_run_meta(ckpt_dir) -> dict:

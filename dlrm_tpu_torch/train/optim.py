@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from dlrm_tpu_torch.ops import embedding as emb_ops
+from dlrm_tpu_torch.utils.telemetry import phase_scope
 
 OPTIMIZERS = ("sgd", "adagrad", "rowwise_adagrad")
 ADAGRAD_EPS = 1e-10
@@ -108,14 +109,16 @@ def apply_dense(optimizer: str, params: Sequence[torch.Tensor],
                 accs: Optional[Sequence[torch.Tensor]], lr: float) -> None:
     """One dense step in place on the leaves ``params`` (and ``accs``):
     sgd ``p -= lr * g``; adagrad and rowwise_adagrad (which is row-wise on
-    embedding rows only) ``acc += g^2; p -= lr * g * rsqrt(acc + eps)``."""
-    if optimizer == "sgd":
-        for p, g in zip(params, grads):
-            p.sub_(g * lr)
-        return
-    for p, g, acc in zip(params, grads, accs):
-        acc.add_(g * g)
-        p.sub_((g * _rss_scale(acc) * lr).to(p.dtype))
+    embedding rows only) ``acc += g^2; p -= lr * g * rsqrt(acc + eps)``.
+    Runs under the span ``dense_apply``."""
+    with phase_scope("dense_apply"):
+        if optimizer == "sgd":
+            for p, g in zip(params, grads):
+                p.sub_(g * lr)
+            return
+        for p, g, acc in zip(params, grads, accs):
+            acc.add_(g * g)
+            p.sub_((g * _rss_scale(acc) * lr).to(p.dtype))
 
 
 def apply_adagrad_rows(emb: torch.Tensor, acc: torch.Tensor,

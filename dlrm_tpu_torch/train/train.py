@@ -36,6 +36,7 @@ from dlrm_tpu_torch.models import dlrm as model_lib
 from dlrm_tpu_torch.ops import embedding as emb_ops
 from dlrm_tpu_torch.ops.quant import QuantEmb
 from dlrm_tpu_torch.train import optim
+from dlrm_tpu_torch.utils.telemetry import phase_scope
 
 
 def _split_trainable(params: dict):
@@ -88,10 +89,10 @@ def train_step(params: dict, dense: torch.Tensor, sparse: torch.Tensor,
     loss, (dgrads, sgrad) = value_and_grad(
         dense_params, emb, sparse, config.table_offsets, dense, labels)
     with torch.no_grad():
-        for p, g in zip(emb_ops.tree_leaves(dense_params),
-                        emb_ops.tree_leaves(dgrads)):
-            p.sub_(g * lr)
-        emb_ops.apply_sparse_sgd(emb, sgrad, lr)
+        optim.apply_dense("sgd", emb_ops.tree_leaves(dense_params),
+                          emb_ops.tree_leaves(dgrads), None, lr)
+        with phase_scope("sparse_update"):
+            emb_ops.apply_sparse_sgd(emb, sgrad, lr)
     return loss
 
 
@@ -191,15 +192,16 @@ def _micro_step(params: dict, opt_state: Optional[dict], dense, sparse,
         optim.apply_dense(
             optimizer, emb_ops.tree_leaves(dense_params), grads,
             emb_ops.tree_leaves(opt_state["dense"]) if adagrad else None, lr)
-        if adagrad:
-            if small_sum is not None:
-                optim.apply_adagrad_rows(
-                    emb, opt_state["emb"], small_sum.ids,
-                    small_sum.rows.float(), lr,
-                    rowwise=optimizer == "rowwise_adagrad")
-        elif small is not None:
-            emb_ops.apply_sparse_sgd(
-                emb, small if small_sum is None else small_sum, lr)
+        with phase_scope("sparse_update"):
+            if adagrad:
+                if small_sum is not None:
+                    optim.apply_adagrad_rows(
+                        emb, opt_state["emb"], small_sum.ids,
+                        small_sum.rows.float(), lr,
+                        rowwise=optimizer == "rowwise_adagrad")
+            elif small is not None:
+                emb_ops.apply_sparse_sgd(
+                    emb, small if small_sum is None else small_sum, lr)
     return loss, big
 
 
@@ -207,7 +209,7 @@ def _apply_big(emb, opt_state, big: emb_ops.SparseGrad, *, optimizer: str,
                lr: float, scaled_rows=None) -> None:
     """The deferred big-table update.  With ``scaled_rows`` (rows already
     multiplied by their own micro-step's lr) the update applies with lr 1."""
-    with torch.no_grad():
+    with torch.no_grad(), phase_scope("sparse_update"):
         if optimizer == "sgd":
             if scaled_rows is not None:
                 big, lr = big._replace(rows=scaled_rows), 1.0
@@ -439,7 +441,6 @@ def _sharded_grads(params: dict, dense, sparse, labels, *,
     scaled after it."""
     import torch.distributed as dist
     from dlrm_tpu_torch.parallel import embedding as pemb
-    from dlrm_tpu_torch.utils.telemetry import phase_scope
 
     dense_params, emb, cs, emb_h = _sharded_parts(params)
     with phase_scope("lookup"):
@@ -453,7 +454,9 @@ def _sharded_grads(params: dict, dense, sparse, labels, *,
     leaves = emb_ops.tree_leaves(live)
     share = torch.full((), 1.0 / mesh.mesh.numel(), dtype=loss.dtype,
                        device=loss.device)
-    grads = torch.autograd.grad(loss, leaves + [pooled], grad_outputs=share)
+    with phase_scope("autograd.bwd"):
+        grads = torch.autograd.grad(loss, leaves + [pooled],
+                                    grad_outputs=share)
     d_pooled = grads[-1]
     with torch.no_grad():
         tail = [(loss * share).reshape(1)]
@@ -503,7 +506,6 @@ def sharded_train_step(params: dict, dense, sparse, labels, *,
     this rank's rows of it already (every rank's the same number).  The
     gradients are those of the global mean (:func:`_sharded_grads`)."""
     from dlrm_tpu_torch.parallel import embedding as pemb
-    from dlrm_tpu_torch.utils.telemetry import phase_scope
 
     _, emb, cs, emb_h = _sharded_parts(params)
     dense, sparse, labels = _local_rows(mesh, emb, dense, sparse, labels,
@@ -578,7 +580,6 @@ def _sharded_sparse_apply(params: dict, opt_state: dict, sparse, d_pooled,
                           block_leading: bool = False,
                           d_pooled_scaled=None) -> None:
     from dlrm_tpu_torch.parallel import embedding as pemb
-    from dlrm_tpu_torch.utils.telemetry import phase_scope
 
     _, emb, cs, emb_h = _sharded_parts(params)
     with phase_scope("sparse_update"):

@@ -5,15 +5,54 @@ and fires ``:sym_back`` on the reverse pass, and its training loop emits
 ``:start``, ``:grads_done``, ``:weight_update_done`` and
 ``:embedding_update_done``.  Two ways to see the phases here:
 
-1. **Profiler scopes** (the production path): ``models/dlrm.py`` and the
-   training step's gather run under :func:`phase_scope` s named
-   ``lookup``, ``bottom_mlp``, ``interaction`` and ``top_mlp``; the
-   two-tier steps (``parallel/host_tier.py``) add ``lookup_host_tier``
-   (the host tier's gather), ``host_tier_update`` (its update, with the
-   duplicate sum) and ``host_tier_prefetch_next`` (the pipelined step's
-   gather of the next batch), the JAX package's ``named_scope`` s;
-   :func:`trace` records a ``torch.profiler`` trace in which they show.
-   While no profiler records, a scope is a context that does nothing.
+1. **Profiler spans and counters** (the production path).  A span is a
+   ``record_function`` range opened by :func:`phase_scope` (or, on the
+   thread that runs a backward, by :class:`BackwardSpans`), so it lies on
+   the profiler's clock beside the device's activity; this module keeps no
+   timestamps of its own.  While no profiler records on the calling
+   thread, a span is a context that does nothing and a count is dropped:
+   each costs one ``torch.autograd._profiler_enabled()`` call.
+
+   ==========================  =============================================
+   span                        where
+   ==========================  =============================================
+   ``lookup``                  the gather and pool (``ops/embedding.py``,
+                               ``models/dlrm.py``, the tiered and sharded
+                               steps)
+   ``bottom_mlp``,             the forward's stages (``models/dlrm.py``)
+   ``interaction``,
+   ``top_mlp``, ``loss``
+   ``loss.bwd``,               the backward's stages, on the thread that
+   ``top_mlp.bwd``,            runs it (``models/dlrm.py``; the fused
+   ``interaction.bwd``,        interaction's inside its backward,
+   ``bottom_mlp.bwd``          ``ops/interaction_fused.py``)
+   ``autograd.bwd``            the caller's ``torch.autograd.grad``: what
+                               the engine does outside the stages' spans
+   ``grad_split``              the per-hit gradient split by table group or
+                               tier (``ops/embedding.split_by_tables``,
+                               ``parallel/host_tier.py``)
+   ``dense_apply``             ``train/optim.apply_dense``
+   ``sparse_update``           the device tables' updates (``train/train.py``
+                               and the sharded step)
+   ``dedup``                   ``ops/embedding.sum_duplicates``: ``unique``
+                               and the duplicates' sum (a host sync on CUDA)
+   ``lookup_host_tier``,       the host tier's gather, update (with its
+   ``host_tier_update``,       dedup) and the pipelined step's gather of the
+   ``host_tier_prefetch_next`` next batch (``parallel/host_tier.py``)
+   ``prefetch.take``           the consumer's wait for and take of a batch
+                               (``data/prefetch._ahead``)
+   ``score_batch.h2d``,        ``run.score_batch``'s two copies to the card
+   ``score_batch.readback``    and the scores' copy back
+   ==========================  =============================================
+
+   The sharded path adds its collectives' spans (``parallel/embedding.py``).
+   Counters (:func:`count`, read by :func:`counters`) add up host-known
+   quantities, never a device value: ``host_tier.gather_bytes`` and
+   ``host_tier.update_bytes`` (the bytes the host tier's kernels move, a
+   row a hit; an update reads and writes its row), ``prefetch.takes`` and
+   ``prefetch.empty`` (the takes that found no batch queued).
+   :func:`trace` records a ``torch.profiler`` trace with the spans and the
+   counters of its stretch.
 2. :class:`InstrumentedTrainer` (the diagnostic path): one SGD step as
    separate phases, the device synchronized after each, firing the
    reference's symbols in its order.  Slower per step (a sync a phase),
@@ -24,9 +63,11 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import json
 import os
+import threading
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -35,13 +76,108 @@ from torch.profiler import record_function
 from dlrm_tpu_torch.config import DLRMConfig
 
 
+def recording() -> bool:
+    """Whether a profiler records on the calling thread (the gate of every
+    span and count)."""
+    return torch.autograd._profiler_enabled()
+
+
 def phase_scope(name: str):
     """``record_function(name)`` while a profiler records, else a context
     that does nothing: entering a ``record_function`` costs microseconds
     of host time even when nothing records it."""
-    if torch.autograd._profiler_enabled():
+    if recording():
         return record_function(name)
     return contextlib.nullcontext()
+
+
+_COUNTS: Dict[str, int] = {}
+_COUNTS_LOCK = threading.Lock()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler records on the
+    calling thread; otherwise nothing.  ``n`` is known on the host (a
+    shape, a flag), never read from the device."""
+    if recording():
+        with _COUNTS_LOCK:
+            _COUNTS[name] = _COUNTS.get(name, 0) + int(n)
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of every counter."""
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
+
+
+def reset_counters() -> None:
+    with _COUNTS_LOCK:
+        _COUNTS.clear()
+
+
+class _BackwardMark(torch.autograd.Function):
+    """The identity; its backward closes one span of a
+    :class:`BackwardSpans` and opens another, on the thread that runs it."""
+
+    @staticmethod
+    def forward(ctx, x, spans, close, open_):
+        ctx.spans, ctx.close, ctx.open = spans, close, open_
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.spans.switch(ctx.close, ctx.open)
+        return g, None, None, None
+
+
+class BackwardSpans:
+    """Spans of a backward's stages, made from marks in the forward.
+
+    A span around ``torch.autograd.grad`` names nothing the backward does:
+    on CUDA it runs on the autograd engine's device thread.  So each stage
+    boundary of the forward gets a mark (:meth:`mark`, an identity node)
+    whose backward, reached when the gradient at that boundary is done,
+    closes the span of the stage just finished and opens the next one's on
+    the thread running the backward.  Spans still open when the backward
+    ends are closed then.  Gradients pass through unchanged.  An inactive
+    one's marks return their input: nothing is added to the graph."""
+
+    def __init__(self, active: bool = True):
+        self.active = active
+        self.open: Dict[str, object] = {}
+
+    def mark(self, x: torch.Tensor, close: Optional[str] = None,
+             open: Optional[str] = None) -> torch.Tensor:
+        if not (self.active and x.requires_grad):
+            return x
+        return _BackwardMark.apply(x, self, close, open)
+
+    def switch(self, close: Optional[str], open_: Optional[str]) -> None:
+        if close in self.open:
+            torch.ops.profiler._record_function_exit(self.open.pop(close))
+        if open_ is not None and open_ not in self.open and recording():
+            if not self.open:
+                torch.autograd.Variable._execution_engine.queue_callback(
+                    self.close_all)
+            self.open[open_] = \
+                torch.ops.profiler._record_function_enter_new(open_, None)
+
+    def close_all(self) -> None:
+        for handle in reversed(list(self.open.values())):
+            torch.ops.profiler._record_function_exit(handle)
+        self.open.clear()
+
+
+NO_BACKWARD_SPANS = BackwardSpans(active=False)
+
+
+def backward_spans() -> BackwardSpans:
+    """The :class:`BackwardSpans` of a forward: active when its backward
+    is for a profiler to see (grad mode on, a profiler recording), else
+    inactive, so that with tracing off nothing is added to the graph."""
+    if torch.is_grad_enabled() and recording():
+        return BackwardSpans()
+    return NO_BACKWARD_SPANS
 
 
 def donothing(sym: str) -> None:  # reference default cb (utils.jl:27)
@@ -78,7 +214,8 @@ class Recorder:
 def trace(logdir: str):
     """A ``torch.profiler`` trace (CPU activity, and CUDA activity when a
     card is present) of the body, written as a Chrome trace into
-    ``logdir``; the phase scopes show in it."""
+    ``logdir``; the spans show in it, and the counters of the body (reset
+    at its start) under the trace's ``counters`` key."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
@@ -86,12 +223,14 @@ def trace(logdir: str):
                                            if cuda else [])
     os.makedirs(logdir, exist_ok=True)
     prof = profile(activities=activities)
+    reset_counters()
     prof.start()
     try:
         yield prof
     finally:
         if cuda:
             torch.cuda.synchronize()
+        prof.add_metadata_json("counters", json.dumps(counters()))
         prof.stop()
         prof.export_chrome_trace(os.path.join(
             logdir, f"trace-{os.getpid()}-{time.time_ns()}.json"))

@@ -26,6 +26,7 @@ from dlrm_tpu_torch import config as tc
 from dlrm_tpu_torch.data.criteo import DACLoader, load
 from dlrm_tpu_torch.data.synthetic import ClickthroughModel, batch_stream
 from dlrm_tpu_torch.io import convert
+from dlrm_tpu_torch.parallel.host_tier import plan_tiers
 from dlrm_tpu_torch.run import _block_iter, _crossed, build_parser, main
 from dlrm_tpu_torch.train import train as ttrain
 from dlrm_tpu_torch.train.metrics import evaluate
@@ -767,3 +768,33 @@ def test_train_profile_dir_writes_a_trace_of_the_phase_scopes(tmp_path):
     names = {e.get("name") for e in json.loads(trace.read_text())[
         "traceEvents"]}
     assert {"lookup", "bottom_mlp", "interaction", "top_mlp"} <= names
+
+
+def test_train_profile_dir_trace_holds_the_counters(tmp_path):
+    """A two-tier ``train --profile-dir`` run: the Chrome trace of steps
+    3-5 holds the program's counters of those steps (reset at the trace's
+    start) under ``counters``, beside the step's spans."""
+    prof = tmp_path / "prof"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run(
+        [sys.executable, "-m", "dlrm_tpu_torch", *TIERED26[:-2],
+         "--hbm-budget-gb", "2e-6", "--steps", "8", "--device", "cpu",
+         "--profile-dir", str(prof)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    (trace,) = prof.glob("*.json")
+    doc = json.loads(trace.read_text())
+    counters = doc["counters"]
+    cfg = _cfg()
+    plan = plan_tiers(cfg, int(2e-6 * (1 << 30)))
+    row = cfg.feature_size * 4
+    # SGD: every hit's host row gathered, each distinct one read and
+    # written back once, in three traced steps of 32 examples
+    assert counters["host_tier.gather_bytes"] == \
+        3 * 32 * len(plan.host_tables) * row
+    upd = counters["host_tier.update_bytes"]
+    assert upd % (2 * row) == 0 and 0 < upd <= \
+        2 * counters["host_tier.gather_bytes"]
+    names = {e.get("name") for e in doc["traceEvents"]}
+    assert {"dedup", "dense_apply", "sparse_update", "top_mlp.bwd",
+            "host_tier_update"} <= names
