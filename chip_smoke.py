@@ -5,7 +5,14 @@
 Phases (any failure raises and the script exits non-zero, printing no
 result):
   1. the card (nvidia-smi name and power limit) and the kernel build;
-  2. every hand-written kernel against its plain torch version on the card,
+  2. the dense Adagrad kernel (one launch over every dense leaf) against
+     the per-leaf loop, bit for bit, on the Kaggle fs=128 model's 16 f32
+     leaves (three steps from zero accumulators), on gradients that are
+     views of one flat buffer (aligned, and 4 bytes off), on 70 leaves (two
+     launches); bf16 leaves keep the loop; the `dense_apply.launches`
+     counter; its device time beside its bound and the loop's, after an L2
+     flush, and the host's time a call of each;
+     then every other hand-written kernel against its plain torch version,
      at the main paths' shapes (D=128, and Terabyte's D=32 and D=64) and
      at ragged / padded ones, f32 and bf16,
      on the two sources (x, feats) the model hands over, timed with CUDA
@@ -231,8 +238,8 @@ F32_FLOPS = 67e12
 # H100 data sheet, so 64 GB/s each way; it bounds the host-tier kernels
 PCIE_BYTES_PER_S = 64e9
 # launches of [interaction_fwd, interaction_bwd, host_gather,
-# host_update_rows] summed over the main paths
-LAUNCHES = [0, 0, 0, 0]
+# host_update_rows, dense_adagrad] summed over the main paths
+LAUNCHES = [0, 0, 0, 0, 0]
 
 
 def check(cond, msg: str) -> None:
@@ -282,7 +289,8 @@ def phase_card():
     t0 = time.perf_counter()
     cuda_build.load_kernels()
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s")
-    for stem in ("interaction_fwd", "interaction_bwd", "host_tier"):
+    for stem in ("interaction_fwd", "interaction_bwd", "host_tier",
+                 "dense_adagrad"):
         for line in cuda_build.build_log(stem).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {stem}:", line.strip())
@@ -375,6 +383,196 @@ def _bwd_g_views(F) -> None:
                   f"{err:.3g}")
 
 
+def _cold_ms(fn, reps: int = 21) -> list:
+    """Per-call device times (ms) of ``fn`` from CUDA events, each call
+    after a 256 MB write that evicts the 50 MB L2, as a step finds the
+    dense leaves (written long before, by the optimizer's last call).  The
+    card first sleeps while the host enqueues every call, so the times are
+    the card's work alone, not the host's pace of launching it."""
+    flush = torch.empty(64 << 20, device=DEV)
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in events]
+
+
+def _host_us(fn, reps: int = 200) -> float:
+    """Median host microseconds of a call of ``fn`` (its Python and its
+    launches; the card may still be busy when it returns)."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e6)
+        if len(out) % 20 == 0:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def _ulps(a: list, b: list) -> int:
+    """The largest distance in f32 ulps between two lists of tensors
+    (values of one sign)."""
+    return max(int((x.view(torch.int32).long() - y.view(torch.int32).long())
+                   .abs().max()) for x, y in zip(a, b))
+
+
+def dense_adagrad_kernel() -> dict:
+    """The dense Adagrad kernel (``csrc/dense_adagrad.cu``) against the
+    per-leaf loop (``optim.dense_adagrad_reference``) on the card, bit for
+    bit: the Kaggle fs=128 model's 16 dense leaves (the MLPerf towers,
+    2,368,897 f32 parameters), three steps from zero accumulators on
+    gradients with zeros, values below sqrt(eps) and normal ones; the same
+    on gradients that are views of one flat buffer as the sharded step
+    gives them, aligned and 4 bytes off (every leaf element by element); 70
+    leaves (two launches a step).  bf16 leaves keep the loop; the counter
+    ``dense_apply.launches`` reads 1 for the kernel, 160 for the loop.  Then
+    the kernel's device time beside its bound (20 bytes a parameter at the
+    HBM rate) and the loop's, each call after an L2 flush, in turns, and
+    the host's time a call of each."""
+    from dlrm_tpu_torch import kaggle_config
+    from dlrm_tpu_torch.models.dlrm import init_dense
+    from dlrm_tpu_torch.ops import cuda_build
+    from dlrm_tpu_torch.ops.embedding import tree_leaves
+    from dlrm_tpu_torch.train import optim as O
+    from dlrm_tpu_torch.utils import telemetry
+
+    for line in cuda_build.build_log("dense_adagrad").splitlines():
+        if "registers" in line or "spill" in line or "bytes cmem" in line:
+            print("  ptxas dense_adagrad:", line.strip())
+    gen = torch.Generator(DEV).manual_seed(5)
+    params = tree_leaves(init_dense(gen, kaggle_config(feature_size=128),
+                                    DEV))
+    numels = [p.numel() for p in params]
+    n = sum(numels)
+    check(len(params) == 16 and n == 2_368_897,
+          f"dense leaves: {len(params)}, {n} parameters")
+    lr = 0.001
+
+    def grads(leaves, steps: int = 3) -> list:
+        scales = torch.tensor([0.0, 1e-7, 1e-3, 1.0], device=DEV)
+        return [[torch.randn(p.shape, generator=gen, device=DEV)
+                 * scales[torch.randint(0, 4, p.shape, generator=gen,
+                                        device=DEV)]
+                 for p in leaves] for _ in range(steps)]
+
+    def run(fn, leaves, steps) -> list:
+        p = [x.clone() for x in leaves]
+        acc = [torch.zeros_like(x) for x in leaves]
+        for g in steps:
+            fn(p, g, acc, lr)
+        torch.cuda.synchronize()
+        return p + acc
+
+    def agree(what: str, leaves, steps, launches: int) -> None:
+        before = O.dense_adagrad.launches
+        got = run(O.dense_adagrad, leaves, steps)
+        check(O.dense_adagrad.launches - before == launches * len(steps),
+              f"dense_adagrad {what}: "
+              f"{O.dense_adagrad.launches - before} launches")
+        want = run(O.dense_adagrad_reference, leaves, steps)
+        ulps = _ulps(got, want)
+        moved = max((a - b).abs().max().item()
+                    for a, b in zip(got, leaves))
+        check(ulps == 0 and moved > 0, f"dense_adagrad {what}: "
+              f"{ulps} ulps from the per-leaf loop (moved {moved:.3g})")
+        print(f"  dense_adagrad {what}: the loop's bits after "
+              f"{len(steps)} steps ({launches} launch(es) a step; weights "
+              f"moved up to {moved:.3g})")
+
+    steps = grads(params)
+    agree("16 leaves", params, steps, 1)
+    # the sharded step's gradients: views of one flat buffer with the loss
+    # after them (train._dense_apply), and the same 4 bytes into it
+    for skip in (0, 1):
+        flats = [torch.cat([torch.zeros(skip, device=DEV)]
+                           + [g.reshape(-1) for g in step]
+                           + [torch.zeros(1, device=DEV)]) for step in steps]
+        views = [[v.view_as(p) for v, p in zip(
+            torch.split(flat[skip:skip + n], numels), params)]
+            for flat in flats]
+        # every view 16-byte aligned (the leaves' lengths are multiples of
+        # 4 floats but the last); 4 bytes in, none is
+        odd = sum(g.data_ptr() % 16 != 0 for g in views[0])
+        check(odd == 16 * skip, f"flat views {skip * 4} bytes in: {odd} "
+              f"of 16 off 16 bytes")
+        agree(f"on flat views {skip * 4} bytes into their buffer",
+              params, views, 1)
+    many = [torch.randn(int(k), generator=gen, device=DEV) for k in
+            torch.randint(1, 9000, (70,), generator=gen,
+                          device=DEV).tolist()]
+    agree("70 leaves", many, grads(many), 2)
+
+    half = [p.bfloat16() for p in params]
+    before = O.dense_adagrad.launches
+    got = run(functools.partial(O.apply_dense, "adagrad"), half,
+              [[g.bfloat16() for g in s] for s in steps])
+    want = run(O.dense_adagrad_reference, half,
+               [[g.bfloat16() for g in s] for s in steps])
+    check(O.dense_adagrad.launches == before and
+          all(torch.equal(a, b) for a, b in zip(got, want)),
+          "bf16 dense leaves: not the per-leaf loop's bits")
+    counts = {}
+    for what, opt, leaves in (("f32", "adagrad", params),
+                              ("bf16", "adagrad", half),
+                              ("sgd", "sgd", params)):
+        p = [x.clone() for x in leaves]
+        acc = [torch.zeros_like(x) for x in leaves]
+        telemetry.reset_counters()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            O.apply_dense(opt, p, [g.to(x.dtype) for g, x in
+                                   zip(steps[0], leaves)], acc, lr)
+        counts[what] = telemetry.counters().get("dense_apply.launches")
+    telemetry.reset_counters()
+    check(counts == {"f32": 1, "bf16": 160, "sgd": 32},
+          f"dense_apply.launches: {counts}")
+    print(f"  dense_apply.launches under a profiler: {counts}")
+
+    p = [x.clone() for x in params]
+    acc = [torch.zeros_like(x) for x in params]
+    p2 = [x.clone() for x in params]
+    acc2 = [torch.zeros_like(x) for x in params]
+
+    def kern():
+        O.dense_adagrad(p, steps[0], acc, lr)
+
+    def plain():
+        O.dense_adagrad_reference(p2, steps[0], acc2, lr)
+
+    # the loop: 5 calls (800 launches) a window, so that the launches wait
+    # in the card's queue behind the sleep; a fuller queue blocks the host,
+    # whose pace would then be timed again
+    plain_ms = _cold_ms(plain, 5)
+    ms = _cold_ms(kern)
+    ms += _cold_ms(kern)
+    plain_ms += _cold_ms(plain, 5)
+    ms, plain_ms = statistics.median(ms), statistics.median(plain_ms)
+    host_us, plain_host_us = _host_us(kern), _host_us(plain)
+    nbytes = 20 * n
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  dense_adagrad, 16 leaves, {n} f32 parameters, device time "
+          f"after an L2 flush: kernel {ms:.4f} ms ({bound_ms / ms:.0%} of "
+          f"the {bound_ms:.4f} ms bound, {nbytes / 1e6:.1f} MB), per-leaf "
+          f"loop {plain_ms:.4f} ms; host time a call: {host_us:.1f} / "
+          f"{plain_host_us:.1f} us")
+    return {"dense_adagrad": {
+        "max_ulps": 0, "ms": ms, "plain_ms": plain_ms, "host_us": host_us,
+        "plain_host_us": plain_host_us, "bound_ms": bound_ms,
+        "bound_by": "bytes", "bytes": nbytes,
+        # no single PyTorch call computes optax's rsqrt(acc + eps) with
+        # its zero rule
+        "library_ms": None}}
+
+
 def phase_kernels() -> dict:
     """Both kernels against their plain versions at every shape a main
     path gives them ((16384, 27, 128) serving and evaluation, (32768, 27,
@@ -393,8 +591,8 @@ def phase_kernels() -> dict:
     from dlrm_tpu_torch.ops import interaction_fused as F
     from dlrm_tpu_torch.ops.interaction import dot_interaction
 
+    main = dense_adagrad_kernel()
     g = torch.Generator(DEV).manual_seed(0)
-    main = {}
     narrow = {k: {f"at_d{d}": [] for d in (TB_FEATURE, TB64_FEATURE)}
               for k in ("interaction_fwd", "interaction_bwd")}
     print("kernel vs plain (B, F, D, pad_to, dtype): max_abs_err, kernel ms, "
@@ -501,31 +699,40 @@ def phase_kernels() -> dict:
 
 
 def _wrappers() -> list:
-    """The four kernels' wrappers, in LAUNCHES order."""
+    """The five kernels' wrappers, in LAUNCHES order."""
     from dlrm_tpu_torch.ops import interaction_fused as F
     from dlrm_tpu_torch.parallel import host_tier as H
+    from dlrm_tpu_torch.train import optim as O
 
     return [F.interaction_fwd, F.interaction_bwd, H.host_gather,
-            H.host_update_rows]
+            H.host_update_rows, O.dense_adagrad]
+
+
+def _adagrad(optimizer: str, steps: int) -> int:
+    """dense_adagrad's launches over ``steps`` steps or micro-steps of
+    ``optimizer`` on the 16 f32 dense leaves: one a step for Adagrad, none
+    for SGD."""
+    return 0 if optimizer == "sgd" else steps
 
 
 @contextlib.contextmanager
 def counted(what: str, fwd: int, bwd: int, gather: int = 0,
-            update: int = 0):
+            update: int = 0, dense: int = 0):
     """A main path: every kernel's count is set to 0 before it and read
     after it; it must have launched interaction_fwd, interaction_bwd,
-    host_gather and host_update_rows ``fwd``, ``bwd``, ``gather`` and
-    ``update`` times, every forward and every backward on the bulk-copy
-    path.  The counts are added to LAUNCHES."""
+    host_gather, host_update_rows and dense_adagrad ``fwd``, ``bwd``,
+    ``gather``, ``update`` and ``dense`` times, every forward and every
+    backward on the bulk-copy path.  The counts are added to LAUNCHES."""
     wrappers = _wrappers()
     for w in wrappers:
         w.launches = 0
     wrappers[0].bulk_launches = wrappers[1].bulk_launches = 0
     yield
-    want = (fwd, bwd, gather, update)
+    want = (fwd, bwd, gather, update, dense)
     got = tuple(w.launches for w in wrappers)
     check(got == want, f"{what} launched interaction_fwd, interaction_bwd, "
-          f"host_gather, host_update_rows {got} times, not {want}")
+          f"host_gather, host_update_rows, dense_adagrad {got} times, not "
+          f"{want}")
     for w, n in zip(wrappers[:2], (fwd, bwd)):
         check(w.bulk_launches == n,
               f"{what}: {n - w.bulk_launches} of {n} {w.__name__} "
@@ -1131,7 +1338,8 @@ def _check_block(params, state, config, optimizer: str, lr: float) -> None:
     step, block = _step_fns(config, optimizer, lr, params, state)
     snap = _Snapshot(params, state, _all_ids(batches, config))
     stacked = _to_dev(_stack(batches))
-    with counted(f"{optimizer} block", BLOCK, BLOCK):
+    with counted(f"{optimizer} block", BLOCK, BLOCK,
+                 dense=_adagrad(optimizer, BLOCK)):
         blk_losses = block(*stacked).tolist()
     del stacked
     got = snap.read()
@@ -1199,7 +1407,8 @@ def _check_fused_vs_gram(params, state, batches, config, optimizer: str,
         step = make_train_step_opt(cfg, optimizer=optimizer, lr=lr)
         fused = cfg is config
         with counted(f"{optimizer} warm steps", OPT_STEPS * fused,
-                     OPT_STEPS * fused):
+                     OPT_STEPS * fused,
+                     dense=_adagrad(optimizer, OPT_STEPS)):
             runs.append([float(step(p, st, *_to_dev(b))) for b in batches])
     loss_diff = float(np.abs(np.subtract(*runs)).max())
     rows = params["emb"][touched]
@@ -1276,7 +1485,8 @@ def phase_optimizers() -> None:
         # accumulators Adagrad turns the atomics' run-to-run order into
         # weight differences of up to 1e-4 (ROADMAP.md §3), and the checks
         # below must start from the same state in every run
-        with counted(f"{opt} steps", OPT_STEPS, OPT_STEPS), _deterministic():
+        with counted(f"{opt} steps", OPT_STEPS, OPT_STEPS,
+                     dense=OPT_STEPS), _deterministic():
             losses = [float(step(params, states[opt], *_to_dev(b)))
                       for b in batches[:OPT_STEPS]]
         check(all(np.isfinite(losses)) and states[opt]["count"] == OPT_STEPS,
@@ -1411,7 +1621,7 @@ def phase_checkpoint() -> None:
         check(free > nbytes + (1 << 30), f"checkpoint phase: {free} B free "
               f"under {tmp}, the checkpoint needs {nbytes} B (and 1 GiB to "
               f"spare)")
-        with counted("checkpoint and resume", 6, 6):
+        with counted("checkpoint and resume", 6, 6, dense=6):
             first = run(batches[:2])
             # the whole state as saved, on the card beside it
             saved = [t.clone() for t in tensors]
@@ -2132,7 +2342,8 @@ def _sharded_vs_single(params, state, sh, st, p, mesh, config,
     w0, a0 = params["emb"][rows], state["emb"][rows]
     b = _to_dev(batch)
     with _deterministic():
-        with counted(f"sharded {optimizer} step", 1, 1, gather, update):
+        with counted(f"sharded {optimizer} step", 1, 1, gather, update,
+                     _adagrad(optimizer, 1)):
             loss_s = float(sharded_train_step_opt(
                 sh, st, *b, config=config, optimizer=optimizer,
                 lr=SHARD_OPT_LR, mesh=mesh, placement=p))
@@ -2222,7 +2433,8 @@ def _check_k1_block(sh, st, p, mesh, config, optimizer: str,
         loss = float(sharded_train_step_opt(sh, st, *b, **kw))
         after_step = snap.read()
         snap.restore()
-        with counted("sharded K=1 block", 1, 1):
+        with counted("sharded K=1 block", 1, 1,
+                     dense=_adagrad(optimizer, 1)):
             loss_b = float(sharded_train_block_opt(
                 sh, st, *(t[None] for t in b), **kw)[0])
     after_block = snap.read()
@@ -2916,7 +3128,7 @@ def _check_tier_block(tiered, state, tmap, config, optimizer, lr) -> None:
     snap = _TieredSnapshot(tiered, state, tmap, _all_ids(batches, config))
     stacked = _to_dev(_stack(batches))
     with counted(f"two-tier {optimizer} block", BLOCK, BLOCK,
-                 *_tier_calls(optimizer)):
+                 *_tier_calls(optimizer), _adagrad(optimizer, BLOCK)):
         blk_losses = block(*stacked).tolist()
     del stacked
     got = snap.read()
@@ -3049,9 +3261,10 @@ def _tiered_vs_all(tiered, state_t, params, state_all, tmap, config,
     # deterministic sums on both sides: the atomics' order otherwise moves
     # the accumulators by up to 1.01e-5 of their largest from run to run
     with counted(f"two-tier {optimizer} steps", n, n, gather * n,
-                 update * n), _deterministic():
+                 update * n, _adagrad(optimizer, n)), _deterministic():
         tiered_losses = [float(step_t(*_to_dev(b))) for b in batches]
-    with counted(f"all-device {optimizer} steps", n, n), _deterministic():
+    with counted(f"all-device {optimizer} steps", n, n,
+                 dense=_adagrad(optimizer, n)), _deterministic():
         all_losses = [float(step_a(*_to_dev(b))) for b in batches]
     rows = _stack_rows(emb.dev, emb.host, tmap, touched)
     diffs = {"losses": float(np.abs(np.subtract(tiered_losses,
@@ -3776,7 +3989,7 @@ def phase_auc_curve() -> None:
     state = init_opt_state(params, config=config, optimizer=optimizer)
     setup = time.time() - t0
     with counted("the AUC curve", AUC_STEPS + 2 * AUC_EVAL_BATCHES,
-                 AUC_STEPS):
+                 AUC_STEPS, dense=_adagrad(optimizer, AUC_STEPS)):
         points = mac.curve(config, params, state, truth,
                            optimizer=optimizer, lr=lr, batch=TRAIN_BATCH,
                            steps=AUC_STEPS, eval_every=AUC_STEPS,
@@ -4054,7 +4267,7 @@ def _tb_bf16(dev32: torch.Tensor, host32: torch.Tensor, plan32) -> dict:
         tiered, state, batches[1:], config, optimizer="rowwise_adagrad",
         lr=TB_LR, block=False, device=DEV, folds=_warm_tier_acc(state, res),
         main_path=lambda: counted(
-            "Terabyte fs=64 bf16 two-tier row-wise step", 1, 1, 2, 2))
+            "Terabyte fs=64 bf16 two-tier row-wise step", 1, 1, 2, 2, 1))
     _tb_report("fs=64 bf16 row-wise Adagrad step (warm accumulators)", res)
     del res
     torch.cuda.empty_cache()
@@ -4350,7 +4563,8 @@ def phase_terabyte() -> None:
     # full-width CLI runs' lr (from zero accumulators the default 0.1 moves
     # every touched weight by about 0.1 and saturates the loss)
     n = TB_CLI_STEPS
-    with counted("Terabyte row-wise steps (the CLI's)", n, n, 2 * n, 2 * n):
+    with counted("Terabyte row-wise steps (the CLI's)", n, n, 2 * n, 2 * n,
+                 n):
         cli_losses = [float(H.tiered_train_step_opt(
             tiered, state, *_to_dev(b), config=config,
             optimizer="rowwise_adagrad", lr=FULL_LR)) for b in stream]
@@ -4366,13 +4580,13 @@ def phase_terabyte() -> None:
         tiered, state, batches[1:2], config, optimizer="rowwise_adagrad",
         lr=TB_LR, block=False, device=DEV, folds=_warm_tier_acc(state, res),
         main_path=lambda: counted(
-            "Terabyte two-tier row-wise step", 1, 1, 2, 2))
+            "Terabyte two-tier row-wise step", 1, 1, 2, 2, 1))
     _tb_report("row-wise Adagrad step (warm accumulators)", res)
     res = touched_rows_check(
         tiered, state, batches[2:], config, optimizer="rowwise_adagrad",
         lr=TB_LR, block=True, device=DEV, folds=res["folds"],
         main_path=lambda: counted(f"Terabyte two-tier row-wise K={BLOCK} "
-                                  f"block", BLOCK, BLOCK, 2, 2))
+                                  f"block", BLOCK, BLOCK, 2, 2, BLOCK))
     _tb_report(f"row-wise Adagrad K={BLOCK} block", res)
     del res
     torch.cuda.empty_cache()
@@ -4597,7 +4811,8 @@ def phase_sharded_cli() -> None:
                 config, optimizer="rowwise_adagrad", lr=FULL_LR, mesh=mesh,
                 placement=p, local_batch=True)
             stream = list(batch_stream(config, TRAIN_BATCH, 2, seed=0))
-            with counted("the CLI's 4 sharded steps in process", 4, 4):
+            with counted("the CLI's 4 sharded steps in process", 4, 4,
+                         dense=4):
                 for b in stream + stream:
                     loss = float(step(params, opt, *_to_dev(b)))
             tree, at = ck.open_checkpoint(d)
@@ -5868,11 +6083,16 @@ def main() -> int:
              "ops/interaction_pallas.py:67"),
             ("host_gather", "host_tier.cu", "parallel/host_tier.py:279"),
             ("host_update_rows", "host_tier.cu",
-             "parallel/host_tier.py:297")), LAUNCHES):
+             "parallel/host_tier.py:297")), LAUNCHES[:4]):
         rows.append({"name": name, "route": "cuda",
                      "source": f"dlrm_tpu_torch/csrc/{source}",
                      "replaces": f"dlrm_tpu/{replaces}",
                      "launches": n, **kern[name]})
+    rows.append({"name": "dense_adagrad", "route": "cuda",
+                 "source": "dlrm_tpu_torch/csrc/dense_adagrad.cu",
+                 "replaces": "dlrm_tpu/train/optim.py:110 (optax.adagrad, "
+                             "fused by XLA; no Pallas kernel)",
+                 "launches": LAUNCHES[4], **kern["dense_adagrad"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

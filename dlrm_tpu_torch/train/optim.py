@@ -23,13 +23,14 @@ as optax computes them.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from dlrm_tpu_torch.ops import embedding as emb_ops
-from dlrm_tpu_torch.utils.telemetry import phase_scope
+from dlrm_tpu_torch.utils.telemetry import count, phase_scope
 
 OPTIMIZERS = ("sgd", "adagrad", "rowwise_adagrad")
 ADAGRAD_EPS = 1e-10
@@ -110,15 +111,150 @@ def apply_dense(optimizer: str, params: Sequence[torch.Tensor],
     """One dense step in place on the leaves ``params`` (and ``accs``):
     sgd ``p -= lr * g``; adagrad and rowwise_adagrad (which is row-wise on
     embedding rows only) ``acc += g^2; p -= lr * g * rsqrt(acc + eps)``.
-    Runs under the span ``dense_apply``."""
+
+    Adagrad on f32 leaves takes :func:`dense_adagrad` (on the card one
+    kernel for every ``MAX_LEAVES`` leaves; on the CPU the plain version).
+    Runs under the span ``dense_apply``; while a profiler records, the
+    counter ``dense_apply.launches`` adds the kernels launched on the card
+    (the CPU launches none)."""
     with phase_scope("dense_apply"):
         if optimizer == "sgd":
             for p, g in zip(params, grads):
                 p.sub_(g * lr)
-            return
-        for p, g, acc in zip(params, grads, accs):
-            acc.add_(g * g)
-            p.sub_((g * _rss_scale(acc) * lr).to(p.dtype))
+            launches = 2 * len(params)
+        elif all(t.dtype is torch.float32
+                 for t in (*params, *grads, *accs)):
+            launches = dense_adagrad(params, grads, accs, lr)
+        else:
+            # The kernel is f32 only.  Leaves of another dtype (a model
+            # built with weight_dtype=torch.bfloat16) keep the per-leaf
+            # loop, whose every op rounds to that dtype.
+            dense_adagrad_reference(params, grads, accs, lr)
+            launches = LOOP_LAUNCHES * len(params)
+        if params and params[0].device.type != "cpu":
+            count("dense_apply.launches", launches)
+
+
+# -- the dense Adagrad: one kernel over many leaves, and its plain version ---
+
+# csrc/dense_adagrad.cu's kMaxLeaves: leaves a launch.
+MAX_LEAVES = 64
+# Kernels the plain version launches a leaf on the card: g * g, add_, the
+# compare, add, rsqrt, zeros_like and where of _rss_scale, two products
+# and sub_.
+LOOP_LAUNCHES = 10
+_P = ctypes.c_void_p
+
+
+def dense_adagrad_groups(numels: Sequence[int]) -> List[Tuple[int, ...]]:
+    """The leaves of each launch of the dense Adagrad kernel, for leaves of
+    ``numels`` elements: ``MAX_LEAVES`` a launch in call order, empty
+    leaves left out.  The kernel's C entry cuts each leaf into blocks."""
+    work = [i for i, n in enumerate(numels) if n > 0]
+    return [tuple(work[at:at + MAX_LEAVES])
+            for at in range(0, len(work), MAX_LEAVES)]
+
+
+def dense_adagrad_reference(params: Sequence[torch.Tensor],
+                            grads: Sequence[torch.Tensor],
+                            accs: Sequence[torch.Tensor], lr: float) -> None:
+    """Plain version of :func:`dense_adagrad`, a leaf at a time:
+    ``acc += g * g; p -= (g * rsqrt(acc + eps)) * lr``, 0 where acc == 0,
+    each op rounded to the leaves' dtype."""
+    for p, g, acc in zip(params, grads, accs):
+        acc.add_(g * g)
+        p.sub_((g * _rss_scale(acc) * lr).to(p.dtype))
+
+
+def _checked_leaves(params, grads, accs
+                    ) -> Tuple[List[int], List[Tuple[int, int, int]]]:
+    """(numels, (p, g, acc) addresses) of the leaves, after checking that
+    the kernel takes them: one CUDA device, f32, each leaf's parameter,
+    gradient and accumulator of one shape and contiguous.  One pass, a few
+    attribute reads a tensor: this runs every step."""
+    if not len(params) == len(grads) == len(accs):
+        raise ValueError(f"dense_adagrad: {len(params)} parameters, "
+                         f"{len(grads)} gradients, {len(accs)} accumulators")
+    device, f32 = params[0].device, torch.float32
+    numels, addresses = [], []
+    for i, (p, g, a) in enumerate(zip(params, grads, accs)):
+        if not p.device == g.device == a.device == device:
+            raise ValueError(f"dense_adagrad: leaf {i} lies on "
+                             f"{[str(t.device) for t in (p, g, a)]}, not all "
+                             f"on {device}")
+        if not (p.dtype is f32 and g.dtype is f32 and a.dtype is f32):
+            raise TypeError(f"dense_adagrad: the kernel takes float32 "
+                            f"leaves, leaf {i} is "
+                            f"{[t.dtype for t in (p, g, a)]}")
+        if not (p.shape == g.shape == a.shape and p.is_contiguous()
+                and g.is_contiguous() and a.is_contiguous()):
+            raise ValueError(f"dense_adagrad: leaf {i}'s parameter, gradient "
+                             f"and accumulator must be contiguous and of one "
+                             f"shape, got "
+                             f"{[tuple(t.shape) for t in (p, g, a)]}")
+        numels.append(p.numel())
+        addresses.append((p.data_ptr(), g.data_ptr(), a.data_ptr()))
+    if device.type != "cuda":
+        raise ValueError(f"dense_adagrad: leaves on {device}; the kernel "
+                         f"takes CPU or CUDA tensors")
+    return numels, addresses
+
+
+def _launch_args(numels: Sequence[int],
+                 addresses: Sequence[Tuple[int, int, int]]) -> list:
+    """The C entry's arguments for each launch, as ctypes arrays: the
+    pointers (parameters, gradients, then accumulators), the lengths, and
+    the leaf count."""
+    out = []
+    for leaves in dense_adagrad_groups(numels):
+        k = len(leaves)
+        out.append(((_P * (3 * k))(*(addresses[i][j] for j in range(3)
+                                     for i in leaves)),
+                    (ctypes.c_longlong * k)(*(numels[i] for i in leaves)),
+                    k))
+    return out
+
+
+def dense_adagrad(params: Sequence[torch.Tensor],
+                  grads: Sequence[torch.Tensor],
+                  accs: Sequence[torch.Tensor], lr: float) -> int:
+    """Adagrad in place on every leaf: ``acc += g * g; p -= (g * rsqrt(acc
+    + eps)) * lr``, 0 where acc == 0, in f32.  Returns the kernels
+    launched.
+
+    CPU leaves: the plain version (0 launches).  CUDA leaves: one launch of
+    ``csrc/dense_adagrad.cu`` for every ``MAX_LEAVES`` leaves, on the
+    current stream, with no copy, allocation or sync, or an error;
+    ``dense_adagrad.launches`` counts launches.  ``lr`` is a host float."""
+    if not params:
+        return 0
+    if params[0].device.type == "cpu" and all(
+            t.device.type == "cpu" for t in (*params, *grads, *accs)):
+        dense_adagrad_reference(params, grads, accs, lr)
+        return 0
+    launches = _launch_args(*_checked_leaves(params, grads, accs))
+    fn = _kernel()
+    device = params[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for ptrs, n, k in launches:
+            rc = fn(ptrs, n, k, lr, stream)
+            if rc != 0:
+                raise RuntimeError(f"dense_adagrad kernel launch failed: "
+                                   f"CUDA error {rc} for {k} leaves of "
+                                   f"{sum(n)} elements")
+            dense_adagrad.launches += 1
+    return len(launches)
+
+
+dense_adagrad.launches = 0
+
+
+def _kernel():
+    """The C entry point of ``csrc/dense_adagrad.cu``."""
+    from dlrm_tpu_torch.ops.cuda_build import kernel
+    return kernel("dense_adagrad", (_P, _P, ctypes.c_int, ctypes.c_float,
+                                    _P))
 
 
 def apply_adagrad_rows(emb: torch.Tensor, acc: torch.Tensor,

@@ -50,7 +50,9 @@ and fires ``:sym_back`` on the reverse pass, and its training loop emits
    quantities, never a device value: ``host_tier.gather_bytes`` and
    ``host_tier.update_bytes`` (the bytes the host tier's kernels move, a
    row a hit; an update reads and writes its row), ``prefetch.takes`` and
-   ``prefetch.empty`` (the takes that found no batch queued).
+   ``prefetch.empty`` (the takes that found no batch queued),
+   ``dense_apply.launches`` (the kernels ``train/optim.apply_dense``
+   launched on the card).
    :func:`trace` records a ``torch.profiler`` trace with the spans and the
    counters of its stretch.
 2. :class:`InstrumentedTrainer` (the diagnostic path): one SGD step as

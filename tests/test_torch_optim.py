@@ -368,6 +368,192 @@ def test_dense_adagrad_is_rsqrt_of_acc_plus_eps():
     assert abs(float(p[1]) + 0.1) > 1e-4
 
 
+def _dense_leaves(rng, shapes, dtype=torch.float32):
+    """(params, three steps' gradients, zero accumulators): gradients with
+    zeros (the zero-accumulator rule), values below sqrt(eps) and normal
+    ones."""
+    params = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+              .to(dtype) for s in shapes]
+    grads = []
+    for _ in range(3):
+        step = []
+        for s in shapes:
+            g = rng.normal(size=s) * rng.choice([0.0, 1e-7, 1e-3, 1.0],
+                                                size=s)
+            step.append(torch.from_numpy(g.astype(np.float32)).to(dtype))
+        grads.append(step)
+    return params, grads, [torch.zeros_like(p) for p in params]
+
+
+@pytest.mark.parametrize("entry", ["apply_dense", "dense_adagrad",
+                                   "dense_adagrad_reference"])
+def test_plain_dense_adagrad_is_optax_adagrad(entry, rng):
+    """Three steps from a zero accumulator on the MLP's leaf shapes and a
+    1-element leaf, through each entry the CPU takes, against
+    ``optax.adagrad(initial_accumulator_value=0, eps=1e-10)``: the same
+    accumulators, and the weights within f32 rounding."""
+    import optax
+    shapes = [(13, 16), (16,), (16, 1), (1,)]
+    params, grads, accs = _dense_leaves(rng, shapes)
+    start = [p.clone() for p in params]
+    tx = optax.adagrad(0.1, initial_accumulator_value=0.0, eps=1e-10)
+    jp = [jnp.asarray(p.numpy()) for p in params]
+    state = tx.init(jp)
+    for step in grads:
+        upd, state = tx.update([jnp.asarray(g.numpy()) for g in step],
+                               state)
+        jp = optax.apply_updates(jp, upd)
+        if entry == "apply_dense":
+            toptim.apply_dense("adagrad", params, step, accs, 0.1)
+        else:
+            getattr(toptim, entry)(params, step, accs, 0.1)
+    for p, a, want_p, want_a in zip(params, accs, jp,
+                                    state[0].sum_of_squares):
+        np.testing.assert_allclose(a.numpy(), np.asarray(want_a), rtol=1e-6)
+        np.testing.assert_allclose(p.numpy(), np.asarray(want_p), rtol=1e-6,
+                                   atol=1e-6)
+    # a gradient that was 0 in every step leaves its weight's bits alone
+    g0 = torch.stack([torch.cat([g.reshape(-1) for g in s]) for s in grads])
+    idle = (g0 == 0).all(dim=0)
+    flat = torch.cat([p.reshape(-1) for p in params])
+    assert idle.any() and torch.equal(
+        flat[idle], torch.cat([p.reshape(-1) for p in start])[idle])
+
+
+@pytest.mark.parametrize("numels", [
+    [1],                                 # the top MLP's last bias alone
+    [4096, 4097, 1, 8191, 3],            # chunk edges and ragged tails
+    [6656, 512, 131072, 256, 32768, 128, 490496, 1024, 1048576, 1024,
+     524288, 512, 131072, 256, 256, 1],  # the MLPerf towers' 16 leaves
+    [5, 0, 9] * 30,                      # 90 leaves, 30 of them empty
+])
+def test_dense_adagrad_plan_covers_every_element_once(numels):
+    """The launches' grouping: every non-empty leaf, and so every element,
+    in exactly one launch, at most MAX_LEAVES leaves a launch in call
+    order, empty leaves left out; the C entry's arguments carry each
+    launch's leaves' lengths (the kernel's C entry cuts them into
+    blocks)."""
+    groups = toptim.dense_adagrad_groups(numels)
+    work = [i for i, n in enumerate(numels) if n]
+    assert [i for g in groups for i in g] == work
+    assert all(0 < len(g) <= toptim.MAX_LEAVES for g in groups)
+    assert len(groups) == -(-len(work) // toptim.MAX_LEAVES)
+    aligned = [(64 * i, 64 * i + 16, 64 * i + 32) for i in range(len(numels))]
+    args = toptim._launch_args(numels, aligned)
+    assert [k for _, _, k in args] == [len(g) for g in groups]
+    assert sum(sum(n) for _, n, _ in args) == sum(numels)
+    if len(numels) == 16:
+        assert len(groups) == 1
+
+
+@pytest.mark.parametrize("skip", [0, 1])
+def test_dense_adagrad_plan_aligns_views_of_one_flat_buffer(skip):
+    """Gradients as views into one flat buffer, as the sharded step's
+    all-reduced gradient gives them (aligned, and 4 bytes in): the C entry
+    gets each view's own address, parameters first, then gradients, then
+    accumulators, and each leaf's length (the 1-element leaf included), so
+    the kernel updates the views in place and tests their alignment
+    itself."""
+    numels = [1, 8, 5, 3, 16, 4]
+    params = [torch.zeros(n) for n in numels]
+    accs = [torch.zeros(n) for n in numels]
+    flat = torch.zeros(skip + sum(numels) + 1)  # + the loss tail
+    grads = torch.split(flat[skip:skip + sum(numels)], numels)
+    addr = [(p.data_ptr(), g.data_ptr(), a.data_ptr())
+            for p, g, a in zip(params, grads, accs)]
+    ((ptrs, n, k),) = toptim._launch_args(numels, addr)
+    assert k == 6 and list(n) == numels
+    assert list(ptrs) == [t.data_ptr() for t in (*params, *grads, *accs)]
+    offsets = [(g.data_ptr() - flat.data_ptr()) // 4 for g in grads]
+    assert offsets == [skip + o for o in (0, 1, 9, 14, 17, 33)]
+
+
+def _meta(shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("leaves,err,msg", [
+    (([_meta(4)], [_meta(4)], []), ValueError, "1 parameters, 1 gradients"),
+    (([_meta(4)], [torch.zeros(4)], [_meta(4)]), ValueError, "not all on"),
+    (([_meta(4)], [_meta(4, torch.bfloat16)], [_meta(4)]), TypeError,
+     "float32"),
+    (([_meta((4, 2))], [_meta((2, 4))], [_meta((4, 2))]), ValueError,
+     "one shape"),
+    (([_meta((4, 2))], [_meta((2, 4)).t()], [_meta((4, 2))]), ValueError,
+     "contiguous"),
+    (([_meta(4), _meta(8)], [_meta(4), _meta(8)], [_meta(4), _meta(8)]),
+     ValueError, "CPU or CUDA"),
+])
+def test_dense_adagrad_refuses_what_the_kernel_does_not_take(
+        leaves, err, msg, monkeypatch):
+    """The wrapper checks every leaf before anything is launched (the
+    kernel stubbed: it must not be reached)."""
+    def launched(*_):
+        raise AssertionError("the kernel was launched")
+
+    monkeypatch.setattr(toptim, "_kernel", launched)
+    before = toptim.dense_adagrad.launches
+    with pytest.raises(err, match=msg):
+        toptim.dense_adagrad(*leaves, 0.1)
+    assert toptim.dense_adagrad.launches == before
+
+
+def test_bf16_dense_leaves_keep_the_per_leaf_loop(rng, monkeypatch):
+    """bf16 leaves never reach the f32 kernel's wrapper: apply_dense runs
+    the per-leaf loop, with today's bits (every op rounded to bf16)."""
+    def refused(*_):
+        raise AssertionError("bf16 leaves reached the f32 kernel's wrapper")
+
+    params, grads, accs = _dense_leaves(rng, [(13, 16), (16,), (1,)],
+                                        torch.bfloat16)
+    want_p = [p.clone() for p in params]
+    want_a = [a.clone() for a in accs]
+    monkeypatch.setattr(toptim, "dense_adagrad", refused)
+    for step in grads:
+        toptim.apply_dense("adagrad", params, step, accs, 0.1)
+        for p, g, acc in zip(want_p, step, want_a):
+            acc.add_(g * g)
+            p.sub_((g * toptim._rss_scale(acc) * 0.1).to(p.dtype))
+    assert all(torch.equal(a, b) for a, b in zip(params + accs,
+                                                 want_p + want_a))
+    assert all(p.dtype == torch.bfloat16 for p in params + accs)
+
+
+@pytest.mark.parametrize("optimizer,dtype,leaves,want", [
+    ("sgd", torch.float32, 16, 32),                # 2 a leaf
+    ("adagrad", torch.bfloat16, 16, 160),          # the per-leaf loop
+    ("rowwise_adagrad", torch.float32, 16, 1),     # the kernel
+    ("adagrad", torch.float32, 70, 2),             # 64 leaves a launch
+])
+def test_dense_apply_counts_the_launches_while_recording(
+        optimizer, dtype, leaves, want, monkeypatch):
+    """``dense_apply.launches`` adds what a call launched on a device (meta
+    leaves stand in for the card's; the f32 kernel's wrapper stubbed to
+    return its groups' launches), only while a profiler records; the CPU
+    launches nothing and counts nothing."""
+    from dlrm_tpu_torch.utils import telemetry
+
+    def kernel(params, grads, accs, lr):
+        return len(toptim.dense_adagrad_groups([p.numel() for p in params]))
+
+    monkeypatch.setattr(toptim, "dense_adagrad", kernel)
+    on_card = [_meta(3, dtype) for _ in range(leaves)]
+    on_cpu = [torch.zeros(3, dtype=dtype) for _ in range(leaves)]
+    telemetry.reset_counters()
+    try:
+        toptim.apply_dense(optimizer, on_card, on_card, on_card, 0.1)
+        assert telemetry.counters() == {}
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            toptim.apply_dense(optimizer, on_cpu, on_cpu, on_cpu, 0.1)
+            assert telemetry.counters() == {}
+            toptim.apply_dense(optimizer, on_card, on_card, on_card, 0.1)
+            toptim.apply_dense(optimizer, on_card, on_card, on_card, 0.1)
+        assert telemetry.counters() == {"dense_apply.launches": 2 * want}
+    finally:
+        telemetry.reset_counters()
+
+
 @pytest.mark.parametrize("rowwise", [False, True])
 def test_apply_sparse_adagrad_dedups_then_applies(rowwise, rng):
     """A row hit three times: one accumulator update with the summed
