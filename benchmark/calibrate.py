@@ -29,11 +29,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from benchmark import check, harness, program, spec  # noqa: E402
 
 
-def train_readings(keep: dict, job: dict, batch: int, device) -> dict:
+def train_readings(keep: dict, cfg: dict, job: dict, batch: int,
+                   device) -> dict:
     from benchmark.entries.train import reference_readings
 
-    args = (keep["dense0"], keep["ids"], keep["rows0"], keep["batches"], job,
-            device)
+    args = (cfg, keep["dense0"], keep["ids"], keep["rows0"], keep["batches"],
+            job, device)
     ref = keep["ref"]
     ctl = reference_readings(*args, tf32=True)
     half = reference_readings(*args, half_batch=True)
@@ -53,15 +54,15 @@ def train_readings(keep: dict, job: dict, batch: int, device) -> dict:
                                ("control", ctl))}}
 
 
-def serve_readings(keep: dict, device) -> dict:
-    from benchmark.reference import dlrm as ref
-
+def serve_readings(keep: dict, cfg: dict, device) -> dict:
+    ref = spec.model(cfg)
     pairs_ctl, pairs_half, pairs_alt = [], [], []
     for i in keep["picked"]:
         params = {tw: [{k: v.to(device) for k, v in layer.items()}
                        for layer in layers]
                   for tw, layers in keep["dense0"].items()}
-        rows, dense = keep["rows"][i].to(device), keep["dense"][i].to(device)
+        rows = ref.pool(keep["rows"][i].to(device), keep["n_hot"])
+        dense = keep["dense"][i].to(device)
         want = ref.score(params, rows, dense).cpu()
         with ref.precision(True):
             ctl = ref.score(params, rows, dense).cpu()
@@ -95,10 +96,10 @@ def main() -> int:
                 "program": {k: v["value"] for k, v in res["checks"].items()},
                 "correct": res["correct"]}
         if cell.entry == "train":
-            line.update(train_readings(keep, cell.traffic,
+            line.update(train_readings(keep, cell.config, cell.traffic,
                                        cell.traffic["batch"], "cuda"))
         else:
-            line.update(serve_readings(keep, "cuda"))
+            line.update(serve_readings(keep, cell.config, "cuda"))
         line["seconds"] = time.perf_counter() - t0
         keep.clear()
         program.free_device_memory()

@@ -1,6 +1,8 @@
 """Operations and bytes a cell's work needs, from its shapes and from the
 distinct ids of its batches, and the peaks of the card they are held to.
-Nothing here is read from the program.
+Nothing here is read from the program.  A model's multiply-adds and matrix
+products are its reference module's (``reference/__init__.py``); a batch's
+id columns are the traffic's (``traffic.table_columns``).
 
 The peaks and :func:`bound` are copied from ``chip_smoke.py`` (its
 ``HBM_BYTES_PER_S``, ``F32_FLOPS``, ``PCIE_BYTES_PER_S`` and ``_bound``):
@@ -13,6 +15,8 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import torch
+
+from benchmark import spec, traffic
 
 # published peaks of one H100 SXM: HBM3 bytes/s, f32 FLOP/s outside the
 # tensor cores (the configurations compute in f32 with TF32 off)
@@ -34,33 +38,11 @@ def bound(kname: str, nbytes: int, b: int, f: int, d: int) -> float:
     return max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
 
 
-# -- the model's shapes --------------------------------------------------------
-
-def interaction_features(cfg: dict) -> int:
-    """F: the bottom MLP's output and the tables' rows re-chunked to its
-    width."""
-    d = cfg["bottom_mlp"][-1]
-    return len(cfg["table_sizes"]) * cfg["feature_size"] // d + 1
-
-
-def num_pairs(cfg: dict) -> int:
-    f = interaction_features(cfg)
-    return f * (f - 1) // 2
-
-
-def mlp_layers(cfg: dict) -> List[Tuple[str, int, int]]:
-    """(tower, in, out) of every dense layer; the top tower's input is the
-    bottom output and the pairs."""
-    bottom = cfg["bottom_mlp"]
-    top = [bottom[-1] + num_pairs(cfg)] + list(cfg["top_mlp"])
-    return ([("bottom", a, b) for a, b in zip(bottom, bottom[1:])]
-            + [("top", a, b) for a, b in zip(top, top[1:])])
-
+# -- the model's counts --------------------------------------------------------
 
 def forward_macs(cfg: dict) -> int:
-    """Multiply-adds of one example's forward: the MLPs and the pair dots."""
-    return (sum(a * b for _, a, b in mlp_layers(cfg))
-            + num_pairs(cfg) * cfg["bottom_mlp"][-1])
+    """Multiply-adds of one example's forward."""
+    return spec.model(cfg).forward_macs(cfg)
 
 
 def model_flops(cfg: dict, batch: int, train: bool) -> float:
@@ -70,17 +52,8 @@ def model_flops(cfg: dict, batch: int, train: bool) -> float:
 
 
 def gemms(cfg: dict, batch: int, train: bool) -> List[Tuple[int, int, int]]:
-    """(m, k, n) of every matrix product the step needs: each layer's
-    forward; in training each weight's gradient and each layer's input
-    gradient but the first bottom layer's (the dense features take none)."""
-    out = []
-    for i, (_, a, b) in enumerate(mlp_layers(cfg)):
-        out.append((batch, a, b))
-        if train:
-            out.append((a, batch, b))       # dW = x^T dy
-            if i:
-                out.append((batch, b, a))   # dx = dy W^T
-    return out
+    """(m, k, n) of every matrix product of a step or scored batch."""
+    return spec.model(cfg).gemms(cfg, batch, train)
 
 
 def gemm_bound_s(cfg: dict, batch: int, train: bool) -> float:
@@ -99,8 +72,12 @@ def interaction_bound_s(cfg: dict, batch: int, train: bool) -> float:
     """:func:`bound` of the forward call, and in training of the backward:
     x (B, d) and the pooled rows (B, T, D) read, the (B, d + P) output
     written; the backward reads both and the cotangent's d + P columns and
-    writes dx and the rows' gradient."""
-    d, f, p = cfg["bottom_mlp"][-1], interaction_features(cfg), num_pairs(cfg)
+    writes dx and the rows' gradient.  For a model with the dot
+    interaction only: its module gives ``interaction_features`` and
+    ``num_pairs`` (``reference/__init__.py``)."""
+    dot = spec.model(cfg)
+    d = cfg["bottom_mlp"][-1]
+    f, p = dot.interaction_features(cfg), dot.num_pairs(cfg)
     x = batch * d * F32
     feats = batch * len(cfg["table_sizes"]) * cfg["feature_size"] * F32
     out = batch * (d + p) * F32
@@ -113,13 +90,17 @@ def interaction_bound_s(cfg: dict, batch: int, train: bool) -> float:
 
 # -- the tables ----------------------------------------------------------------
 
-def distinct_rows(sparse: torch.Tensor, tables: Sequence[int]) -> int:
-    """Distinct (table, row) pairs among the ids (B, T) of ``tables``."""
+def distinct_rows(sparse: torch.Tensor, tables: Sequence[int],
+                  n_hot: int = 1) -> int:
+    """Distinct (table, row) pairs among the ids (B, T * H) of ``tables``,
+    over each table's ``n_hot`` columns."""
     if not tables:
         return 0
-    cols = torch.as_tensor(list(tables), device=sparse.device)
-    ids = sparse.index_select(1, cols).to(torch.int64)
-    key = ids * len(tables) + torch.arange(len(tables), device=sparse.device)
+    cols = traffic.table_columns(tables, n_hot)
+    which = [k for k in range(len(tables)) for _ in range(n_hot)]
+    ids = sparse.index_select(
+        1, torch.as_tensor(cols, device=sparse.device)).to(torch.int64)
+    key = ids * len(tables) + torch.as_tensor(which, device=sparse.device)
     return int(torch.unique(key).numel())
 
 
@@ -130,10 +111,12 @@ def table_bytes(cfg: dict, job: dict, batch: int, sparse: torch.Tensor,
     one row a hit; SGD's scatter-add reads one update a hit and its id, and
     reads and writes each distinct row once; row-wise Adagrad reads and
     writes each distinct row and its accumulator once, and reads one
-    summed gradient row and one id a distinct row."""
+    summed gradient row and one id a distinct row.  A table's hits are
+    those of all its columns."""
     row = cfg["feature_size"] * F32
-    hits = batch * len(device_tables)
-    u = distinct_rows(sparse, device_tables)
+    hot = traffic.hotness(cfg["n_hot"])
+    hits = batch * hot * len(device_tables)
+    u = distinct_rows(sparse, device_tables, hot)
     idx = 4
     nbytes = u * row + hits * (row + idx)
     if not train:
@@ -153,7 +136,7 @@ def host_tier_bound_s(cfg: dict, job: dict, sparse: torch.Tensor,
     card once; row-wise Adagrad brings each distinct row's accumulator
     too, and writes back each row and its accumulator once.  The two
     directions run at once, so the larger of them bounds the time."""
-    u = distinct_rows(sparse, host_tables)
+    u = distinct_rows(sparse, host_tables, traffic.hotness(cfg["n_hot"]))
     row = cfg["feature_size"] * F32
     to_card = u * row
     to_host = 0

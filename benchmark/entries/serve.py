@@ -18,9 +18,8 @@ import types
 import numpy as np
 import torch
 
-from benchmark import check, program
+from benchmark import check, program, spec
 from benchmark import traffic as traffic_lib
-from benchmark.reference import dlrm as ref
 from benchmark.tracing import span
 
 
@@ -39,11 +38,15 @@ def run(r, start: float) -> dict:
     t_weights = time.perf_counter()
     pool = traffic_lib.make_pool(
         r.traffic, r.config["table_sizes"], r.config["num_dense"], r.seed,
-        device, batch=B, n_batches=r.traffic["pool_batches"], pinned=False)
+        device, batch=B, n_batches=r.traffic["pool_batches"], pinned=False,
+        n_hot=r.config["n_hot"])
     picked = picked_batches(r.seed, len(pool), int(r.traffic["check_batches"]))
     t_count = len(r.config["table_sizes"])
-    rows = {i: torch.stack([model.tables.read(t, pool.sparse[i][:, t])
-                            for t in range(t_count)], dim=1) for i in picked}
+    # each table's rows of each of its columns: (B, T * H, D)
+    rows = {i: torch.cat([model.tables.read(
+        t, pool.sparse[i][:, traffic_lib.table_columns([t], pool.n_hot)]
+        .reshape(-1)).view(B, pool.n_hot, -1) for t in range(t_count)], dim=1)
+        for i in picked}
     r.say(f"set-up: weights {t_weights - t0:.2f} s, pool of {len(pool)} "
           f"batches {pool.seconds:.2f} s, {len(picked)} batches picked for "
           f"the check")
@@ -100,18 +103,20 @@ def run(r, start: float) -> dict:
     del model
     program.free_device_memory()
     t_ref = time.perf_counter()
+    ref = spec.model(r.config)
     pairs = []
     with ref.precision(False):
         params = {tw: [{k: v.to(device) for k, v in layer.items()}
                        for layer in layers] for tw, layers in dense0.items()}
         for i in picked:
-            want = ref.score(params, rows[i].to(device),
+            want = ref.score(params, ref.pool(rows[i].to(device), pool.n_hot),
                              pool.dense[i].to(device)).cpu()
             pairs += [(torch.from_numpy(got), want) for got in kept[i]]
     numbers = check.serve_numbers(pairs)
     if r.keep is not None:
-        r.keep.update(dense0=dense0, rows=rows, picked=picked,
-                      dense={i: pool.dense[i] for i in picked}, pairs=pairs)
+        r.keep.update(dense0=dense0, rows=rows, n_hot=pool.n_hot,
+                      picked=picked, pairs=pairs,
+                      dense={i: pool.dense[i] for i in picked})
     r.say(f"reference: {time.perf_counter() - t_ref:.2f} s, "
           f"{len(pairs)} answers of {len(picked)} batches compared")
     return {"numbers": numbers, "attempted": n, "failed": failed,

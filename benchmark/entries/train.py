@@ -20,10 +20,9 @@ from typing import List
 
 import torch
 
-from benchmark import check, program
+from benchmark import check, program, spec
 from benchmark.tracing import span
 from benchmark import traffic as traffic_lib
-from benchmark.reference import dlrm as ref
 
 CHECK_STEPS = 3
 
@@ -33,8 +32,11 @@ def _norm(t: torch.Tensor) -> float:
 
 
 def _distinct(pool, batches, t: int) -> torch.Tensor:
-    return torch.unique(torch.cat([pool.sparse[b][:, t].to(torch.int64)
-                                   for b in batches]))
+    """Table ``t``'s distinct ids over all its columns of ``batches``."""
+    return torch.unique(torch.cat([
+        pool.sparse[b][:, traffic_lib.table_columns([t], pool.n_hot)]
+        .reshape(-1).to(torch.int64)
+        for b in batches]))
 
 
 class Snapshot:
@@ -49,14 +51,14 @@ class Snapshot:
         self.first = [_distinct(pool, [0], t) for t in range(t_count)]
         self.rows0 = self.read_rows(self.ids)
         self.dense0 = [leaf.cpu().clone() for leaf in
-                       program.dense_leaves(model.dense0)]
+                       program.dense_leaves(model.dense0, model.groups)]
 
     def read_rows(self, ids) -> List[torch.Tensor]:
         return [self.model.tables.read(t, i) for t, i in enumerate(ids)]
 
     def dense(self) -> List[torch.Tensor]:
-        return [leaf.detach().cpu().clone()
-                for leaf in program.dense_leaves(self.model.params)]
+        return [leaf.detach().cpu().clone() for leaf in
+                program.dense_leaves(self.model.params, self.model.groups)]
 
     def grad_norms(self, v) -> List[float]:
         """The first step's gradient norms, from the state after it."""
@@ -67,8 +69,8 @@ class Snapshot:
             dense = [_norm((a - b) / lr) for a, b in
                      zip(self.dense0, self.dense())]
         else:
-            dense = [math.sqrt(float(acc.double().sum()))
-                     for acc in program.dense_leaves(opt["dense"])]
+            dense = [math.sqrt(float(acc.double().sum())) for acc in
+                     program.dense_leaves(opt["dense"], self.model.groups)]
         if self.job["sparse_optimizer"] == "sgd":
             now = self.read_rows(self.first)
             before = [r[torch.searchsorted(i, f)] for r, i, f in
@@ -86,14 +88,17 @@ class Snapshot:
         return dense + [_norm(a - b) for a, b in zip(now, self.rows0)]
 
 
-def reference_readings(dense0: dict, ids, rows0, batches: List[dict], job,
-                       device, tf32: bool = False, half_batch: bool = False
-                       ) -> dict:
+def reference_readings(cfg: dict, dense0: dict, ids, rows0,
+                       batches: List[dict], job, device, tf32: bool = False,
+                       half_batch: bool = False) -> dict:
     """The reference's losses, first gradient norms and change norms over
-    the check batches (tables held as the rows they touch)."""
+    the check batches (tables held as the rows they touch), by the model
+    that ``cfg`` names."""
+    ref = spec.model(cfg)
+    hot = traffic_lib.hotness(cfg["n_hot"])
     with ref.precision(tf32):
         rows = ref.Rows([i.to(device) for i in ids],
-                        [r.to(device) for r in rows0])
+                        [r.to(device) for r in rows0], hot)
         params = {tw: [{k: v.to(device) for k, v in layer.items()}
                        for layer in layers] for tw, layers in dense0.items()}
         trainer = ref.Trainer(params, rows, job, half_batch=half_batch)
@@ -122,7 +127,8 @@ def run(r, start: float) -> dict:
     t_weights = time.perf_counter()
     pool = traffic_lib.make_pool(
         r.traffic, r.config["table_sizes"], r.config["num_dense"], r.seed,
-        device, batch=B, n_batches=r.traffic["pool_batches"], pinned=True)
+        device, batch=B, n_batches=r.traffic["pool_batches"], pinned=True,
+        n_hot=r.config["n_hot"])
     r.say(f"set-up: weights {t_weights - t0:.2f} s, pool of {len(pool)} "
           f"batches {pool.seconds:.2f} s")
     v = program.train_step(model)
@@ -198,7 +204,8 @@ def run(r, start: float) -> dict:
         if device.type == "cuda" else 0
 
     feed.close()
-    check_batches = [pool.batch(k) for k in range(CHECK_STEPS)]
+    check_batches = [{"dense": pool.dense[k], "sparse": pool.sparse[k],
+                      "labels": pool.labels[k]} for k in range(CHECK_STEPS)]
     device_tables = [t for t in range(len(r.config["table_sizes"]))
                      if t not in (r.config.get("tiers") or {}).get(
                          "host_tables", [])]
@@ -215,8 +222,8 @@ def run(r, start: float) -> dict:
     del v, model, feed, snap.model
     program.free_device_memory()
     t_ref = time.perf_counter()
-    want = reference_readings(dense0, snap.ids, snap.rows0, check_batches,
-                              job, device)
+    want = reference_readings(r.config, dense0, snap.ids, snap.rows0,
+                              check_batches, job, device)
     numbers = check.train_numbers(prog, want)
     if r.keep is not None:
         r.keep.update(dense0=dense0, ids=snap.ids, rows0=snap.rows0,

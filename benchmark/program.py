@@ -5,7 +5,9 @@ of ``--hbm-budget-gb`` and the program's storage for it.
 
 The weights are the benchmark's: drawn here from ``--seed`` on the device
 into the program's storage, so the reference can be given the same values
-without taking anything the program made.  ``TableStore`` says where each
+without taking anything the program made.  The dense leaves, their laws and
+the sizes held against the program are the configuration's model's
+(``reference/__init__.py``).  ``TableStore`` says where each
 table's rows lie in that storage, for the snapshots of the check.
 """
 
@@ -20,6 +22,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from benchmark import spec
 from benchmark import traffic as traffic_lib
 
 GIB = 1 << 30
@@ -63,13 +66,12 @@ def program_config(ns: argparse.Namespace, config: dict, device):
     from dlrm_tpu_torch import run
 
     c = run._build_config(ns, torch.device(device))
-    got = {"table_sizes": list(c.table_sizes), "feature_size": c.feature_size,
-           "bottom_mlp": list(c.bottom_mlp_sizes),
-           "top_mlp": list(c.top_mlp_sizes), "n_hot": c.n_hot,
-           "dtype": str(c.embedding_dtype).removeprefix("torch."),
-           "compute_dtype": str(c.compute_dtype).removeprefix("torch.")}
-    want = {k: config[k] for k in ("table_sizes", "feature_size",
-                                   "bottom_mlp", "top_mlp", "n_hot")}
+    keys = spec.model(config).PROGRAM_KEYS
+    got = {k: getattr(c, attr, None) for k, attr in keys.items()}
+    got = {k: list(v) if isinstance(v, tuple) else v for k, v in got.items()}
+    want = {k: config[k] for k in keys}
+    got["dtype"] = str(c.embedding_dtype).removeprefix("torch.")
+    got["compute_dtype"] = str(c.compute_dtype).removeprefix("torch.")
     want["dtype"] = want["compute_dtype"] = config["dtype"]
     if got != want:
         diff = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
@@ -141,23 +143,19 @@ class Model:
     config: object              # the program's DLRMConfig
     params: dict                # in the program's layout
     tables: TableStore
+    groups: list                # the model's dense_groups
     plan: object = None         # the tier plan, or None
     dense0: Optional[dict] = None
 
 
 def draw_dense(gen: torch.Generator, config: dict, device) -> dict:
-    """Weights N(0, 2 / (in + out)) and biases N(0, 1 / out) of both
-    towers, in f32 on ``device``."""
-    from benchmark.counts import mlp_layers
-
-    out = {"bottom": [], "top": []}
-    for tower, a, b in mlp_layers(config):
-        w = torch.randn((a, b), generator=gen, device=device,
-                        dtype=torch.float32) * math.sqrt(2.0 / (a + b))
-        bias = torch.randn((b,), generator=gen, device=device,
-                           dtype=torch.float32) * math.sqrt(1.0 / b)
-        out[tower].append({"w": w, "b": bias})
-    return out
+    """The model's dense leaves (``dense_groups``), each ``randn(shape) *
+    std`` in f32 on ``device``, in draw order: ``{group: [{key: leaf}]}``."""
+    return {group: [{k: torch.randn(shape, generator=gen, device=device,
+                                    dtype=torch.float32) * std
+                     for k, (shape, std) in layer.items()}
+                    for layer in layers]
+            for group, layers in spec.model(config).dense_groups(config)}
 
 
 def fill_tables(gen: torch.Generator, store: TableStore, sizes: Sequence[int],
@@ -208,8 +206,8 @@ def build(config: dict, traffic: dict, seed: int, device, tiny_run: bool,
     c = program_config(ns, config, device)
     gen = torch.Generator(device).manual_seed(traffic_lib.stream_seed(seed, 0))
     dense = draw_dense(gen, config, device)
-    dense0 = {tw: [{k: v.cpu().clone() for k, v in layer.items()}
-                   for layer in layers] for tw, layers in dense.items()}
+    dense0 = {group: [{k: v.cpu().clone() for k, v in layer.items()}
+                      for layer in layers] for group, layers in dense.items()}
     if tiers:
         plan = ht.plan_tiers(c, int(ns.hbm_budget_gb * GIB))
         if list(plan.host_tables) != host_tables:
@@ -229,15 +227,17 @@ def build(config: dict, traffic: dict, seed: int, device, tiny_run: bool,
         emb = torch.empty((sum(sizes), d), dtype=torch.float32, device=device)
         store = _store({"all": emb}, None, sizes)
     fill_tables(gen, store, sizes, device)
-    params = {"bottom": dense["bottom"], "top": dense["top"], "emb": emb}
-    return Model(ns=ns, config=c, params=params, tables=store, plan=plan,
-                 dense0=dense0)
+    params = {**dense, "emb": emb}
+    groups = spec.model(config).dense_groups(config)
+    return Model(ns=ns, config=c, params=params, tables=store, groups=groups,
+                 plan=plan, dense0=dense0)
 
 
 def traffic_bytes(traffic: dict, config: dict) -> int:
-    t = len(config["table_sizes"])
+    """The pool's bytes: dense features, an id a lookup, a label."""
+    ids = len(config["table_sizes"]) * traffic_lib.hotness(config["n_hot"])
     return traffic["pool_batches"] * traffic["batch"] * (
-        config["num_dense"] * 4 + t * 4 + 4)
+        config["num_dense"] * 4 + ids * 4 + 4)
 
 
 def accumulators(model: Model, opt: dict) -> Optional[TableStore]:
@@ -271,9 +271,12 @@ def score_batch(model: Model, batch, device):
     return run.score_batch(model.params, batch, model.config, device)
 
 
-def dense_leaves(params: dict) -> List[torch.Tensor]:
-    return [layer[k] for tower in ("bottom", "top")
-            for layer in params[tower] for k in ("w", "b")]
+def dense_leaves(params: dict, groups) -> List[torch.Tensor]:
+    """The dense leaves of ``params`` (or of a tree laid out like them, as
+    the optimizer's state) in the draw order of ``groups``, the model's
+    ``dense_groups``."""
+    return [params[group][i][k] for group, layers in groups
+            for i, layer in enumerate(layers) for k in layer]
 
 
 def free_device_memory() -> None:

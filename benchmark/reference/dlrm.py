@@ -13,7 +13,14 @@ eps))``, eps the float32 machine epsilon.  Weights are stored (in, out).
 
 The tables enter as the rows the batches touch: ``Rows`` keeps, per table,
 the distinct row ids in ascending order and their values, so a step of a
-full-size model needs only what its batches read.
+full-size model needs only what its batches read.  At hotness H a batch's
+ids are (B, T * H), each table's H columns side by side; a table's pooled
+row is their rows' sum, added column after column, and each hit takes the
+pooled row's gradient.
+
+Beside the model: its dense leaf groups and their draw laws, the sizes the
+program is held to, and its multiply-adds and matrix products, as
+``reference/__init__.py`` sets out.
 
 ``precision(tf32=True)`` runs the same code in TF32, the control that the
 comparison has to fail: every matrix product, forward and backward, takes
@@ -24,12 +31,74 @@ as the card's TF32 products do, so the control reads alike on any device.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Sequence
+import math
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 EPS = float(torch.finfo(torch.float32).eps)
 _TF32 = [False]
+
+# configuration key -> the program's DLRMConfig attribute
+PROGRAM_KEYS = {"table_sizes": "table_sizes", "feature_size": "feature_size",
+                "bottom_mlp": "bottom_mlp_sizes", "top_mlp": "top_mlp_sizes",
+                "n_hot": "n_hot"}
+
+
+# -- the model's shapes, its dense leaves and its counts ----------------------
+
+def interaction_features(cfg: dict) -> int:
+    """F: the bottom MLP's output and the tables' rows re-chunked to its
+    width."""
+    d = cfg["bottom_mlp"][-1]
+    return len(cfg["table_sizes"]) * cfg["feature_size"] // d + 1
+
+
+def num_pairs(cfg: dict) -> int:
+    f = interaction_features(cfg)
+    return f * (f - 1) // 2
+
+
+def mlp_layers(cfg: dict) -> List[Tuple[str, int, int]]:
+    """(tower, in, out) of every dense layer; the top tower's input is the
+    bottom output and the pairs."""
+    bottom = cfg["bottom_mlp"]
+    top = [bottom[-1] + num_pairs(cfg)] + list(cfg["top_mlp"])
+    return ([("bottom", a, b) for a, b in zip(bottom, bottom[1:])]
+            + [("top", a, b) for a, b in zip(top, top[1:])])
+
+
+def dense_groups(cfg: dict):
+    """The towers in draw order: each layer's weight ~ N(0, 2 / (in +
+    out)), then its bias ~ N(0, 1 / out)."""
+    out = {"bottom": [], "top": []}
+    for tower, a, b in mlp_layers(cfg):
+        out[tower].append({"w": ((a, b), math.sqrt(2.0 / (a + b))),
+                           "b": ((b,), math.sqrt(1.0 / b))})
+    return list(out.items())
+
+
+def forward_macs(cfg: dict) -> int:
+    """Multiply-adds of one example's forward: the MLPs and the pair dots."""
+    return (sum(a * b for _, a, b in mlp_layers(cfg))
+            + num_pairs(cfg) * cfg["bottom_mlp"][-1])
+
+
+def gemms(cfg: dict, batch: int, train: bool) -> List[Tuple[int, int, int]]:
+    """(m, k, n) of every matrix product the step needs: each layer's
+    forward; in training each weight's gradient and each layer's input
+    gradient but the first bottom layer's (the dense features take none)."""
+    out = []
+    for i, (_, a, b) in enumerate(mlp_layers(cfg)):
+        out.append((batch, a, b))
+        if train:
+            out.append((a, batch, b))       # dW = x^T dy
+            if i:
+                out.append((batch, b, a))   # dx = dy W^T
+    return out
+
+
+# -- the model in plain f32 ----------------------------------------------------
 
 
 @contextlib.contextmanager
@@ -109,16 +178,20 @@ def bce_grad(p: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def leaves(dense_params: dict) -> List[torch.Tensor]:
-    return [layer[k] for tower in ("bottom", "top")
-            for layer in dense_params[tower] for k in ("w", "b")]
+    """Every dense leaf, group by group, layer by layer, in draw order."""
+    return [leaf for layers in dense_params.values() for layer in layers
+            for leaf in layer.values()]
+
+
+def _copy(dense_params: dict, fn) -> dict:
+    return {group: [{k: fn(v) for k, v in layer.items()} for layer in layers]
+            for group, layers in dense_params.items()}
 
 
 def loss_and_grads(dense_params: dict, pooled: torch.Tensor,
                    dense: torch.Tensor, labels: torch.Tensor):
     """(loss, the dense leaves' gradients, the pooled rows' gradient)."""
-    live = {tower: [{k: v.detach().requires_grad_() for k, v in layer.items()}
-                    for layer in dense_params[tower]]
-            for tower in ("bottom", "top")}
+    live = _copy(dense_params, lambda v: v.detach().requires_grad_())
     pooled = pooled.detach().requires_grad_()
     p = forward(live, pooled, dense)
     pd = p.detach()
@@ -127,23 +200,47 @@ def loss_and_grads(dense_params: dict, pooled: torch.Tensor,
     return bce(pd, labels), list(grads[:-1]), grads[-1]
 
 
+def _sum_columns(parts) -> torch.Tensor:
+    """The columns' rows added one after another, as a pooled row."""
+    x = parts[0]
+    for part in parts[1:]:
+        x = x + part
+    return x
+
+
+def pool(rows: torch.Tensor, n_hot: int) -> torch.Tensor:
+    """A batch's looked-up rows (B, T * H, D), each table's H side by side,
+    sum-pooled per table to (B, T, D)."""
+    t = rows.shape[1] // n_hot
+    return torch.stack([_sum_columns([rows[:, k * n_hot + j]
+                                      for j in range(n_hot)])
+                        for k in range(t)], dim=1)
+
+
 class Rows:
     """The rows of each table that some batches touch: ``ids[t]`` ascending
     distinct ids, ``values[t]`` (U_t, D) f32, and an optimizer accumulator
-    ``acc[t]`` (U_t,) for row-wise Adagrad."""
+    ``acc[t]`` (U_t,) for row-wise Adagrad; ``n_hot`` columns a table in a
+    batch."""
 
     def __init__(self, ids: Sequence[torch.Tensor],
-                 values: Sequence[torch.Tensor]):
+                 values: Sequence[torch.Tensor], n_hot: int = 1):
         self.ids = list(ids)
         self.values = [v.float().clone() for v in values]
         self.acc = [torch.zeros(v.shape[0], dtype=torch.float32,
                                 device=v.device) for v in self.values]
+        self.n_hot = n_hot
 
     def index(self, sparse: torch.Tensor) -> List[torch.Tensor]:
-        """Positions of a batch's ids (B, T) in each table's ``ids``."""
+        """Positions (B, H) of a batch's ids (B, T * H) in each table's
+        ``ids``."""
+        h = self.n_hot
+        if sparse.shape[1] != h * len(self.ids):
+            raise ValueError(f"a batch of {sparse.shape[1]} id columns for "
+                             f"{len(self.ids)} tables at hotness {h}")
         out = []
         for t, ids in enumerate(self.ids):
-            col = sparse[:, t].to(ids.dtype)
+            col = sparse[:, t * h:(t + 1) * h].to(ids.dtype).contiguous()
             pos = torch.searchsorted(ids, col)
             if not bool((ids[pos.clamp(max=ids.numel() - 1)] == col).all()):
                 raise ValueError(f"table {t}: a batch id is not among the "
@@ -152,16 +249,22 @@ class Rows:
         return out
 
     def pooled(self, pos: List[torch.Tensor]) -> torch.Tensor:
-        return torch.stack([v[p] for v, p in zip(self.values, pos)], dim=1)
+        """(B, T, D): each table's rows of its columns, summed."""
+        return torch.stack([_sum_columns([v[p[:, j]]
+                                          for j in range(p.shape[1])])
+                            for v, p in zip(self.values, pos)], dim=1)
 
 
 def summed_row_grads(d_pooled: torch.Tensor, pos: List[torch.Tensor],
                      rows: Rows) -> List[torch.Tensor]:
-    """Each table's gradient (U_t, D): a row's hits summed."""
+    """Each table's gradient (U_t, D): a row's hits summed, each hit of a
+    table taking its pooled row's gradient."""
     out = []
     for t, p in enumerate(pos):
         g = torch.zeros_like(rows.values[t])
-        g.index_add_(0, p, d_pooled[:, t])
+        h = p.shape[1]
+        src = d_pooled[:, t, None].expand(-1, h, -1).reshape(-1, g.shape[1])
+        g.index_add_(0, p.reshape(-1), src)
         out.append(g)
     return out
 
@@ -177,9 +280,7 @@ class Trainer:
 
     def __init__(self, dense_params: dict, rows: Rows, job: dict,
                  half_batch: bool = False):
-        self.params = {tower: [{k: v.float().clone() for k, v in layer.items()}
-                               for layer in dense_params[tower]]
-                       for tower in ("bottom", "top")}
+        self.params = _copy(dense_params, lambda v: v.float().clone())
         self.rows, self.job = rows, job
         self.dense_acc = [torch.zeros_like(p) for p in leaves(self.params)]
         self.lr = float(torch.tensor(float(job["lr"]), dtype=torch.float32))

@@ -84,5 +84,11 @@ def load_module(kind: str, name: str):
     return mod
 
 
+def model(config: dict):
+    """The configuration's model module, ``reference/<model>.py``: its
+    reference, dense leaves and counts (``reference/__init__.py``)."""
+    return load_module("reference", config["model"])
+
+
 def metric_readers(metrics: List[dict]) -> Dict[str, object]:
     return {m["name"]: load_module("metrics", m["name"]) for m in metrics}

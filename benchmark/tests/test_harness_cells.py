@@ -138,7 +138,7 @@ def test_pool_is_reproducible_from_the_seed():
 
 
 def _cfg(fs):
-    return {"table_sizes": [10] * 26, "feature_size": fs,
+    return {"model": "dlrm", "table_sizes": [10] * 26, "feature_size": fs,
             "bottom_mlp": [13, 512, 256, fs],
             "top_mlp": [1024, 1024, 512, 256, 1]}
 
@@ -146,7 +146,7 @@ def _cfg(fs):
 def test_hand_worked_counts():
     assert counts.forward_macs(_cfg(128)) == 2_410_112
     assert counts.forward_macs(_cfg(32)) == 2_253_536
-    assert counts.num_pairs(_cfg(128)) == 351
+    assert spec.model(_cfg(128)).num_pairs(_cfg(128)) == 351
     assert counts.model_flops(_cfg(128), 32768, True) == \
         6 * 2_410_112 * 32768
     # chip_smoke's interaction bounds at (16384, 27, 128): 257.9 MB forward,
@@ -162,7 +162,7 @@ def test_hand_worked_counts():
 
 
 def test_table_bytes_count_distinct_rows():
-    cfg = {"feature_size": 4}
+    cfg = {"feature_size": 4, "n_hot": 1}
     ids = torch.tensor([[0, 5], [0, 6], [1, 5]], dtype=torch.int32)
     assert counts.distinct_rows(ids, [0, 1]) == 4
     row = 16

@@ -41,8 +41,9 @@ def test_the_tf32_control_fails_training(name):
     keep = {}
     _run(name, keep=keep)
     cell = spec.load_cell(name)
-    ctl = reference_readings(keep["dense0"], keep["ids"], keep["rows0"],
-                             keep["batches"], cell.traffic, "cpu", tf32=True)
+    ctl = reference_readings(cell.config, keep["dense0"], keep["ids"],
+                             keep["rows0"], keep["batches"], cell.traffic,
+                             "cpu", tf32=True)
     numbers = check.train_numbers(ctl, keep["ref"])
     assert not check.verdict(numbers, {k: TINY[k] for k in cell.limits}), \
         numbers

@@ -17,8 +17,11 @@ FS = 8
 
 
 def _config():
-    return {"table_sizes": SIZES, "feature_size": FS, "num_dense": 13,
-            "bottom_mlp": [13, 16, FS], "top_mlp": [32, 1]}
+    return {"model": "dlrm", "table_sizes": SIZES, "feature_size": FS,
+            "num_dense": 13, "bottom_mlp": [13, 16, FS], "top_mlp": [32, 1]}
+
+
+GROUPS = ref.dense_groups(_config())
 
 
 def _port_config(impl="gram"):
@@ -81,7 +84,8 @@ def test_sgd_steps_match_the_port():
                               config=_port_config(), lr=0.1))
         lr_, _, _ = trainer.step(b)
         assert math.isclose(lp, lr_, rel_tol=1e-6)
-    for a, w in zip(program.dense_leaves(params), ref.leaves(trainer.params)):
+    for a, w in zip(program.dense_leaves(params, GROUPS),
+                    ref.leaves(trainer.params)):
         assert _close(a, w, 1e-5)
     for t, ids in enumerate(rows.ids):
         assert _close(store.read(t, ids), rows.values[t], 1e-5)
@@ -108,7 +112,8 @@ def test_two_tier_rowwise_adagrad_steps_match_the_port():
             optimizer="rowwise_adagrad", lr=0.01))
         lr_, _, _ = trainer.step(b)
         assert math.isclose(lp, lr_, rel_tol=1e-6)
-    for a, w in zip(program.dense_leaves(params), ref.leaves(trainer.params)):
+    for a, w in zip(program.dense_leaves(params, GROUPS),
+                    ref.leaves(trainer.params)):
         assert _close(a, w, 1e-5)
     accs = program._store({"dev": opt["dev_acc"].view(-1, 1),
                            "host": opt["host_acc"].view(-1, 1)}, plan, SIZES)
@@ -155,7 +160,7 @@ def test_the_tf32_control_fails_on_the_card(card):
                         "kaggle-fs128.serve-b16384.zipf.json").read_text()
                        )["limits"]["score_gap"]
     g = torch.Generator(card).manual_seed(9)
-    cfg = {"bottom_mlp": [13, 512, 256, 128],
+    cfg = {"model": "dlrm", "bottom_mlp": [13, 512, 256, 128],
            "top_mlp": [1024, 1024, 512, 256, 1],
            "table_sizes": [1000] * 26, "feature_size": 128}
     dense = program.draw_dense(g, cfg, card)

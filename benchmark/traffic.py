@@ -13,6 +13,19 @@ linear term on the dense features, one affinity a table hashed from the
 id's rank, and N(0, NOISE) noise, at ClickthroughModel's constants.  A
 ``uniform`` law draws every row with equal chance (``random_batch``'s law).
 
+A configuration's ``n_hot`` H gives every table H lookups an example, sum
+pooled, by MLPerf DLRM-DCNv2's multi-hot law (``mlcommons/training``,
+``recommendation_v2/torchrec_dlrm``:
+``materialize_synthetic_multihot_dataset.py --multi_hot_distribution_type
+uniform``, its ``multi_hot.py``): a table's
+one-hot id, drawn as above, comes first, then H - 1 ids that are a fixed
+function of (table, id, slot), uniform over the table's rows.  That script
+stores the function as a table of ``randint(0, rows)``; here it is hashed
+(:func:`multi_hot`), since a stored table is 8 B an id and slot.  The
+labels read the one-hot ids alone, so every H draws the same dense
+features, one-hot ids and labels.  A batch's ids are (B, T * H), each
+table's H columns side by side (:func:`table_columns`).
+
 A mix file gives ``batch``, ``pool_batches`` and ``ids`` (``law``, ``a``).
 """
 
@@ -20,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -34,6 +47,21 @@ RAND_INT_MAX = (1 << 63) - 1
 NOISE = 0.5
 DENSE_W_STD = 0.3
 AFFINITY = 1.5
+
+
+def hotness(n_hot) -> int:
+    """A configuration's ``n_hot``: one number of lookups an example for
+    every table."""
+    if isinstance(n_hot, bool) or not isinstance(n_hot, int) or n_hot < 1:
+        raise ValueError(f"n_hot {n_hot!r}: one whole number >= 1 for every "
+                         f"table")
+    return n_hot
+
+
+def table_columns(tables: Sequence[int], n_hot: int) -> List[int]:
+    """The columns of ``tables`` in a batch's ids (B, T * H), table by
+    table: table ``t``'s are ``t * H .. t * H + H - 1``."""
+    return [t * n_hot + j for t in tables for j in range(n_hot)]
 
 
 def splitmix64(x: int) -> int:
@@ -94,31 +122,59 @@ def zipf_ranks(gen: torch.Generator, n: torch.Tensor, a: float
     return torch.minimum(out - 1.0, last).to(torch.int64)
 
 
-def hash_unit(x: torch.Tensor) -> torch.Tensor:
-    """Non-negative int64 values below 2**31 -> float64 in [0, 1)."""
+def hash31(x: torch.Tensor) -> torch.Tensor:
+    """A bijection of int64 values in [0, 2**31)."""
     for k in (0x2C1B3C6D, 0x297A2D39):
         x = ((x ^ (x >> 15)) * k) & M31
-    x = x ^ (x >> 16)
-    return x.to(torch.float64) / float(1 << 31)
+    return x ^ (x >> 16)
+
+
+def hash_unit(x: torch.Tensor) -> torch.Tensor:
+    """Non-negative int64 values below 2**31 -> float64 in [0, 1)."""
+    return hash31(x).to(torch.float64) / float(1 << 31)
+
+
+def multi_hot(rows: torch.Tensor, n: torch.Tensor, seed: int, n_hot: int
+              ) -> torch.Tensor:
+    """One-hot ids (B, T), int64 below 2**31, -> (B, T * H): each id, then
+    H - 1 more of its table, each a fixed function of (table, id, slot)
+    uniform over the table's ``n`` rows (62 hashed bits mod n)."""
+    b, t = rows.shape
+    base = stream_seed(seed, 5)
+    salts = torch.tensor(
+        [[[splitmix64(base ^ (k << 20 | j << 1 | half)) & M31
+           for half in (0, 1)] for j in range(1, n_hot)] for k in range(t)],
+        dtype=torch.int64, device=rows.device)
+    r = rows[:, :, None]
+    hi, lo = hash31(r ^ salts[..., 0]), hash31(r ^ salts[..., 1])
+    extra = ((hi << 31) | lo) % n[:, None]
+    return torch.cat([r, extra], dim=2).reshape(b, t * n_hot)
 
 
 @dataclasses.dataclass
 class Pool:
     """``n`` batches of ``batch`` examples in host memory: ``dense`` (n, B,
-    13) f32, ``sparse`` (n, B, T) int32 per-table ids, ``labels`` (n, B)
-    f32; pinned for a mix that feeds ``device_prefetch``."""
+    13) f32, ``sparse`` (n, B, T * H) int32 per-table ids, each table's
+    ``n_hot`` columns side by side, ``labels`` (n, B) f32; pinned for a mix
+    that feeds ``device_prefetch``."""
 
     dense: torch.Tensor
     sparse: torch.Tensor
     labels: torch.Tensor
+    n_hot: int = 1
     seconds: float = 0.0
 
     def __len__(self) -> int:
         return self.dense.shape[0]
 
     def batch(self, i: int) -> Dict[str, torch.Tensor]:
+        """Batch ``i`` as the program takes it: ids (B, T) one-hot, (B, T,
+        H) (``--n-hot``) multi-hot."""
         i %= len(self)
-        return {"dense": self.dense[i], "sparse": self.sparse[i],
+        sparse = self.sparse[i]
+        if self.n_hot > 1:
+            sparse = sparse.view(sparse.shape[0], -1, self.n_hot)
+        return {"dense": self.dense[i], "sparse": sparse,
                 "labels": self.labels[i]}
 
     def numpy_batch(self, i: int) -> Dict[str, np.ndarray]:
@@ -127,15 +183,19 @@ class Pool:
 
 def draw(traffic: dict, table_sizes: Sequence[int], num_dense: int,
          seed: int, n_batches: int, batch: int, device,
-         first: int = 0) -> Dict[str, torch.Tensor]:
+         first: int = 0, n_hot: int = 1) -> Dict[str, torch.Tensor]:
     """Batches ``first .. first + n_batches - 1`` of the mix on ``device``:
-    (dense, sparse, labels).  Batch ``i`` is the same whatever chunk it is
-    drawn in: each batch has a generator of its own."""
+    (dense, sparse, labels), ``n_hot`` ids a table (:func:`multi_hot`).
+    Batch ``i`` is the same whatever chunk it is drawn in: each batch has a
+    generator of its own."""
     device = torch.device(device)
     ids = traffic["ids"]
     law = ids["law"]
     if law not in ("zipf", "uniform"):
         raise ValueError(f"unknown id law {law!r}")
+    hot = hotness(n_hot)
+    if max(table_sizes) >= 1 << 31:
+        raise ValueError("ids are int32: a table of 2**31 rows or more")
     t = len(table_sizes)
     n = torch.tensor(table_sizes, dtype=torch.int64, device=device)
     ac = [bijection(seed, k, s) for k, s in enumerate(table_sizes)]
@@ -169,6 +229,8 @@ def draw(traffic: dict, table_sizes: Sequence[int], num_dense: int,
         p = torch.sigmoid(logit)
         labels = (torch.rand(batch, generator=gi, device=device,
                              dtype=torch.float64) < p).to(torch.float32)
+        if hot > 1:
+            rows = multi_hot(rows, n, seed, hot)
         dense_out.append(dense)
         sparse_out.append(rows.to(torch.int32))
         label_out.append(labels)
@@ -178,25 +240,26 @@ def draw(traffic: dict, table_sizes: Sequence[int], num_dense: int,
 
 def make_pool(traffic: dict, table_sizes: Sequence[int], num_dense: int,
               seed: int, device, *, batch: int, n_batches: int,
-              pinned: bool, chunk: int = 8) -> Pool:
+              pinned: bool, chunk: int = 8, n_hot: int = 1) -> Pool:
     """The mix's pool, drawn on ``device`` ``chunk`` batches at a time into
     host tensors (pinned when ``pinned``)."""
     import time
 
     t0 = time.perf_counter()
-    t = len(table_sizes)
+    width = len(table_sizes) * hotness(n_hot)
     pin = pinned and torch.device(device).type == "cuda"
     pool = Pool(
         dense=torch.empty((n_batches, batch, num_dense), dtype=torch.float32,
                           pin_memory=pin),
-        sparse=torch.empty((n_batches, batch, t), dtype=torch.int32,
+        sparse=torch.empty((n_batches, batch, width), dtype=torch.int32,
                            pin_memory=pin),
         labels=torch.empty((n_batches, batch), dtype=torch.float32,
-                           pin_memory=pin))
+                           pin_memory=pin),
+        n_hot=n_hot)
     for lo in range(0, n_batches, chunk):
         k = min(chunk, n_batches - lo)
         part = draw(traffic, table_sizes, num_dense, seed, k, batch, device,
-                    first=lo)
+                    first=lo, n_hot=n_hot)
         for key in ("dense", "sparse", "labels"):
             getattr(pool, key)[lo:lo + k].copy_(part[key], non_blocking=pin)
     if torch.device(device).type == "cuda":
