@@ -61,7 +61,7 @@ def serve_readings(keep: dict, cfg: dict, device) -> dict:
         params = {tw: [{k: v.to(device) for k, v in layer.items()}
                        for layer in layers]
                   for tw, layers in keep["dense0"].items()}
-        rows = ref.pool(keep["rows"][i].to(device), keep["n_hot"])
+        rows = ref.pool(keep["rows"][i].to(device), keep["hot"])
         dense = keep["dense"][i].to(device)
         want = ref.score(params, rows, dense).cpu()
         with ref.precision(True):

@@ -12,7 +12,7 @@ published peaks of one H100 SXM.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -90,14 +90,21 @@ def interaction_bound_s(cfg: dict, batch: int, train: bool) -> float:
 
 # -- the tables ----------------------------------------------------------------
 
+def _hotness(cfg: dict) -> List[int]:
+    """The configuration's lookups an example, table by table."""
+    return traffic.hotness(cfg["n_hot"], len(cfg["table_sizes"]))
+
+
 def distinct_rows(sparse: torch.Tensor, tables: Sequence[int],
-                  n_hot: int = 1) -> int:
-    """Distinct (table, row) pairs among the ids (B, T * H) of ``tables``,
-    over each table's ``n_hot`` columns."""
+                  hot: Optional[Sequence[int]] = None) -> int:
+    """Distinct (table, row) pairs among the ids (B, sum H) of ``tables``,
+    over each table's ``hot[t]`` columns (``hot`` None: one a table)."""
     if not tables:
         return 0
-    cols = traffic.table_columns(tables, n_hot)
-    which = [k for k in range(len(tables)) for _ in range(n_hot)]
+    if hot is None:
+        hot = [1] * sparse.shape[1]
+    cols = traffic.table_columns(tables, hot)
+    which = [k for k, t in enumerate(tables) for _ in range(hot[t])]
     ids = sparse.index_select(
         1, torch.as_tensor(cols, device=sparse.device)).to(torch.int64)
     key = ids * len(tables) + torch.as_tensor(which, device=sparse.device)
@@ -112,10 +119,10 @@ def table_bytes(cfg: dict, job: dict, batch: int, sparse: torch.Tensor,
     reads and writes each distinct row once; row-wise Adagrad reads and
     writes each distinct row and its accumulator once, and reads one
     summed gradient row and one id a distinct row.  A table's hits are
-    those of all its columns."""
+    those of all its ``hot[t]`` columns."""
     row = cfg["feature_size"] * F32
-    hot = traffic.hotness(cfg["n_hot"])
-    hits = batch * hot * len(device_tables)
+    hot = _hotness(cfg)
+    hits = batch * sum(hot[t] for t in device_tables)
     u = distinct_rows(sparse, device_tables, hot)
     idx = 4
     nbytes = u * row + hits * (row + idx)
@@ -136,7 +143,7 @@ def host_tier_bound_s(cfg: dict, job: dict, sparse: torch.Tensor,
     card once; row-wise Adagrad brings each distinct row's accumulator
     too, and writes back each row and its accumulator once.  The two
     directions run at once, so the larger of them bounds the time."""
-    u = distinct_rows(sparse, host_tables, traffic.hotness(cfg["n_hot"]))
+    u = distinct_rows(sparse, host_tables, _hotness(cfg))
     row = cfg["feature_size"] * F32
     to_card = u * row
     to_host = 0

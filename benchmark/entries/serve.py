@@ -42,11 +42,11 @@ def run(r, start: float) -> dict:
         n_hot=r.config["n_hot"])
     picked = picked_batches(r.seed, len(pool), int(r.traffic["check_batches"]))
     t_count = len(r.config["table_sizes"])
-    # each table's rows of each of its columns: (B, T * H, D)
+    # each table's rows of each of its columns: (B, sum H, D)
     rows = {i: torch.cat([model.tables.read(
-        t, pool.sparse[i][:, traffic_lib.table_columns([t], pool.n_hot)]
-        .reshape(-1)).view(B, pool.n_hot, -1) for t in range(t_count)], dim=1)
-        for i in picked}
+        t, pool.sparse[i][:, traffic_lib.table_columns([t], pool.hot)]
+        .reshape(-1)).view(B, pool.hot[t], -1) for t in range(t_count)],
+        dim=1) for i in picked}
     r.say(f"set-up: weights {t_weights - t0:.2f} s, pool of {len(pool)} "
           f"batches {pool.seconds:.2f} s, {len(picked)} batches picked for "
           f"the check")
@@ -109,12 +109,12 @@ def run(r, start: float) -> dict:
         params = {tw: [{k: v.to(device) for k, v in layer.items()}
                        for layer in layers] for tw, layers in dense0.items()}
         for i in picked:
-            want = ref.score(params, ref.pool(rows[i].to(device), pool.n_hot),
+            want = ref.score(params, ref.pool(rows[i].to(device), pool.hot),
                              pool.dense[i].to(device)).cpu()
             pairs += [(torch.from_numpy(got), want) for got in kept[i]]
     numbers = check.serve_numbers(pairs)
     if r.keep is not None:
-        r.keep.update(dense0=dense0, rows=rows, n_hot=pool.n_hot,
+        r.keep.update(dense0=dense0, rows=rows, hot=pool.hot,
                       picked=picked, pairs=pairs,
                       dense={i: pool.dense[i] for i in picked})
     r.say(f"reference: {time.perf_counter() - t_ref:.2f} s, "

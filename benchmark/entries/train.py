@@ -34,7 +34,7 @@ def _norm(t: torch.Tensor) -> float:
 def _distinct(pool, batches, t: int) -> torch.Tensor:
     """Table ``t``'s distinct ids over all its columns of ``batches``."""
     return torch.unique(torch.cat([
-        pool.sparse[b][:, traffic_lib.table_columns([t], pool.n_hot)]
+        pool.sparse[b][:, traffic_lib.table_columns([t], pool.hot)]
         .reshape(-1).to(torch.int64)
         for b in batches]))
 
@@ -95,7 +95,7 @@ def reference_readings(cfg: dict, dense0: dict, ids, rows0,
     the check batches (tables held as the rows they touch), by the model
     that ``cfg`` names."""
     ref = spec.model(cfg)
-    hot = traffic_lib.hotness(cfg["n_hot"])
+    hot = traffic_lib.hotness(cfg["n_hot"], len(cfg["table_sizes"]))
     with ref.precision(tf32):
         rows = ref.Rows([i.to(device) for i in ids],
                         [r.to(device) for r in rows0], hot)

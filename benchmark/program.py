@@ -73,8 +73,17 @@ def program_config(ns: argparse.Namespace, config: dict, device):
     got["dtype"] = str(c.embedding_dtype).removeprefix("torch.")
     got["compute_dtype"] = str(c.compute_dtype).removeprefix("torch.")
     want["dtype"] = want["compute_dtype"] = config["dtype"]
+    if "n_hot" in keys:
+        # one hotness for every table, as an int or a list, is one
+        # configuration: held table by table
+        t = len(config["table_sizes"])
+        if traffic_lib.hotness(got["n_hot"], t) == \
+                traffic_lib.hotness(want["n_hot"], t):
+            got["n_hot"] = want["n_hot"]
     if got != want:
-        diff = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+        diff = "; ".join(f"{k}: the program's {got[k]!r}, the "
+                         f"configuration's {want[k]!r}"
+                         for k in want if got[k] != want[k])
         raise SystemExit(f"the program's model differs from the "
                          f"configuration file: {diff}")
     return c
@@ -235,7 +244,8 @@ def build(config: dict, traffic: dict, seed: int, device, tiny_run: bool,
 
 def traffic_bytes(traffic: dict, config: dict) -> int:
     """The pool's bytes: dense features, an id a lookup, a label."""
-    ids = len(config["table_sizes"]) * traffic_lib.hotness(config["n_hot"])
+    ids = sum(traffic_lib.hotness(config["n_hot"],
+                                  len(config["table_sizes"])))
     return traffic["pool_batches"] * traffic["batch"] * (
         config["num_dense"] * 4 + ids * 4 + 4)
 

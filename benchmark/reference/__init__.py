@@ -24,13 +24,18 @@ it imports nothing of ``benchmark`` and stands alone.  It gives:
   ``interaction_roofline.*``.  A cell whose model has another interaction
   is not listed under those metrics.
 * The model in plain f32: ``precision(tf32)`` (the TF32 control),
-  ``pool(rows, n_hot)`` (a batch's looked-up rows ``(B, T * H, D)``, each
-  table's H side by side, sum-pooled to ``(B, T, D)``), ``score(dense_params,
-  pooled, dense)``, ``leaves(dense_params)``, ``Rows`` (the touched rows of
-  each table, ``Rows(ids, values, n_hot)``, with ``index`` and ``pooled``)
-  and ``Trainer(dense_params, rows, job, half_batch=False)`` with
-  ``step(batch) -> (loss, dense gradients, tables' summed gradients)``.
+  ``pool(rows, hot)`` (a batch's looked-up rows ``(B, sum H, D)``, each
+  table's ``hot[t]`` side by side, sum-pooled to ``(B, T, D)``),
+  ``score(dense_params, pooled, dense)``, ``leaves(dense_params)``, ``Rows``
+  (the touched rows of each table, ``Rows(ids, values, hot)``, with
+  ``index`` and ``pooled``) and ``Trainer(dense_params, rows, job,
+  half_batch=False)`` with ``step(batch) -> (loss, dense gradients, tables'
+  summed gradients)``.
 
-A batch's ``sparse`` is ``(B, T * H)`` int, H the configuration's
-``n_hot``: each table's H columns side by side, in table order.
+``hot`` is the per-table hotness, a list of T whole numbers: the
+configuration's ``n_hot``, one int for every table or a list of one a
+table, as ``traffic.hotness`` spells it out.  A batch's ``sparse`` is
+``(B, sum H)`` int: each table's ``hot[t]`` columns side by side, in table
+order.  The harness hands the reference the flat ids whatever the
+hotness; the program gets (B, T, H) where every table has one H > 1.
 """

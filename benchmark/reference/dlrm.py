@@ -13,10 +13,10 @@ eps))``, eps the float32 machine epsilon.  Weights are stored (in, out).
 
 The tables enter as the rows the batches touch: ``Rows`` keeps, per table,
 the distinct row ids in ascending order and their values, so a step of a
-full-size model needs only what its batches read.  At hotness H a batch's
-ids are (B, T * H), each table's H columns side by side; a table's pooled
-row is their rows' sum, added column after column, and each hit takes the
-pooled row's gradient.
+full-size model needs only what its batches read.  At the per-table
+hotness ``hot`` a batch's ids are (B, sum H), each table's H_t columns side
+by side in table order; a table's pooled row is their rows' sum, added
+column after column, and each hit takes the pooled row's gradient.
 
 Beside the model: its dense leaf groups and their draw laws, the sizes the
 program is held to, and its multiply-adds and matrix products, as
@@ -31,8 +31,9 @@ as the card's TF32 products do, so the control reads alike on any device.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -208,39 +209,50 @@ def _sum_columns(parts) -> torch.Tensor:
     return x
 
 
-def pool(rows: torch.Tensor, n_hot: int) -> torch.Tensor:
-    """A batch's looked-up rows (B, T * H, D), each table's H side by side,
-    sum-pooled per table to (B, T, D)."""
-    t = rows.shape[1] // n_hot
-    return torch.stack([_sum_columns([rows[:, k * n_hot + j]
-                                      for j in range(n_hot)])
-                        for k in range(t)], dim=1)
+def _starts(hot: Sequence[int]) -> List[int]:
+    """Each table's first column in a batch's ids, and the width last."""
+    return [0, *itertools.accumulate(hot)]
+
+
+def pool(rows: torch.Tensor, hot: Sequence[int]) -> torch.Tensor:
+    """A batch's looked-up rows (B, sum H, D), each table's ``hot[t]`` side
+    by side, sum-pooled per table to (B, T, D)."""
+    s = _starts(hot)
+    if rows.shape[1] != s[-1]:
+        raise ValueError(f"{rows.shape[1]} looked-up rows an example for "
+                         f"the hotness {list(hot)}")
+    return torch.stack([_sum_columns([rows[:, c]
+                                      for c in range(s[k], s[k + 1])])
+                        for k in range(len(hot))], dim=1)
 
 
 class Rows:
     """The rows of each table that some batches touch: ``ids[t]`` ascending
     distinct ids, ``values[t]`` (U_t, D) f32, and an optimizer accumulator
-    ``acc[t]`` (U_t,) for row-wise Adagrad; ``n_hot`` columns a table in a
-    batch."""
+    ``acc[t]`` (U_t,) for row-wise Adagrad; ``hot[t]`` columns of table
+    ``t`` in a batch (``hot`` None: one a table)."""
 
     def __init__(self, ids: Sequence[torch.Tensor],
-                 values: Sequence[torch.Tensor], n_hot: int = 1):
+                 values: Sequence[torch.Tensor],
+                 hot: Optional[Sequence[int]] = None):
         self.ids = list(ids)
         self.values = [v.float().clone() for v in values]
         self.acc = [torch.zeros(v.shape[0], dtype=torch.float32,
                                 device=v.device) for v in self.values]
-        self.n_hot = n_hot
+        self.hot = [1] * len(self.ids) if hot is None else list(hot)
+        if len(self.hot) != len(self.ids):
+            raise ValueError(f"hotness {self.hot} for {len(self.ids)} tables")
 
     def index(self, sparse: torch.Tensor) -> List[torch.Tensor]:
-        """Positions (B, H) of a batch's ids (B, T * H) in each table's
+        """Positions (B, H_t) of a batch's ids (B, sum H) in each table's
         ``ids``."""
-        h = self.n_hot
-        if sparse.shape[1] != h * len(self.ids):
+        s = _starts(self.hot)
+        if sparse.shape[1] != s[-1]:
             raise ValueError(f"a batch of {sparse.shape[1]} id columns for "
-                             f"{len(self.ids)} tables at hotness {h}")
+                             f"{len(self.ids)} tables at hotness {self.hot}")
         out = []
         for t, ids in enumerate(self.ids):
-            col = sparse[:, t * h:(t + 1) * h].to(ids.dtype).contiguous()
+            col = sparse[:, s[t]:s[t + 1]].to(ids.dtype).contiguous()
             pos = torch.searchsorted(ids, col)
             if not bool((ids[pos.clamp(max=ids.numel() - 1)] == col).all()):
                 raise ValueError(f"table {t}: a batch id is not among the "

@@ -162,7 +162,7 @@ def test_hand_worked_counts():
 
 
 def test_table_bytes_count_distinct_rows():
-    cfg = {"feature_size": 4, "n_hot": 1}
+    cfg = {"feature_size": 4, "n_hot": 1, "table_sizes": [2, 7]}
     ids = torch.tensor([[0, 5], [0, 6], [1, 5]], dtype=torch.int32)
     assert counts.distinct_rows(ids, [0, 1]) == 4
     row = 16

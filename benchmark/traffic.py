@@ -13,18 +13,21 @@ linear term on the dense features, one affinity a table hashed from the
 id's rank, and N(0, NOISE) noise, at ClickthroughModel's constants.  A
 ``uniform`` law draws every row with equal chance (``random_batch``'s law).
 
-A configuration's ``n_hot`` H gives every table H lookups an example, sum
-pooled, by MLPerf DLRM-DCNv2's multi-hot law (``mlcommons/training``,
-``recommendation_v2/torchrec_dlrm``:
+A configuration's ``n_hot`` gives each table its number of lookups an
+example, sum pooled: one int H for every table, or a list of one hotness
+H_t a table (:func:`hotness`).  The ids follow MLPerf DLRM-DCNv2's
+multi-hot law (``mlcommons/training``, ``recommendation_v2/torchrec_dlrm``:
 ``materialize_synthetic_multihot_dataset.py --multi_hot_distribution_type
-uniform``, its ``multi_hot.py``): a table's
-one-hot id, drawn as above, comes first, then H - 1 ids that are a fixed
-function of (table, id, slot), uniform over the table's rows.  That script
-stores the function as a table of ``randint(0, rows)``; here it is hashed
-(:func:`multi_hot`), since a stored table is 8 B an id and slot.  The
-labels read the one-hot ids alone, so every H draws the same dense
-features, one-hot ids and labels.  A batch's ids are (B, T * H), each
-table's H columns side by side (:func:`table_columns`).
+uniform``, its ``multi_hot.py``): a table's one-hot id, drawn as above,
+comes first, then H_t - 1 ids, column ``j`` a fixed function of (table,
+id, j), uniform over the table's rows.  That script stores the function as
+a table of ``randint(0, rows)``; here it is hashed (:func:`multi_hot`),
+since a stored table is 8 B an id and slot.  So a table's columns at H_t
+are the first H_t of its columns at any larger hotness, and an all-equal
+list is its int.  The labels read the one-hot ids alone, so every hotness
+draws the same dense features, one-hot ids and labels.  A batch's ids are
+(B, sum H_t), each table's H_t columns side by side in table order
+(:func:`table_columns`).
 
 A mix file gives ``batch``, ``pool_batches`` and ``ids`` (``law``, ``a``).
 """
@@ -32,6 +35,7 @@ A mix file gives ``batch``, ``pool_batches`` and ``ids`` (``law``, ``a``).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Dict, List, Sequence
 
@@ -49,19 +53,24 @@ DENSE_W_STD = 0.3
 AFFINITY = 1.5
 
 
-def hotness(n_hot) -> int:
-    """A configuration's ``n_hot``: one number of lookups an example for
-    every table."""
-    if isinstance(n_hot, bool) or not isinstance(n_hot, int) or n_hot < 1:
+def hotness(n_hot, tables: int) -> List[int]:
+    """A configuration's ``n_hot`` as the lookups an example of each of its
+    ``tables`` tables: one whole number >= 1 for every table, or a list of
+    ``tables`` of them."""
+    hot = list(n_hot) if isinstance(n_hot, (list, tuple)) \
+        else [n_hot] * tables
+    if len(hot) != tables or any(isinstance(h, bool) or not isinstance(h, int)
+                                 or h < 1 for h in hot):
         raise ValueError(f"n_hot {n_hot!r}: one whole number >= 1 for every "
-                         f"table")
-    return n_hot
+                         f"table, or a list of {tables} of them")
+    return hot
 
 
-def table_columns(tables: Sequence[int], n_hot: int) -> List[int]:
-    """The columns of ``tables`` in a batch's ids (B, T * H), table by
-    table: table ``t``'s are ``t * H .. t * H + H - 1``."""
-    return [t * n_hot + j for t in tables for j in range(n_hot)]
+def table_columns(tables: Sequence[int], hot: Sequence[int]) -> List[int]:
+    """The columns of ``tables`` in a batch's ids (B, sum H), table by
+    table: table ``t``'s are ``sum(hot[:t]) .. sum(hot[:t + 1]) - 1``."""
+    starts = [0, *itertools.accumulate(hot)]
+    return [c for t in tables for c in range(starts[t], starts[t + 1])]
 
 
 def splitmix64(x: int) -> int:
@@ -134,34 +143,46 @@ def hash_unit(x: torch.Tensor) -> torch.Tensor:
     return hash31(x).to(torch.float64) / float(1 << 31)
 
 
-def multi_hot(rows: torch.Tensor, n: torch.Tensor, seed: int, n_hot: int
+def multi_hot(rows: torch.Tensor, n: torch.Tensor, seed: int, n_hot
               ) -> torch.Tensor:
-    """One-hot ids (B, T), int64 below 2**31, -> (B, T * H): each id, then
-    H - 1 more of its table, each a fixed function of (table, id, slot)
+    """One-hot ids (B, T), int64 below 2**31, -> (B, sum H_t), H the
+    per-table :func:`hotness` of ``n_hot``: each table's id, then H_t - 1
+    more of its table, column ``j`` a fixed function of (table, id, j)
     uniform over the table's ``n`` rows (62 hashed bits mod n)."""
-    b, t = rows.shape
+    t = rows.shape[1]
+    hot = hotness(n_hot, t)
     base = stream_seed(seed, 5)
+    owner = [k for k in range(t) for _ in range(1, hot[k])]
+    if not owner:
+        return rows
     salts = torch.tensor(
-        [[[splitmix64(base ^ (k << 20 | j << 1 | half)) & M31
-           for half in (0, 1)] for j in range(1, n_hot)] for k in range(t)],
+        [[splitmix64(base ^ (k << 20 | j << 1 | half)) & M31
+          for half in (0, 1)] for k in range(t) for j in range(1, hot[k])],
         dtype=torch.int64, device=rows.device)
-    r = rows[:, :, None]
-    hi, lo = hash31(r ^ salts[..., 0]), hash31(r ^ salts[..., 1])
-    extra = ((hi << 31) | lo) % n[:, None]
-    return torch.cat([r, extra], dim=2).reshape(b, t * n_hot)
+    idx = torch.tensor(owner, dtype=torch.int64, device=rows.device)
+    r = rows.index_select(1, idx)
+    hi, lo = hash31(r ^ salts[:, 0]), hash31(r ^ salts[:, 1])
+    extra = ((hi << 31) | lo) % n.index_select(0, idx)
+    # table k's one-hot id (column k), then its extra ids (after the T)
+    order, e = [], t
+    for k in range(t):
+        order += [k, *range(e, e + hot[k] - 1)]
+        e += hot[k] - 1
+    return torch.cat([rows, extra], dim=1).index_select(
+        1, torch.tensor(order, dtype=torch.int64, device=rows.device))
 
 
 @dataclasses.dataclass
 class Pool:
     """``n`` batches of ``batch`` examples in host memory: ``dense`` (n, B,
-    13) f32, ``sparse`` (n, B, T * H) int32 per-table ids, each table's
-    ``n_hot`` columns side by side, ``labels`` (n, B) f32; pinned for a mix
-    that feeds ``device_prefetch``."""
+    13) f32, ``sparse`` (n, B, sum H) int32 per-table ids, each table's
+    ``hot[t]`` columns side by side, ``labels`` (n, B) f32; pinned for a
+    mix that feeds ``device_prefetch``."""
 
     dense: torch.Tensor
     sparse: torch.Tensor
     labels: torch.Tensor
-    n_hot: int = 1
+    hot: List[int]              # the per-table hotness
     seconds: float = 0.0
 
     def __len__(self) -> int:
@@ -169,11 +190,12 @@ class Pool:
 
     def batch(self, i: int) -> Dict[str, torch.Tensor]:
         """Batch ``i`` as the program takes it: ids (B, T) one-hot, (B, T,
-        H) (``--n-hot``) multi-hot."""
+        H) (``--n-hot``) at one hotness H > 1 for every table, and the flat
+        (B, sum H) at mixed hotness, each table's bag side by side."""
         i %= len(self)
         sparse = self.sparse[i]
-        if self.n_hot > 1:
-            sparse = sparse.view(sparse.shape[0], -1, self.n_hot)
+        if len(set(self.hot)) == 1 and self.hot[0] > 1:
+            sparse = sparse.view(sparse.shape[0], -1, self.hot[0])
         return {"dense": self.dense[i], "sparse": sparse,
                 "labels": self.labels[i]}
 
@@ -183,9 +205,9 @@ class Pool:
 
 def draw(traffic: dict, table_sizes: Sequence[int], num_dense: int,
          seed: int, n_batches: int, batch: int, device,
-         first: int = 0, n_hot: int = 1) -> Dict[str, torch.Tensor]:
+         first: int = 0, n_hot=1) -> Dict[str, torch.Tensor]:
     """Batches ``first .. first + n_batches - 1`` of the mix on ``device``:
-    (dense, sparse, labels), ``n_hot`` ids a table (:func:`multi_hot`).
+    (dense, sparse, labels), each table's ``n_hot`` ids (:func:`multi_hot`).
     Batch ``i`` is the same whatever chunk it is drawn in: each batch has a
     generator of its own."""
     device = torch.device(device)
@@ -193,7 +215,7 @@ def draw(traffic: dict, table_sizes: Sequence[int], num_dense: int,
     law = ids["law"]
     if law not in ("zipf", "uniform"):
         raise ValueError(f"unknown id law {law!r}")
-    hot = hotness(n_hot)
+    hot = hotness(n_hot, len(table_sizes))
     if max(table_sizes) >= 1 << 31:
         raise ValueError("ids are int32: a table of 2**31 rows or more")
     t = len(table_sizes)
@@ -229,8 +251,7 @@ def draw(traffic: dict, table_sizes: Sequence[int], num_dense: int,
         p = torch.sigmoid(logit)
         labels = (torch.rand(batch, generator=gi, device=device,
                              dtype=torch.float64) < p).to(torch.float32)
-        if hot > 1:
-            rows = multi_hot(rows, n, seed, hot)
+        rows = multi_hot(rows, n, seed, hot)
         dense_out.append(dense)
         sparse_out.append(rows.to(torch.int32))
         label_out.append(labels)
@@ -240,22 +261,22 @@ def draw(traffic: dict, table_sizes: Sequence[int], num_dense: int,
 
 def make_pool(traffic: dict, table_sizes: Sequence[int], num_dense: int,
               seed: int, device, *, batch: int, n_batches: int,
-              pinned: bool, chunk: int = 8, n_hot: int = 1) -> Pool:
+              pinned: bool, chunk: int = 8, n_hot=1) -> Pool:
     """The mix's pool, drawn on ``device`` ``chunk`` batches at a time into
     host tensors (pinned when ``pinned``)."""
     import time
 
     t0 = time.perf_counter()
-    width = len(table_sizes) * hotness(n_hot)
+    hot = hotness(n_hot, len(table_sizes))
     pin = pinned and torch.device(device).type == "cuda"
     pool = Pool(
         dense=torch.empty((n_batches, batch, num_dense), dtype=torch.float32,
                           pin_memory=pin),
-        sparse=torch.empty((n_batches, batch, width), dtype=torch.int32,
+        sparse=torch.empty((n_batches, batch, sum(hot)), dtype=torch.int32,
                            pin_memory=pin),
         labels=torch.empty((n_batches, batch), dtype=torch.float32,
                            pin_memory=pin),
-        n_hot=n_hot)
+        hot=hot)
     for lo in range(0, n_batches, chunk):
         k = min(chunk, n_batches - lo)
         part = draw(traffic, table_sizes, num_dense, seed, k, batch, device,
