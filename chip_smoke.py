@@ -238,8 +238,9 @@ F32_FLOPS = 67e12
 # H100 data sheet, so 64 GB/s each way; it bounds the host-tier kernels
 PCIE_BYTES_PER_S = 64e9
 # launches of [interaction_fwd, interaction_bwd, host_gather,
-# host_update_rows, dense_adagrad] summed over the main paths
-LAUNCHES = [0, 0, 0, 0, 0]
+# host_update_rows, dense_adagrad, sparse_adagrad] summed over the main
+# paths
+LAUNCHES = [0, 0, 0, 0, 0, 0]
 
 
 def check(cond, msg: str) -> None:
@@ -290,7 +291,7 @@ def phase_card():
     cuda_build.load_kernels()
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s")
     for stem in ("interaction_fwd", "interaction_bwd", "host_tier",
-                 "dense_adagrad"):
+                 "dense_adagrad", "sparse_adagrad"):
         for line in cuda_build.build_log(stem).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {stem}:", line.strip())
@@ -573,6 +574,188 @@ def dense_adagrad_kernel() -> dict:
         "library_ms": None}}
 
 
+def _zipf_hits(gen: np.random.Generator, sizes, batch: int,
+               dtype=torch.int32) -> torch.Tensor:
+    """One batch's stacked ids on the card, (B * T,) in (B, T) order: each
+    table's Zipf(1.2) ranks clipped to its rows, plus its offset."""
+    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    ids = np.minimum(gen.zipf(1.2, (batch, len(sizes))) - 1,
+                     np.asarray(sizes) - 1) + offs
+    return torch.from_numpy(ids.reshape(-1)).to(DEV, dtype)
+
+
+def _sorted_update_agrees(what: str, emb, acc, ids, rows, lr) -> dict:
+    """The sorted segment sum (``optim.apply_sorted_rowwise``) against
+    today's split-free dedup and apply (``optim.apply_sparse_adagrad``)
+    and the plain version on the rows ``ids`` touch, each from the same
+    state (touched rows saved and put back): the kernel twice to the bit,
+    nothing else moved, and the largest differences of the touched rows
+    and their accumulators."""
+    from dlrm_tpu_torch.ops import embedding as E
+    from dlrm_tpu_torch.train import optim as O
+
+    touched = torch.unique(ids.long())
+    e0, a0 = emb[touched].clone(), acc[touched].clone()
+    grad = E.SparseGrad(ids, rows)
+
+    def run(fn) -> tuple:
+        emb[touched], acc[touched] = e0, a0
+        fn()
+        torch.cuda.synchronize()
+        return emb[touched].clone(), acc[touched].clone()
+
+    before = E.sorted_rowwise_adagrad.launches
+    kern = run(lambda: O.apply_sorted_rowwise(emb, acc, grad, lr))
+    again = run(lambda: O.apply_sorted_rowwise(emb, acc, grad, lr))
+    check(E.sorted_rowwise_adagrad.launches - before == 2,
+          f"sparse_adagrad {what}: "
+          f"{E.sorted_rowwise_adagrad.launches - before} launches, not 2")
+    check(torch.equal(kern[0], again[0]) and torch.equal(kern[1], again[1]),
+          f"sparse_adagrad {what}: two runs differ")
+    today = run(lambda: O.apply_sparse_adagrad(emb, acc, grad, lr,
+                                               rowwise=True))
+    plain = run(lambda: E.sorted_rowwise_adagrad_reference(
+        emb, acc, E.sort_hits(ids), rows, lr))
+    emb[touched], acc[touched] = e0, a0
+    step = (today[0] - e0).abs().max().item()
+    scale = e0.abs().max().item()
+    out = {"hits": ids.numel(), "distinct": touched.numel(), "step": step}
+    for name, (e, a) in (("today", today), ("plain", plain)):
+        out[f"emb_vs_{name}"] = (kern[0] - e).abs().max().item()
+        out[f"acc_vs_{name}"] = ((kern[1] - a).abs()
+                                 / a.abs().clamp(min=1e-30)).max().item()
+        # the hits of a row are summed in another order: f32 rounding of
+        # the row's sum (relative ~1e-6 at 24,000 hits), carried into its
+        # step and its accumulator
+        # and one rounding of the weight's subtraction
+        check(out[f"acc_vs_{name}"] <= 1e-5
+              and out[f"emb_vs_{name}"] <= 1e-4 * step + 2.5e-7 * scale,
+              f"sparse_adagrad {what} vs {name}: {out}")
+    print(f"  sparse_adagrad {what}: {out['hits']} hits of "
+          f"{out['distinct']} rows, the same bits twice; vs today's path "
+          f"tables {out['emb_vs_today']:.3g} (steps up to {step:.3g}), "
+          f"accumulators {out['acc_vs_today']:.3g} relative; vs the plain "
+          f"version {out['emb_vs_plain']:.3g} / {out['acc_vs_plain']:.3g}")
+    return out
+
+
+def sparse_adagrad_kernel() -> dict:
+    """The sorted segment sum (``csrc/sparse_adagrad.cu``) on the card: at
+    the Kaggle cell's shapes (B=32768 x 26 tables of the full Kaggle stack,
+    Zipf(1.2) ids, f32, D=128, int32 ids) against today's path
+    (``optim.apply_sparse_adagrad``) and the plain version, bit for bit
+    from run to run, with nothing outside the touched rows moved; the same
+    at D=32 with int64 ids (the Terabyte model's width), D=256, D=6 (single
+    floats) and one hit; given distinct ids, the update of
+    ``optim.apply_adagrad_rows`` to the bit wherever the D-term sum of
+    squares came out the same.  Then the times after an L2 flush of the
+    sort, the kernel, both, today's path (its two syncs' idle included) and
+    the plain version, beside the bound: the per-hit rows and ids read
+    once, each distinct row and accumulator read and written once."""
+    from dlrm_tpu_torch import kaggle_config
+    from dlrm_tpu_torch.ops import cuda_build
+    from dlrm_tpu_torch.ops import embedding as E
+    from dlrm_tpu_torch.train import optim as O
+
+    for line in cuda_build.build_log("sparse_adagrad").splitlines():
+        if "registers" in line or "spill" in line or "bytes cmem" in line:
+            print("  ptxas sparse_adagrad:", line.strip())
+    config = kaggle_config(feature_size=128)
+    sizes, d = config.table_sizes, config.feature_size
+    gen = np.random.default_rng(2025)
+    tgen = torch.Generator(DEV).manual_seed(7)
+    emb = torch.empty((sum(sizes), d), device=DEV).uniform_(
+        -0.05, 0.05, generator=tgen)
+    acc = torch.rand(sum(sizes), device=DEV, generator=tgen) * 1e-2
+    acc[torch.rand(sum(sizes), device=DEV, generator=tgen) < 0.5] = 0
+    ids = _zipf_hits(gen, sizes, TRAIN_BATCH)
+    rows = torch.randn((ids.numel(), d), device=DEV, generator=tgen) * 1e-3
+    lr = 0.1
+    whole = emb.clone()
+    main = _sorted_update_agrees("Kaggle B=32768 x 26, D=128", emb, acc,
+                                 ids, rows, lr)
+    check(torch.equal(emb, whole), "sparse_adagrad: rows outside the hits "
+          "moved")
+    del whole
+    runs = torch.unique_consecutive(torch.sort(ids).values,
+                                    return_counts=True)[1]
+    main["longest_run"] = int(runs.max())
+    print(f"  the batch's longest run: {main['longest_run']} hits of one row")
+
+    for what, dd, n_rows, n, dtype in (
+            ("D=32, int64 ids", 32, 200_000, 400_000, torch.int64),
+            ("D=256", 256, 5000, 60_000, torch.int32),
+            ("D=6, single floats", 6, 3000, 50_000, torch.int64),
+            ("one hit", 128, 10, 1, torch.int32)):
+        e = torch.randn((n_rows, dd), device=DEV, generator=tgen)
+        a = torch.rand(n_rows, device=DEV, generator=tgen)
+        h = torch.from_numpy(np.minimum(gen.zipf(1.2, n) - 1, n_rows - 1)
+                             ).to(DEV, dtype)
+        _sorted_update_agrees(what, e, a, h, torch.randn(
+            (n, dd), device=DEV, generator=tgen) * 1e-3, lr)
+
+    # distinct ids: the summed row is the hit's row, so only the sum of
+    # squares' order can differ from apply_adagrad_rows
+    pick = torch.randperm(emb.shape[0], device=DEV, generator=tgen)[:400_000]
+    g = torch.randn((pick.numel(), d), device=DEV, generator=tgen) * 1e-3
+    e0, a0 = emb[pick].clone(), acc[pick].clone()
+    O.apply_sorted_rowwise(emb, acc, E.SparseGrad(pick, g), lr)
+    k_e, k_a = emb[pick].clone(), acc[pick].clone()
+    emb[pick], acc[pick] = e0, a0
+    O.apply_adagrad_rows(emb, acc, pick, g, lr, rowwise=True)
+    t_e, t_a = emb[pick].clone(), acc[pick].clone()
+    emb[pick], acc[pick] = e0, a0
+    same = k_a.view(torch.int32) == t_a.view(torch.int32)
+    acc_ulps = _ulps([k_a], [t_a])
+    check(acc_ulps <= 2 and torch.equal(k_e[same], t_e[same]),
+          f"sparse_adagrad on distinct ids: accumulators {acc_ulps} ulps "
+          f"from apply_adagrad_rows, rows with equal accumulators "
+          f"{'differ' if not torch.equal(k_e[same], t_e[same]) else 'agree'}")
+    print(f"  sparse_adagrad on {pick.numel()} distinct ids: "
+          f"apply_adagrad_rows' bits on {int(same.sum())} rows whose sum of "
+          f"squares came out the same; accumulators within {acc_ulps} ulp(s) "
+          f"elsewhere")
+
+    grad = E.SparseGrad(ids, rows)
+    hits = E.sort_hits(ids)
+    t = {}
+    t["sort_ms"] = _cold_ms(lambda: E.sort_hits(ids))
+    t["kernel_ms"] = _cold_ms(
+        lambda: E.sorted_rowwise_adagrad(emb, acc, hits, rows, lr))
+    t["ms"] = _cold_ms(lambda: O.apply_sorted_rowwise(emb, acc, grad, lr))
+    t["today_ms"] = _cold_ms(lambda: O.apply_sparse_adagrad(
+        emb, acc, grad, lr, rowwise=True), 7)
+    t["plain_ms"] = _cold_ms(lambda: E.sorted_rowwise_adagrad_reference(
+        emb, acc, hits, rows, lr), 7)
+    t["kernel_ms"] += _cold_ms(
+        lambda: E.sorted_rowwise_adagrad(emb, acc, hits, rows, lr))
+    t["ms"] += _cold_ms(lambda: O.apply_sorted_rowwise(emb, acc, grad, lr))
+    t = {k: statistics.median(v) for k, v in t.items()}
+    host_us = _host_us(lambda: O.apply_sorted_rowwise(emb, acc, grad, lr))
+    sort_host_us = _host_us(lambda: E.sort_hits(ids))
+    n, u = ids.numel(), main["distinct"]
+    nbytes = n * d * 4 + n * ids.element_size() + 2 * u * (d * 4 + 4)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  sparse_adagrad, {n} hits of {u} rows at D={d}, device time "
+          f"after an L2 flush: sort {t['sort_ms']:.4f} ms, kernel "
+          f"{t['kernel_ms']:.4f} ms ({bound_ms / t['kernel_ms']:.0%} of the "
+          f"{bound_ms:.4f} ms bound, {nbytes / 1e6:.1f} MB), both "
+          f"{t['ms']:.4f} ms; today's unique + index_add_ path "
+          f"{t['today_ms']:.4f} ms, the plain version {t['plain_ms']:.4f} "
+          f"ms; host time a call {host_us:.1f} us, of it the sort's "
+          f"{sort_host_us:.1f} us")
+    del emb, acc
+    torch.cuda.empty_cache()
+    return {"sparse_adagrad": {
+        "max_abs_err": main["emb_vs_today"],
+        "acc_rel_err": main["acc_vs_today"], **t, "host_us": host_us,
+        "sort_host_us": sort_host_us,
+        "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes,
+        "hits": n, "distinct": u, "longest_run": main["longest_run"],
+        # no single PyTorch call computes a row-wise Adagrad update
+        "library_ms": None}}
+
+
 def phase_kernels() -> dict:
     """Both kernels against their plain versions at every shape a main
     path gives them ((16384, 27, 128) serving and evaluation, (32768, 27,
@@ -592,6 +775,7 @@ def phase_kernels() -> dict:
     from dlrm_tpu_torch.ops.interaction import dot_interaction
 
     main = dense_adagrad_kernel()
+    main.update(sparse_adagrad_kernel())
     g = torch.Generator(DEV).manual_seed(0)
     narrow = {k: {f"at_d{d}": [] for d in (TB_FEATURE, TB64_FEATURE)}
               for k in ("interaction_fwd", "interaction_bwd")}
@@ -699,13 +883,14 @@ def phase_kernels() -> dict:
 
 
 def _wrappers() -> list:
-    """The five kernels' wrappers, in LAUNCHES order."""
+    """The six kernels' wrappers, in LAUNCHES order."""
+    from dlrm_tpu_torch.ops import embedding as E
     from dlrm_tpu_torch.ops import interaction_fused as F
     from dlrm_tpu_torch.parallel import host_tier as H
     from dlrm_tpu_torch.train import optim as O
 
     return [F.interaction_fwd, F.interaction_bwd, H.host_gather,
-            H.host_update_rows, O.dense_adagrad]
+            H.host_update_rows, O.dense_adagrad, E.sorted_rowwise_adagrad]
 
 
 def _adagrad(optimizer: str, steps: int) -> int:
@@ -715,24 +900,33 @@ def _adagrad(optimizer: str, steps: int) -> int:
     return 0 if optimizer == "sgd" else steps
 
 
+def _sorted(optimizer: str, steps: int) -> int:
+    """sparse_adagrad's launches over ``steps`` steps that apply every
+    device table's update in the step (``train_step_opt``, the two-tier
+    step and the two-tier block's micro-steps) on f32 tables without a
+    clip: one a step for row-wise Adagrad, none for the others."""
+    return steps if optimizer == "rowwise_adagrad" else 0
+
+
 @contextlib.contextmanager
 def counted(what: str, fwd: int, bwd: int, gather: int = 0,
-            update: int = 0, dense: int = 0):
+            update: int = 0, dense: int = 0, sparse: int = 0):
     """A main path: every kernel's count is set to 0 before it and read
     after it; it must have launched interaction_fwd, interaction_bwd,
-    host_gather, host_update_rows and dense_adagrad ``fwd``, ``bwd``,
-    ``gather``, ``update`` and ``dense`` times, every forward and every
-    backward on the bulk-copy path.  The counts are added to LAUNCHES."""
+    host_gather, host_update_rows, dense_adagrad and sparse_adagrad
+    ``fwd``, ``bwd``, ``gather``, ``update``, ``dense`` and ``sparse``
+    times, every forward and every backward on the bulk-copy path.  The
+    counts are added to LAUNCHES."""
     wrappers = _wrappers()
     for w in wrappers:
         w.launches = 0
     wrappers[0].bulk_launches = wrappers[1].bulk_launches = 0
     yield
-    want = (fwd, bwd, gather, update, dense)
+    want = (fwd, bwd, gather, update, dense, sparse)
     got = tuple(w.launches for w in wrappers)
     check(got == want, f"{what} launched interaction_fwd, interaction_bwd, "
-          f"host_gather, host_update_rows, dense_adagrad {got} times, not "
-          f"{want}")
+          f"host_gather, host_update_rows, dense_adagrad, sparse_adagrad "
+          f"{got} times, not {want}")
     for w, n in zip(wrappers[:2], (fwd, bwd)):
         check(w.bulk_launches == n,
               f"{what}: {n - w.bulk_launches} of {n} {w.__name__} "
@@ -946,6 +1140,7 @@ _PROFILE_GROUPS = (
      ("gemm", "gemv", "splitKreduce")),
     ("sparse update (index_add_)", ("indexFuncLargeIndex",
                                     "indexFuncSmallIndex")),
+    ("sparse update (sparse_adagrad kernels)", ("sparse_adagrad_",)),
     ("embedding gather (index_select)", ("gather_kernel", "indexSelect")),
     ("host-to-device copies", ("Memcpy HtoD",)),
     ("interaction_bwd kernel", ("interaction_bwd_kernel",)),
@@ -1408,7 +1603,8 @@ def _check_fused_vs_gram(params, state, batches, config, optimizer: str,
         fused = cfg is config
         with counted(f"{optimizer} warm steps", OPT_STEPS * fused,
                      OPT_STEPS * fused,
-                     dense=_adagrad(optimizer, OPT_STEPS)):
+                     dense=_adagrad(optimizer, OPT_STEPS),
+                     sparse=_sorted(optimizer, OPT_STEPS)):
             runs.append([float(step(p, st, *_to_dev(b))) for b in batches])
     loss_diff = float(np.abs(np.subtract(*runs)).max())
     rows = params["emb"][touched]
@@ -1486,7 +1682,8 @@ def phase_optimizers() -> None:
         # weight differences of up to 1e-4 (ROADMAP.md §3), and the checks
         # below must start from the same state in every run
         with counted(f"{opt} steps", OPT_STEPS, OPT_STEPS,
-                     dense=OPT_STEPS), _deterministic():
+                     dense=OPT_STEPS, sparse=_sorted(opt, OPT_STEPS)), \
+                _deterministic():
             losses = [float(step(params, states[opt], *_to_dev(b)))
                       for b in batches[:OPT_STEPS]]
         check(all(np.isfinite(losses)) and states[opt]["count"] == OPT_STEPS,
@@ -1621,7 +1818,7 @@ def phase_checkpoint() -> None:
         check(free > nbytes + (1 << 30), f"checkpoint phase: {free} B free "
               f"under {tmp}, the checkpoint needs {nbytes} B (and 1 GiB to "
               f"spare)")
-        with counted("checkpoint and resume", 6, 6, dense=6):
+        with counted("checkpoint and resume", 6, 6, dense=6, sparse=6):
             first = run(batches[:2])
             # the whole state as saved, on the card beside it
             saved = [t.clone() for t in tensors]
@@ -2325,6 +2522,21 @@ def _report(what: str, kinds: dict) -> str:
         for kind, (n, m, e) in kinds.items())
 
 
+@contextlib.contextmanager
+def _split_dedup_apply():
+    """Single-device steps on the split, dedup and apply of
+    ``optim.apply_sparse_adagrad`` for the duration (the sorted segment
+    sum's route off): the sums the sharded steps run, in their order."""
+    from dlrm_tpu_torch.train import optim as O
+
+    devices = O.CARD_DEVICES
+    O.CARD_DEVICES = ()
+    try:
+        yield
+    finally:
+        O.CARD_DEVICES = devices
+
+
 def _sharded_vs_single(params, state, sh, st, p, mesh, config,
                        optimizer: str, batch, gather: int,
                        update: int) -> None:
@@ -2332,7 +2544,9 @@ def _sharded_vs_single(params, state, sh, st, p, mesh, config,
     state, under deterministic sums, bit for bit: each kind's rows and
     accumulators (``_moves_agree``), the loss, the dense parameters and
     their accumulators; the trash rows of both stacks and their
-    accumulators 0."""
+    accumulators 0.  The single-device step takes the split, dedup and
+    apply that the sharded step runs (``_split_dedup_apply``); the sorted
+    segment sum is held to that path in ``sparse_adagrad_kernel``."""
     from dlrm_tpu_torch.ops.embedding import tree_leaves
     from dlrm_tpu_torch.train.train import (sharded_train_step_opt,
                                             train_step_opt)
@@ -2347,8 +2561,10 @@ def _sharded_vs_single(params, state, sh, st, p, mesh, config,
             loss_s = float(sharded_train_step_opt(
                 sh, st, *b, config=config, optimizer=optimizer,
                 lr=SHARD_OPT_LR, mesh=mesh, placement=p))
-        loss_1 = float(train_step_opt(params, state, *b, config=config,
-                                      optimizer=optimizer, lr=SHARD_OPT_LR))
+        with _split_dedup_apply():
+            loss_1 = float(train_step_opt(params, state, *b, config=config,
+                                          optimizer=optimizer,
+                                          lr=SHARD_OPT_LR))
     torch.cuda.synchronize()
     tables = _shard_tensors(sh["emb"], sh["emb_cs"], sh.get("emb_h"))
     accs = _shard_tensors(st["emb_acc"], st["emb_acc_cs"], st["emb_acc_h"])
@@ -3128,7 +3344,8 @@ def _check_tier_block(tiered, state, tmap, config, optimizer, lr) -> None:
     snap = _TieredSnapshot(tiered, state, tmap, _all_ids(batches, config))
     stacked = _to_dev(_stack(batches))
     with counted(f"two-tier {optimizer} block", BLOCK, BLOCK,
-                 *_tier_calls(optimizer), _adagrad(optimizer, BLOCK)):
+                 *_tier_calls(optimizer), _adagrad(optimizer, BLOCK),
+                 _sorted(optimizer, BLOCK)):
         blk_losses = block(*stacked).tolist()
     del stacked
     got = snap.read()
@@ -3261,10 +3478,12 @@ def _tiered_vs_all(tiered, state_t, params, state_all, tmap, config,
     # deterministic sums on both sides: the atomics' order otherwise moves
     # the accumulators by up to 1.01e-5 of their largest from run to run
     with counted(f"two-tier {optimizer} steps", n, n, gather * n,
-                 update * n, _adagrad(optimizer, n)), _deterministic():
+                 update * n, _adagrad(optimizer, n),
+                 _sorted(optimizer, n)), _deterministic():
         tiered_losses = [float(step_t(*_to_dev(b))) for b in batches]
     with counted(f"all-device {optimizer} steps", n, n,
-                 dense=_adagrad(optimizer, n)), _deterministic():
+                 dense=_adagrad(optimizer, n),
+                 sparse=_sorted(optimizer, n)), _deterministic():
         all_losses = [float(step_a(*_to_dev(b))) for b in batches]
     rows = _stack_rows(emb.dev, emb.host, tmap, touched)
     diffs = {"losses": float(np.abs(np.subtract(tiered_losses,
@@ -4564,7 +4783,7 @@ def phase_terabyte() -> None:
     # every touched weight by about 0.1 and saturates the loss)
     n = TB_CLI_STEPS
     with counted("Terabyte row-wise steps (the CLI's)", n, n, 2 * n, 2 * n,
-                 n):
+                 n, n):
         cli_losses = [float(H.tiered_train_step_opt(
             tiered, state, *_to_dev(b), config=config,
             optimizer="rowwise_adagrad", lr=FULL_LR)) for b in stream]
@@ -4580,13 +4799,14 @@ def phase_terabyte() -> None:
         tiered, state, batches[1:2], config, optimizer="rowwise_adagrad",
         lr=TB_LR, block=False, device=DEV, folds=_warm_tier_acc(state, res),
         main_path=lambda: counted(
-            "Terabyte two-tier row-wise step", 1, 1, 2, 2, 1))
+            "Terabyte two-tier row-wise step", 1, 1, 2, 2, 1, 1))
     _tb_report("row-wise Adagrad step (warm accumulators)", res)
     res = touched_rows_check(
         tiered, state, batches[2:], config, optimizer="rowwise_adagrad",
         lr=TB_LR, block=True, device=DEV, folds=res["folds"],
         main_path=lambda: counted(f"Terabyte two-tier row-wise K={BLOCK} "
-                                  f"block", BLOCK, BLOCK, 2, 2, BLOCK))
+                                  f"block", BLOCK, BLOCK, 2, 2, BLOCK,
+                                  BLOCK))
     _tb_report(f"row-wise Adagrad K={BLOCK} block", res)
     del res
     torch.cuda.empty_cache()
@@ -6093,6 +6313,12 @@ def main() -> int:
                  "replaces": "dlrm_tpu/train/optim.py:110 (optax.adagrad, "
                              "fused by XLA; no Pallas kernel)",
                  "launches": LAUNCHES[4], **kern["dense_adagrad"]})
+    rows.append({"name": "sparse_adagrad", "route": "cuda",
+                 "source": "dlrm_tpu_torch/csrc/sparse_adagrad.cu",
+                 "replaces": "dlrm_tpu/train/optim.py (the dedup-then-apply "
+                             "row-wise Adagrad, lowered by XLA; no Pallas "
+                             "kernel)",
+                 "launches": LAUNCHES[5], **kern["sparse_adagrad"]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

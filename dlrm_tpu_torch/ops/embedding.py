@@ -9,7 +9,10 @@ Multi-hot lookups are gathered as (B, T, H, D) and sum-pooled over H.
 Training never densifies a table gradient: ``sparse_value_and_grad`` runs
 the gather outside autograd, so the gradient comes back per gathered row
 (``SparseGrad``), and ``apply_sparse_sgd`` applies it with one
-``index_add_``, which sums duplicate ids.
+``index_add_``, which sums duplicate ids.  Row-wise Adagrad on f32 tables
+on the card takes one sorted segment sum instead (:func:`sort_hits`, then
+:func:`sorted_rowwise_adagrad`, ``csrc/sparse_adagrad.cu``): no ``unique``,
+no ``index_add_`` and no host sync.
 
 The JAX package's lane packing, chunking and one-hot matmul path for small
 tables are TPU layout and are not carried over; ``mixed_lookup`` gives the
@@ -18,6 +21,8 @@ results of the JAX package's ``mixed_lookup`` from a plain gather.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -40,9 +45,11 @@ def translate_ids(ids: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
     ``ids``: (T,), (B, T) or (B, T, H) integer, 0-based per table.  The
     table axis is told by RANK, never by axis length: when ``n_hot`` equals
     the table count, a test on the last axis would add the offsets along
-    the hot axis.
+    the hot axis.  The offsets come from a device tensor made once per
+    (offsets, device, dtype) (:func:`offsets_tensor`), so no call after
+    the first copies them from the host.
     """
-    offs = torch.as_tensor(offsets, dtype=ids.dtype, device=ids.device)
+    offs = offsets_tensor(tuple(offsets), ids.device, ids.dtype)
     table_axis = 1 if ids.dim() == 3 else ids.dim() - 1
     if ids.shape[table_axis] != len(offsets):
         raise ValueError(f"ids of shape {tuple(ids.shape)} do not match "
@@ -50,6 +57,14 @@ def translate_ids(ids: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
     if ids.dim() == 3:  # (B, T, H): broadcast offsets over the hot axis
         return ids + offs[:, None]
     return ids + offs
+
+
+@functools.lru_cache(maxsize=None)
+def offsets_tensor(offsets: Tuple[int, ...], device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The tables' row offsets as a tensor on ``device``, one per
+    (offsets, device, dtype): callers only read it."""
+    return torch.as_tensor(offsets, dtype=dtype, device=device)
 
 
 def gather_rows(emb: torch.Tensor, flat_ids: torch.Tensor) -> torch.Tensor:
@@ -208,6 +223,122 @@ def sum_duplicates(grad: SparseGrad) -> SparseGrad:
                            dtype=torch.float32, device=grad.rows.device)
         rows.index_add_(0, inverse, grad.rows.float())
     return SparseGrad(ids=uniq, rows=rows)
+
+
+# -- the sorted segment sum: row-wise Adagrad with no unique and no sync -----
+
+# csrc/sparse_adagrad.cu's kChunk: sorted hits a warp walks; the kernel
+# leaves a head and a tail partial row a chunk.
+SORTED_CHUNK = 128
+_P = ctypes.c_void_p
+
+
+class SortedHits(NamedTuple):
+    """A step's hits in ascending stacked id, ties in hit order."""
+
+    ids: torch.Tensor        # (n,) the ids, sorted
+    positions: torch.Tensor  # (n,) int64: each sorted hit's place in the
+                             # per-hit gradient
+
+
+def sort_hits(ids: torch.Tensor) -> SortedHits:
+    """A stable sort of a step's stacked ids carrying their hit positions
+    (``torch.sort(stable=True)``: no host sync), under the span
+    ``dedup``."""
+    with phase_scope("dedup"):
+        values, positions = torch.sort(ids, stable=True)
+    return SortedHits(values, positions)
+
+
+def sorted_update_takes(dim: int) -> bool:
+    """Whether ``csrc/sparse_adagrad.cu`` takes rows of ``dim`` floats: up
+    to 512 in 16-byte units (``dim`` a multiple of 4), or 128."""
+    return 1 <= dim <= (512 if dim % 4 == 0 else 128)
+
+
+def sorted_rowwise_adagrad_reference(emb: torch.Tensor, acc: torch.Tensor,
+                                     hits: SortedHits, rows: torch.Tensor,
+                                     lr: float) -> None:
+    """Plain version of :func:`sorted_rowwise_adagrad`: each distinct id's
+    rows summed in f32 by ``index_add_``, then
+    ``train.optim.apply_adagrad_rows``."""
+    from dlrm_tpu_torch.train.optim import apply_adagrad_rows
+
+    ids, counts = torch.unique_consecutive(hits.ids, return_counts=True)
+    seg = torch.repeat_interleave(
+        torch.arange(ids.numel(), device=ids.device), counts)
+    g = torch.zeros((ids.numel(), rows.shape[1]), dtype=torch.float32,
+                    device=rows.device)
+    g.index_add_(0, seg, rows.index_select(0, hits.positions).float())
+    apply_adagrad_rows(emb, acc, ids.long(), g, lr, rowwise=True)
+
+
+def sorted_rowwise_adagrad(emb: torch.Tensor, acc: torch.Tensor,
+                           hits: SortedHits, rows: torch.Tensor,
+                           lr: float) -> None:
+    """Row-wise Adagrad in place on the rows of the stacked table that the
+    sorted hits name: each distinct row's per-hit gradients ``rows`` (n, D)
+    summed in f32, then ``acc[r] += mean_D(g^2)`` and ``emb[r] -= lr * g *
+    rsqrt(acc[r] + eps)``, 0 where ``acc[r] == 0``.
+
+    CPU tensors: the plain version.  CUDA tensors: ``csrc/sparse_adagrad.cu``
+    (two launches on the current stream, with a scratch of partial rows
+    sized from the hit count; no host sync), or an error;
+    ``sorted_rowwise_adagrad.launches`` counts calls that launched.
+    ``lr`` is a host float."""
+    tensors = (emb, acc, hits.ids, hits.positions, rows)
+    if all(t.device.type == "cpu" for t in tensors):
+        return sorted_rowwise_adagrad_reference(emb, acc, hits, rows, lr)
+    device, n = emb.device, hits.ids.numel()
+    d = emb.shape[1] if emb.dim() == 2 else 0
+    if any(t.device != device for t in tensors):
+        raise ValueError(f"sorted_rowwise_adagrad: tensors on "
+                         f"{[str(t.device) for t in tensors]}, not all on "
+                         f"{device}")
+    if not (emb.dtype is acc.dtype is rows.dtype is torch.float32
+            and hits.ids.dtype in (torch.int32, torch.int64)
+            and hits.positions.dtype is torch.int64):
+        raise TypeError(f"sorted_rowwise_adagrad: the kernel takes f32 "
+                        f"table, accumulator and rows with int32/int64 ids "
+                        f"and int64 positions, got "
+                        f"{[t.dtype for t in tensors]}")
+    if not (sorted_update_takes(d) and tuple(acc.shape) == emb.shape[:1]
+            and tuple(rows.shape) == (n, d)
+            and tuple(hits.positions.shape) == (n,)
+            and hits.ids.dim() == 1
+            and all(t.is_contiguous() for t in tensors)):
+        raise ValueError(f"sorted_rowwise_adagrad: needs a contiguous "
+                         f"(rows, D) table with D <= 512 (128 if D % 4), a "
+                         f"(rows,) accumulator, (n, D) rows and (n,) ids "
+                         f"and positions, got "
+                         f"{[tuple(t.shape) for t in tensors]}")
+    if n == 0:
+        return
+    chunks = -(-n // SORTED_CHUNK)
+    partials = torch.empty((2 * chunks, d), dtype=torch.float32,
+                           device=device)
+    with torch.cuda.device(device):
+        rc = _sorted_kernel()(
+            hits.ids.data_ptr(), hits.ids.element_size(),
+            hits.positions.data_ptr(), rows.data_ptr(), emb.data_ptr(),
+            acc.data_ptr(), partials.data_ptr(), n, emb.shape[0], d, lr,
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sparse_adagrad kernel launch failed: CUDA error "
+                           f"{rc} for {n} hits of {d} floats")
+    sorted_rowwise_adagrad.launches += 1
+
+
+sorted_rowwise_adagrad.launches = 0
+
+
+def _sorted_kernel():
+    """The C entry point of ``csrc/sparse_adagrad.cu``."""
+    from dlrm_tpu_torch.ops.cuda_build import kernel
+    return kernel("sparse_adagrad", (
+        _P, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, _P),
+        "sparse_adagrad_rowwise")
 
 
 def dedup_sparse_grad(grad: SparseGrad, *,

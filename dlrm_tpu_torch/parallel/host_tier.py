@@ -799,6 +799,7 @@ def _sgd_apply(params: dict, dgrads: dict, dev, host, lr: float) -> None:
         if dev is not None:
             with phase_scope("sparse_update"):
                 emb_ops.apply_sparse_sgd(emb.dev, dev, lr)
+            optim.count_hits(emb.dev, dev.ids.numel())
         if host is not None:
             _host_sgd(emb, host, lr)
 
@@ -963,13 +964,10 @@ def tiered_train_step_opt(params: dict, opt_state: dict, dense, sparse,
     lr_t = train_lib._f32(lr(opt_state["count"]) if callable(lr) else lr)
     grads = _TierGrads(emb, config)
     dev_state = _device_state(opt_state)
-    loss, big = train_lib._micro_step(
+    loss, _ = train_lib._micro_step(
         _device_view(params), dev_state, dense, sparse, labels,
         config=_tier_config(emb.plan, config), optimizer=optimizer, lr=lr_t,
-        grad_clip_norm=None, value_and_grad=grads)
-    if big is not None:
-        train_lib._apply_big(emb.dev, dev_state, big, optimizer=optimizer,
-                             lr=lr_t)
+        grad_clip_norm=None, value_and_grad=grads, apply_big=True)
     if grads.host[0] is not None:
         _host_opt(emb, opt_state, grads.host[0], optimizer=optimizer,
                   lr=lr_t)
@@ -1005,13 +1003,10 @@ def tiered_train_block_opt(params: dict, opt_state: dict, dense, sparse,
     dev_cfg = _tier_config(plan, config)
     losses = []
     for i in range(k):
-        loss, big = train_lib._micro_step(
+        loss, _ = train_lib._micro_step(
             _device_view(params), dev_state, dense[i], sparse[i], labels[i],
             config=dev_cfg, optimizer=optimizer, lr=lr, grad_clip_norm=None,
-            value_and_grad=grads)
-        if big is not None:
-            train_lib._apply_big(emb.dev, dev_state, big,
-                                 optimizer=optimizer, lr=lr)
+            value_and_grad=grads, apply_big=True)
         losses.append(loss)
     if plan.host_tables:
         _host_opt(emb, opt_state, emb_ops.SparseGrad(ids.reshape(-1),

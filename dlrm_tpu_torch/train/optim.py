@@ -299,6 +299,52 @@ def apply_sparse_adagrad(emb: torch.Tensor, acc: torch.Tensor,
                        scaled=None if scaled_rows is None else u.rows[:, d:])
 
 
+# -- which update a step's device tables take -----------------------------------
+
+# Devices whose f32 tables take the sorted segment sum for row-wise Adagrad
+# applied in the step that made the gradient, and on which the counters
+# below count.
+CARD_DEVICES = ("cuda",)
+
+
+def takes_sorted_update(optimizer: str, emb: torch.Tensor,
+                        grad_clip_norm) -> bool:
+    """Whether a step's device-table update, applied in that same step,
+    takes :func:`apply_sorted_rowwise`: row-wise Adagrad, no clip, f32
+    tables on the card, of a width the kernel takes.  Everything else
+    (SGD, Adagrad, bf16 tables, the CPU, the clip, deferred blocks) keeps
+    the split, dedup and apply of :func:`apply_sparse_adagrad`."""
+    return (optimizer == "rowwise_adagrad" and grad_clip_norm is None
+            and emb.dtype is torch.float32
+            and emb.device.type in CARD_DEVICES
+            and emb_ops.sorted_update_takes(emb.shape[1]))
+
+
+def count_hits(emb: torch.Tensor, hits: int, sorted_update: bool = False
+               ) -> None:
+    """The counters ``sparse_update.hits`` (every hit of the device tables
+    that reaches an update on the card) and ``sparse_update.fused_hits``
+    (those the sorted segment sum takes); the CPU counts nothing."""
+    if emb.device.type in CARD_DEVICES:
+        count("sparse_update.hits", hits)
+        if sorted_update:
+            count("sparse_update.fused_hits", hits)
+
+
+def apply_sorted_rowwise(emb: torch.Tensor, acc: torch.Tensor,
+                         grad: emb_ops.SparseGrad, lr: float) -> None:
+    """Row-wise Adagrad of every device table in one pass, in place: the
+    hits sorted (span ``dedup``), then the sorted segment sum (span
+    ``sparse_update``).  The same arithmetic as the split, dedup and apply
+    of :func:`apply_sparse_adagrad` on the small and the big tables, which
+    own disjoint rows, with the hits of a row summed in another order."""
+    hits = emb_ops.sort_hits(grad.ids)
+    with phase_scope("sparse_update"):
+        emb_ops.sorted_rowwise_adagrad(emb, acc, hits,
+                                       grad.rows.contiguous(), lr)
+    count_hits(emb, grad.ids.numel(), sorted_update=True)
+
+
 def _constant(value: float) -> Callable[[int], float]:
     return lambda count: float(np.float32(value))
 

@@ -93,6 +93,7 @@ def train_step(params: dict, dense: torch.Tensor, sparse: torch.Tensor,
                           emb_ops.tree_leaves(dgrads), None, lr)
         with phase_scope("sparse_update"):
             emb_ops.apply_sparse_sgd(emb, sgrad, lr)
+    optim.count_hits(emb, sgrad.ids.numel())
     return loss
 
 
@@ -140,12 +141,16 @@ def init_opt_state(params: dict, *, config: DLRMConfig, optimizer: str
 
 def _micro_step(params: dict, opt_state: Optional[dict], dense, sparse,
                 labels, *, config: DLRMConfig, optimizer: str, lr: float,
-                grad_clip_norm, value_and_grad: Optional[Callable] = None
-                ) -> tuple:
+                grad_clip_norm, value_and_grad: Optional[Callable] = None,
+                apply_big: bool = False) -> tuple:
     """Gradients at the current parameters, the optional clip, then the
     updates that are never deferred: the dense parameters and the small
     tables (``config.small_table_threshold``), in place.  Returns (loss,
     the big tables' per-hit SparseGrad or None), clipped but not applied.
+    With ``apply_big`` the big tables are updated here as well and None
+    takes their place; where ``optim.takes_sorted_update`` says so, every
+    table is then updated in one sorted segment sum, with no split by
+    table group.
 
     The clip's norm counts what the JAX package's counts: dense gradients,
     big-table rows once per hit, and small-table rows with a row's hits
@@ -162,6 +167,15 @@ def _micro_step(params: dict, opt_state: Optional[dict], dense, sparse,
             pool_fn=functools.partial(emb_ops.mixed_pool, config=config))
     loss, (dgrads, sgrad) = value_and_grad(
         dense_params, emb, sparse, config.table_offsets, dense, labels)
+    if apply_big and optim.takes_sorted_update(optimizer, emb,
+                                               grad_clip_norm):
+        with torch.no_grad():
+            optim.apply_dense(optimizer, emb_ops.tree_leaves(dense_params),
+                              emb_ops.tree_leaves(dgrads),
+                              emb_ops.tree_leaves(opt_state["dense"]), lr)
+            optim.apply_sorted_rowwise(emb, opt_state["emb"], sgrad, lr)
+        return loss, None
+    optim.count_hits(emb, sgrad.ids.numel())
     small_t, big_t = emb_ops.partition_tables(config.table_sizes,
                                               config.small_table_threshold)
     batch, tables = sparse.shape[0], config.num_tables
@@ -202,6 +216,9 @@ def _micro_step(params: dict, opt_state: Optional[dict], dense, sparse,
             elif small is not None:
                 emb_ops.apply_sparse_sgd(
                     emb, small if small_sum is None else small_sum, lr)
+    if apply_big and big is not None:
+        _apply_big(emb, opt_state, big, optimizer=optimizer, lr=lr)
+        big = None
     return loss, big
 
 
@@ -233,18 +250,18 @@ def train_step_opt(params: dict, opt_state: dict, dense, sparse, labels, *,
     ``lr``: a float, or a schedule read at ``opt_state['count']``.
     ``grad_clip_norm``: global-norm clip over everything autograd produced
     (``optim.clip_by_global_norm``) before the updates.  ``emb_impl`` takes
-    the JAX package's names and every one runs ``optim.apply_sparse_adagrad``
-    (see ``optim.check_emb_impl``).
+    the JAX package's names and every one runs the same update (see
+    ``optim.check_emb_impl``): row-wise Adagrad without a clip on f32
+    tables on the card, one sorted segment sum over every table
+    (``optim.apply_sorted_rowwise``); anything else
+    ``optim.apply_sparse_adagrad``.
     """
     optim.check_optimizer(optimizer)
     optim.check_emb_impl(emb_impl)
     lr_t = _f32(lr(opt_state["count"]) if callable(lr) else lr)
-    loss, big = _micro_step(params, opt_state, dense, sparse, labels,
-                            config=config, optimizer=optimizer, lr=lr_t,
-                            grad_clip_norm=grad_clip_norm)
-    if big is not None:
-        _apply_big(params["emb"], opt_state, big, optimizer=optimizer,
-                   lr=lr_t)
+    loss, _ = _micro_step(params, opt_state, dense, sparse, labels,
+                          config=config, optimizer=optimizer, lr=lr_t,
+                          grad_clip_norm=grad_clip_norm, apply_big=True)
     opt_state["count"] += 1
     return loss
 
@@ -519,6 +536,7 @@ def sharded_train_step(params: dict, dense, sparse, labels, *,
                                 placement=placement, axis=axis, cs=cs,
                                 emb_h=emb_h,
                                 exchange_dtype=config.exchange_dtype)
+    optim.count_hits(emb, sparse.numel())  # the rank's hits
     return loss
 
 
@@ -597,6 +615,7 @@ def _sharded_sparse_apply(params: dict, opt_state: dict, sparse, d_pooled,
                 d_pooled_scaled=d_pooled_scaled,
                 rowwise=optimizer == "rowwise_adagrad",
                 exchange_dtype=config.exchange_dtype)
+    optim.count_hits(emb, sparse.numel())  # the rank's hits
 
 
 def sharded_train_step_opt(params: dict, opt_state: dict, dense, sparse,

@@ -35,7 +35,9 @@ and fires ``:sym_back`` on the reverse pass, and its training loop emits
    ``sparse_update``           the device tables' updates (``train/train.py``
                                and the sharded step)
    ``dedup``                   ``ops/embedding.sum_duplicates``: ``unique``
-                               and the duplicates' sum (a host sync on CUDA)
+                               and the duplicates' sum (a host sync on
+                               CUDA); ``ops/embedding.sort_hits``: the
+                               sorted segment sum's stable sort (no sync)
    ``lookup_host_tier``,       the host tier's gather, update (with its
    ``host_tier_update``,       dedup) and the pipelined step's gather of the
    ``host_tier_prefetch_next`` next batch (``parallel/host_tier.py``)
@@ -52,7 +54,10 @@ and fires ``:sym_back`` on the reverse pass, and its training loop emits
    row a hit; an update reads and writes its row), ``prefetch.takes`` and
    ``prefetch.empty`` (the takes that found no batch queued),
    ``dense_apply.launches`` (the kernels ``train/optim.apply_dense``
-   launched on the card).
+   launched on the card), ``sparse_update.hits`` and
+   ``sparse_update.fused_hits`` (``train/optim.count_hits``: the device
+   tables' hits that reach an update on the card, and those the sorted
+   segment sum takes).
    :func:`trace` records a ``torch.profiler`` trace with the spans and the
    counters of its stretch.
 2. :class:`InstrumentedTrainer` (the diagnostic path): one SGD step as
