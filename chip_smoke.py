@@ -586,8 +586,9 @@ def _zipf_hits(gen: np.random.Generator, sizes, batch: int,
 
 def _sorted_update_agrees(what: str, emb, acc, ids, rows, lr) -> dict:
     """The sorted segment sum (``optim.apply_sorted_rowwise``) against
-    today's split-free dedup and apply (``optim.apply_sparse_adagrad``)
-    and the plain version on the rows ``ids`` touch, each from the same
+    today's split-free dedup and apply
+    (``ops.embedding.apply_sparse_adagrad``) and the plain version on the
+    rows ``ids`` touch, each from the same
     state (touched rows saved and put back): the kernel twice to the bit,
     nothing else moved, and the largest differences of the touched rows
     and their accumulators."""
@@ -612,7 +613,7 @@ def _sorted_update_agrees(what: str, emb, acc, ids, rows, lr) -> dict:
           f"{E.sorted_rowwise_adagrad.launches - before} launches, not 2")
     check(torch.equal(kern[0], again[0]) and torch.equal(kern[1], again[1]),
           f"sparse_adagrad {what}: two runs differ")
-    today = run(lambda: O.apply_sparse_adagrad(emb, acc, grad, lr,
+    today = run(lambda: E.apply_sparse_adagrad(emb, acc, grad, lr,
                                                rowwise=True))
     plain = run(lambda: E.sorted_rowwise_adagrad_reference(
         emb, acc, E.sort_hits(ids), rows, lr))
@@ -643,12 +644,12 @@ def sparse_adagrad_kernel() -> dict:
     """The sorted segment sum (``csrc/sparse_adagrad.cu``) on the card: at
     the Kaggle cell's shapes (B=32768 x 26 tables of the full Kaggle stack,
     Zipf(1.2) ids, f32, D=128, int32 ids) against today's path
-    (``optim.apply_sparse_adagrad``) and the plain version, bit for bit
-    from run to run, with nothing outside the touched rows moved; the same
-    at D=32 with int64 ids (the Terabyte model's width), D=256, D=6 (single
-    floats) and one hit; given distinct ids, the update of
-    ``optim.apply_adagrad_rows`` to the bit wherever the D-term sum of
-    squares came out the same.  Then the times after an L2 flush of the
+    (``ops.embedding.apply_sparse_adagrad``) and the plain version, bit for
+    bit from run to run, with nothing outside the touched rows moved; the
+    same at D=32 with int64 ids (the Terabyte model's width), D=256, D=6
+    (single floats) and one hit; given distinct ids, the update of
+    ``ops.embedding.apply_adagrad_rows`` to the bit wherever the D-term sum
+    of squares came out the same.  Then the times after an L2 flush of the
     sort, the kernel, both, today's path (its two syncs' idle included) and
     the plain version, beside the bound: the per-hit rows and ids read
     once, each distinct row and accumulator read and written once."""
@@ -702,7 +703,7 @@ def sparse_adagrad_kernel() -> dict:
     O.apply_sorted_rowwise(emb, acc, E.SparseGrad(pick, g), lr)
     k_e, k_a = emb[pick].clone(), acc[pick].clone()
     emb[pick], acc[pick] = e0, a0
-    O.apply_adagrad_rows(emb, acc, pick, g, lr, rowwise=True)
+    E.apply_adagrad_rows(emb, acc, pick, g, lr, rowwise=True)
     t_e, t_a = emb[pick].clone(), acc[pick].clone()
     emb[pick], acc[pick] = e0, a0
     same = k_a.view(torch.int32) == t_a.view(torch.int32)
@@ -723,7 +724,7 @@ def sparse_adagrad_kernel() -> dict:
     t["kernel_ms"] = _cold_ms(
         lambda: E.sorted_rowwise_adagrad(emb, acc, hits, rows, lr))
     t["ms"] = _cold_ms(lambda: O.apply_sorted_rowwise(emb, acc, grad, lr))
-    t["today_ms"] = _cold_ms(lambda: O.apply_sparse_adagrad(
+    t["today_ms"] = _cold_ms(lambda: E.apply_sparse_adagrad(
         emb, acc, grad, lr, rowwise=True), 7)
     t["plain_ms"] = _cold_ms(lambda: E.sorted_rowwise_adagrad_reference(
         emb, acc, hits, rows, lr), 7)
@@ -2523,10 +2524,11 @@ def _report(what: str, kinds: dict) -> str:
 
 
 @contextlib.contextmanager
-def _split_dedup_apply():
-    """Single-device steps on the split, dedup and apply of
-    ``optim.apply_sparse_adagrad`` for the duration (the sorted segment
-    sum's route off): the sums the sharded steps run, in their order."""
+def _unsorted_route():
+    """Single-device steps on the dedup and apply of
+    ``ops.embedding.apply_sparse_adagrad`` for the duration (the sorted
+    segment sum's route off): the sums the sharded steps run, in their
+    order."""
     from dlrm_tpu_torch.train import optim as O
 
     devices = O.CARD_DEVICES
@@ -2544,9 +2546,9 @@ def _sharded_vs_single(params, state, sh, st, p, mesh, config,
     state, under deterministic sums, bit for bit: each kind's rows and
     accumulators (``_moves_agree``), the loss, the dense parameters and
     their accumulators; the trash rows of both stacks and their
-    accumulators 0.  The single-device step takes the split, dedup and
-    apply that the sharded step runs (``_split_dedup_apply``); the sorted
-    segment sum is held to that path in ``sparse_adagrad_kernel``."""
+    accumulators 0.  The single-device step takes the dedup and apply that
+    the sharded step runs (``_unsorted_route``); the sorted segment sum is
+    held to that path in ``sparse_adagrad_kernel``."""
     from dlrm_tpu_torch.ops.embedding import tree_leaves
     from dlrm_tpu_torch.train.train import (sharded_train_step_opt,
                                             train_step_opt)
@@ -2561,7 +2563,7 @@ def _sharded_vs_single(params, state, sh, st, p, mesh, config,
             loss_s = float(sharded_train_step_opt(
                 sh, st, *b, config=config, optimizer=optimizer,
                 lr=SHARD_OPT_LR, mesh=mesh, placement=p))
-        with _split_dedup_apply():
+        with _unsorted_route():
             loss_1 = float(train_step_opt(params, state, *b, config=config,
                                           optimizer=optimizer,
                                           lr=SHARD_OPT_LR))

@@ -8,11 +8,14 @@ Multi-hot lookups are gathered as (B, T, H, D) and sum-pooled over H.
 
 Training never densifies a table gradient: ``sparse_value_and_grad`` runs
 the gather outside autograd, so the gradient comes back per gathered row
-(``SparseGrad``), and ``apply_sparse_sgd`` applies it with one
-``index_add_``, which sums duplicate ids.  Row-wise Adagrad on f32 tables
-on the card takes one sorted segment sum instead (:func:`sort_hits`, then
-:func:`sorted_rowwise_adagrad`, ``csrc/sparse_adagrad.cu``): no ``unique``,
-no ``index_add_`` and no host sync.
+(``SparseGrad``).  The table-update rules live here and every store (the
+device stack, the host tier, the shards) calls them: SGD's
+:func:`apply_sparse_sgd` and Adagrad's :func:`adagrad_rows`, which
+:func:`apply_adagrad_rows` / :func:`apply_sparse_adagrad` apply to the
+device stack.  Row-wise Adagrad on f32 tables on the card takes one sorted
+segment sum instead (:func:`sort_hits`, then :func:`sorted_rowwise_adagrad`,
+``csrc/sparse_adagrad.cu``): no ``unique``, no ``index_add_`` and no host
+sync.  ``train/optim.py`` decides which update a step takes.
 
 The JAX package's lane packing, chunking and one-hot matmul path for small
 tables are TPU layout and are not carried over; ``mixed_lookup`` gives the
@@ -62,8 +65,9 @@ def translate_ids(ids: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def offsets_tensor(offsets: Tuple[int, ...], device: torch.device,
                    dtype: torch.dtype) -> torch.Tensor:
-    """The tables' row offsets as a tensor on ``device``, one per
-    (offsets, device, dtype): callers only read it."""
+    """The tables' row offsets (or any tuple of ints, such as table
+    indices) as a tensor on ``device``, one per (offsets, device, dtype):
+    callers only read it."""
     return torch.as_tensor(offsets, dtype=dtype, device=device)
 
 
@@ -198,17 +202,20 @@ def sparse_value_and_grad(loss_fn: Callable, *,
 
 def apply_sparse_sgd(emb: torch.Tensor, grad: SparseGrad, lr) -> torch.Tensor:
     """SGD step on the stacked table, in place: ``emb[ids] -= lr * rows``
-    with duplicate ids summed (``index_add_``), the sum of per-hit
-    gradients applied once as in the reference.
+    by one ``index_add_`` in which each hit's ``-lr * g`` is added on its
+    own, as the JAX package's scatter-add adds it: a row hit n times takes
+    n adds in the table's dtype, not one add of its hits' sum.
 
     ``-lr * rows`` is an f32 product cast to the table's dtype, as the JAX
-    package's f32 learning rate makes it.  Every id must be a row of
-    ``emb`` (trim the ``-1`` slots of :func:`dedup_sparse_grad` first).
+    package's f32 learning rate makes it.  ``ids`` and ``rows`` may keep
+    the hits' layout, ``(...)`` and ``(..., D)``.  Every id must be a row
+    of ``emb`` (trim the ``-1`` slots of :func:`dedup_sparse_grad` first).
     On CUDA the duplicate sums run in another order than on the CPU.
     Returns ``emb``.
     """
     upd = (grad.rows.float() * -lr).to(emb.dtype)
-    return emb.index_add_(0, grad.ids, upd)
+    return emb.index_add_(0, grad.ids.reshape(-1),
+                          upd.reshape(-1, upd.shape[-1]))
 
 
 def sum_duplicates(grad: SparseGrad) -> SparseGrad:
@@ -223,6 +230,76 @@ def sum_duplicates(grad: SparseGrad) -> SparseGrad:
                            dtype=torch.float32, device=grad.rows.device)
         rows.index_add_(0, inverse, grad.rows.float())
     return SparseGrad(ids=uniq, rows=rows)
+
+
+# -- Adagrad on distinct rows -------------------------------------------------
+
+ADAGRAD_EPS = 1e-10
+
+
+def _rss_scale(acc_new: torch.Tensor) -> torch.Tensor:
+    """optax.scale_by_rss: ``rsqrt(acc + eps)``, and 0 where acc == 0."""
+    return torch.where(acc_new > 0, torch.rsqrt(acc_new + ADAGRAD_EPS),
+                       torch.zeros_like(acc_new))
+
+
+def adagrad_rows(acc_rows: torch.Tensor, g: torch.Tensor, lr, *,
+                 rowwise: bool, scaled: Optional[torch.Tensor] = None,
+                 g2: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Adagrad rule on distinct rows, wherever they are stored:
+    ``acc_rows`` their accumulator, (n, D) or row-wise (n,), ``g`` (n, D)
+    f32 their summed gradients.  Returns (the accumulator's f32 delta
+    ``g2``: ``g^2``, row-wise ``mean_D(g^2)``, or as given where the caller
+    sums the squares itself; the rows' f32 update ``g * rs * -lr``, ``rs =
+    rsqrt(acc_rows + g2 + eps)``, 0 where that sum is 0).  With ``scaled``
+    (the per-row sum of ``lr_k * g``, a scheduled block's twin payload) the
+    update is ``-(scaled * rs)`` and ``lr`` is not used.  The caller adds
+    both, the update cast to the table's dtype last."""
+    if g2 is None:
+        g2 = (g * g).mean(dim=1) if rowwise else g * g
+    rs = _rss_scale(acc_rows + g2)
+    if rowwise:
+        rs = rs[:, None]
+    if scaled is not None:
+        g, lr = scaled, 1.0
+    return g2, g * rs * -lr
+
+
+def apply_adagrad_rows(emb: torch.Tensor, acc: torch.Tensor,
+                       ids: torch.Tensor, g: torch.Tensor, lr, *,
+                       rowwise: bool,
+                       scaled: Optional[torch.Tensor] = None) -> None:
+    """:func:`adagrad_rows` on the rows ``ids`` of the stacked table and its
+    accumulator, in place.  Every id appears once and ``g`` (n, D) f32 is
+    its summed gradient."""
+    g2, upd = adagrad_rows(acc.index_select(0, ids), g, lr, rowwise=rowwise,
+                           scaled=scaled)
+    acc.index_add_(0, ids, g2)
+    emb.index_add_(0, ids, upd.to(emb.dtype))
+
+
+def apply_sparse_adagrad(emb: torch.Tensor, acc: torch.Tensor,
+                         grad: SparseGrad, lr, *, rowwise: bool,
+                         scaled_rows: Optional[torch.Tensor] = None) -> None:
+    """Exact sparse Adagrad, dedup then apply, in place: the rows of
+    duplicate ids are summed in f32 (:func:`sum_duplicates`: one ``unique``
+    and one ``index_add_``), then :func:`apply_adagrad_rows` runs on the
+    distinct rows.
+
+    ``scaled_rows``: the gradient rows already scaled by their own
+    micro-step's lr, for a coalesced block under a schedule.  They ride
+    through the same dedup as a twin payload ``(g, lr_k * g)``: the
+    accumulator folds in ``(sum g)^2`` and the weight step is
+    ``sum(lr_k * g) * rsqrt(...)``; for a row hit in one micro-step only
+    that is that step's exact update."""
+    d = grad.rows.shape[1]
+    rows = grad.rows.float()
+    if scaled_rows is not None:
+        rows = torch.cat([rows, scaled_rows.float()], dim=1)
+    u = sum_duplicates(SparseGrad(grad.ids, rows))
+    apply_adagrad_rows(emb, acc, u.ids, u.rows[:, :d], lr, rowwise=rowwise,
+                       scaled=None if scaled_rows is None else u.rows[:, d:])
 
 
 # -- the sorted segment sum: row-wise Adagrad with no unique and no sync -----
@@ -260,10 +337,7 @@ def sorted_rowwise_adagrad_reference(emb: torch.Tensor, acc: torch.Tensor,
                                      hits: SortedHits, rows: torch.Tensor,
                                      lr: float) -> None:
     """Plain version of :func:`sorted_rowwise_adagrad`: each distinct id's
-    rows summed in f32 by ``index_add_``, then
-    ``train.optim.apply_adagrad_rows``."""
-    from dlrm_tpu_torch.train.optim import apply_adagrad_rows
-
+    rows summed in f32 by ``index_add_``, then :func:`apply_adagrad_rows`."""
     ids, counts = torch.unique_consecutive(hits.ids, return_counts=True)
     seg = torch.repeat_interleave(
         torch.arange(ids.numel(), device=ids.device), counts)
@@ -366,9 +440,10 @@ def split_by_tables(grad: SparseGrad, batch: int, num_tables: int,
     """The entries of a per-hit gradient over all tables (as
     :func:`sparse_value_and_grad` returns it, flattened from (B, T[, H]))
     that belong to ``tables``, in their original order; under the span
-    ``grad_split`` (on CUDA the table indices' copy is a host sync)."""
+    ``grad_split``.  The table indices come from a device tensor made once
+    per (tables, device) (:func:`offsets_tensor`)."""
     with phase_scope("grad_split"):
-        idx = torch.as_tensor(tables, device=grad.ids.device)
+        idx = offsets_tensor(tuple(tables), grad.ids.device, torch.int64)
         ids = grad.ids.reshape(batch, num_tables, -1).index_select(1, idx)
         rows = grad.rows.reshape(batch, num_tables, -1, grad.rows.shape[-1]
                                  ).index_select(1, idx)

@@ -80,7 +80,6 @@ from dlrm_tpu_torch.ops import embedding as emb_ops
 from dlrm_tpu_torch.parallel import host_tier
 from dlrm_tpu_torch.parallel.mesh import dcn_axis_of
 from dlrm_tpu_torch.parallel.placement import TablePlacement
-from dlrm_tpu_torch.train import optim
 from dlrm_tpu_torch.utils.telemetry import phase_scope
 
 # all_gather_into_tensor / reduce_scatter_tensor under their newer names
@@ -759,15 +758,6 @@ def _cs_grads(ids_all, cols, t: int, *, group, n: int, exchange_dtype=None):
     return ids_t, g
 
 
-def _host_sgd(emb_h, local, g, lr: float) -> None:
-    """SGD on host rows: each distinct row gets the f32 sum of its hits'
-    ``-lr * g`` in one add (``host_tier.host_update_rows``)."""
-    with phase_scope("host_rs_update"):
-        host_tier.host_tier_scatter_add(
-            emb_h, local.reshape(-1),
-            (g.float() * -lr).reshape(-1, g.shape[-1]))
-
-
 def _update_body(emb, emb_h, cs, ids, d_pooled, lr: float, meta, *, group,
                  my_idx: int, placement: TablePlacement,
                  exchange_dtype=None) -> None:
@@ -776,35 +766,33 @@ def _update_body(emb, emb_h, cs, ids, d_pooled, lr: float, meta, *, group,
     take the inverse all-to-all, row-sharded tables all-gather their
     gradient columns and add the rows the rank owns, column-sharded tables
     take the inverse of their all-to-all; each then one ``index_add_``
-    (host rows: one add a distinct row)."""
-    d = d_pooled.shape[-1]
+    (host rows: one add a distinct row): ``ops.embedding.apply_sparse_sgd``
+    and ``host_tier._host_sgd``."""
     slot_rows, rs_rows, _ = _regions(_layout(placement), d_pooled.shape[0])
     ids_all = _gather_rows_of(ids, group).long()
     if slot_rows:
         phys, back = _slot_grads(ids_all, d_pooled, meta, group=group,
                                  placement=placement,
                                  exchange_dtype=exchange_dtype)
-        emb.index_add_(0, phys.reshape(-1),
-                       (back.float() * -lr).to(emb.dtype).reshape(-1, d))
+        emb_ops.apply_sparse_sgd(emb, emb_ops.SparseGrad(phys, back), lr)
     if rs_rows:
         local, g = _rs_grads(ids_all, d_pooled, group=group, my_idx=my_idx,
                              placement=placement,
                              exchange_dtype=exchange_dtype)
         dev_k, host_k = _rs_split(placement)
         if host_k:
-            _host_sgd(emb_h, _columns(local, host_k), _columns(g, host_k),
-                      lr)
+            with phase_scope("host_rs_update"):
+                host_tier._host_sgd(emb_h, _columns(local, host_k),
+                                    _columns(g, host_k), lr)
             if dev_k:
                 local, g = _columns(local, dev_k), _columns(g, dev_k)
         if dev_k:
-            emb.index_add_(0, local.reshape(-1),
-                           (g.float() * -lr).to(emb.dtype).reshape(-1, d))
+            emb_ops.apply_sparse_sgd(emb, emb_ops.SparseGrad(local, g), lr)
     for j, t in enumerate(placement.col_sharded):
         ids_t, g = _cs_grads(ids_all, d_pooled[:, t], t, group=group,
                              n=placement.num_shards,
                              exchange_dtype=exchange_dtype)
-        cs[j].index_add_(0, ids_t.reshape(-1), (g.float() * -lr).to(
-            cs[j].dtype).reshape(-1, g.shape[-1]))
+        emb_ops.apply_sparse_sgd(cs[j], emb_ops.SparseGrad(ids_t, g), lr)
 
 
 def _fold_batch(ids, d_pooled, block_leading: bool, mesh, axis: str,
@@ -862,16 +850,16 @@ def _cs_rowwise(cs_t, acc_t, u: emb_ops.SparseGrad, wc: int, dim: int,
     rank holds the same ids after the all-gather, so the same distinct ids
     ``u.ids`` (U,) in the same order; one all-reduce of their lanes' sum
     of squares (U,) completes the full-D sum, and every rank folds the
-    same row means into its copy of the ``(R_t,)`` accumulator."""
+    same row means into its copy of the ``(R_t,)`` accumulator
+    (``ops.embedding.adagrad_rows`` with that mean as its delta)."""
     g = u.rows[:, :wc]
     s2 = (g * g).sum(dim=1)
     dist.all_reduce(s2, group=group)
-    acc_new = acc_t.index_select(0, u.ids) + s2 / dim
-    acc_t.index_copy_(0, u.ids, acc_new)
-    rs = optim._rss_scale(acc_new)[:, None]
-    # the single-device step's order of products (optim.apply_adagrad_rows)
-    step = u.rows[:, wc:] * rs if twin else g * rs * lr
-    cs_t.index_add_(0, u.ids, (-step).to(cs_t.dtype))
+    g2, upd = emb_ops.adagrad_rows(
+        acc_t.index_select(0, u.ids), g, lr, rowwise=True,
+        scaled=u.rows[:, wc:] if twin else None, g2=s2 / dim)
+    acc_t.index_add_(0, u.ids, g2)
+    cs_t.index_add_(0, u.ids, upd.to(cs_t.dtype))
 
 
 def _update_body_adagrad(emb, acc, emb_h, acc_h, cs, acc_cs, ids, d_pooled,
@@ -917,9 +905,9 @@ def _update_body_adagrad(emb, acc, emb_h, acc_h, cs, acc_cs, ids, d_pooled,
         with phase_scope("adagrad_dedup"):
             u = emb_ops.sum_duplicates(emb_ops.SparseGrad(
                 torch.cat(keys), torch.cat(grads).float()))
-        optim.apply_adagrad_rows(emb, acc, u.ids, u.rows[:, :dim], lr,
-                                 rowwise=rowwise,
-                                 scaled=u.rows[:, dim:] if twin else None)
+        emb_ops.apply_adagrad_rows(emb, acc, u.ids, u.rows[:, :dim], lr,
+                                   rowwise=rowwise,
+                                   scaled=u.rows[:, dim:] if twin else None)
     n = placement.num_shards
     for j, t in enumerate(placement.col_sharded):
         # the all-to-all splits the feature axis over the ranks: the twin
@@ -937,7 +925,7 @@ def _update_body_adagrad(emb, acc, emb_h, acc_h, cs, acc_cs, ids, d_pooled,
             if rowwise:
                 _cs_rowwise(cs[j], acc_cs[j], u, wc, dim, lr, group, twin)
             else:
-                optim.apply_adagrad_rows(
+                emb_ops.apply_adagrad_rows(
                     cs[j], acc_cs[j], u.ids, u.rows[:, :wc], lr,
                     rowwise=False, scaled=u.rows[:, wc:] if twin else None)
 

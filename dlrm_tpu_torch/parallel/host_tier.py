@@ -39,7 +39,9 @@ blocks with one host gather at block entry and one host update at block end
 that gathers batch N+1's rows right after step N's updates, into the buffer
 that step N+1's lookup would fill (``tiered_train_step_pipelined``), and Adagrad / row-wise Adagrad with
 tier-matched accumulators (``tiered_train_step_opt``).  The device tier
-goes through ``train.train._micro_step`` on the device sub-config.  Host-tier
+goes through ``train.train._micro_step`` on the device sub-config; the host
+tier takes the same rules (``ops.embedding.adagrad_rows``, and SGD's sum of
+``-lr * g``) through its own gather and update kernels.  Host-tier
 work runs under the phase scopes ``lookup_host_tier``, ``host_tier_update``
 and ``host_tier_prefetch_next``.  Every kernel runs on the current stream,
 so a step's host update is ordered before the next gather; whoever reads the
@@ -738,17 +740,20 @@ class _TierGrads:
     sub-config: each call runs :func:`_tier_forward_backward` on the next
     micro-batch, hands back the device tier's gradient and keeps the host
     tier's (``host``: one SparseGrad a micro-step, rows into
-    ``host_out[k]`` when given)."""
+    ``host_out[k]`` when given).  ``rows``: the first call's rows of both
+    tiers, gathered ahead (the pipelined step)."""
 
     def __init__(self, emb: TieredEmb, config: DLRMConfig, host_rows=None,
-                 host_out=None):
-        self.emb, self.config = emb, config
+                 host_out=None, rows=None):
+        self.emb, self.config, self.rows = emb, config, rows
         self.host_rows, self.host_out = host_rows, host_out
         self.host: List[Optional[emb_ops.SparseGrad]] = []
 
     def __call__(self, dense_params, emb_dev, sparse, offsets, dense, labels):
         del emb_dev, offsets  # the device tier is self.emb.dev
-        k, rows = len(self.host), None
+        k = len(self.host)
+        rows = self.rows  # set for the first call only; dropped after it
+        self.rows = None
         if self.host_rows is not None:
             with phase_scope("lookup"):
                 rows = _gather(self.emb, sparse, self.host_rows[k])
@@ -784,24 +789,33 @@ def _device_view(params: dict) -> dict:
     return {**_dense(params), "emb": params["emb"].dev}
 
 
-def _host_sgd(emb: TieredEmb, grad: emb_ops.SparseGrad, lr: float) -> None:
-    """Host-tier SGD: each distinct row gets the f32 sum of its hits'
-    ``-lr * g`` in one add."""
-    with phase_scope("host_tier_update"):
-        host_tier_scatter_add(emb.host, grad.ids, grad.rows.float() * -lr)
+def _host_sgd(stack: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor,
+              lr: float) -> None:
+    """SGD on a host stack: each distinct row of ``ids`` gets the f32 sum
+    of its hits' ``-lr * g`` (``rows`` (..., D), in the ids' layout) in one
+    add (:func:`host_tier_scatter_add`).  The caller opens the span."""
+    host_tier_scatter_add(stack, ids, rows.float() * -lr)
 
 
-def _sgd_apply(params: dict, dgrads: dict, dev, host, lr: float) -> None:
-    emb = params["emb"]
-    with torch.no_grad():
-        optim.apply_dense("sgd", emb_ops.tree_leaves(_dense(params)),
-                          emb_ops.tree_leaves(dgrads), None, lr)
-        if dev is not None:
-            with phase_scope("sparse_update"):
-                emb_ops.apply_sparse_sgd(emb.dev, dev, lr)
-            optim.count_hits(emb.dev, dev.ids.numel())
-        if host is not None:
-            _host_sgd(emb, host, lr)
+def _tiered_step(params: dict, opt_state: Optional[dict], dense, sparse,
+                 labels, *, config: DLRMConfig, optimizer: str, lr: float,
+                 rows=None) -> torch.Tensor:
+    """One two-tier step, in place: the dense parameters and the device
+    tier through ``train.train._micro_step`` on the device sub-config (its
+    one route for the device stack), then the host tier's update.
+    ``opt_state``: None for SGD; ``rows``: the step's rows, gathered
+    ahead."""
+    emb = _tiered(params)
+    grads = _TierGrads(emb, config, rows=rows)
+    loss, _ = train_lib._micro_step(
+        _device_view(params),
+        None if opt_state is None else _device_state(opt_state), dense,
+        sparse, labels, config=_tier_config(emb.plan, config),
+        optimizer=optimizer, lr=lr, grad_clip_norm=None,
+        value_and_grad=grads, apply_big=True)
+    if grads.host[0] is not None:
+        _host_opt(emb, opt_state, grads.host[0], optimizer=optimizer, lr=lr)
+    return loss
 
 
 def tiered_train_step(params: dict, dense, sparse, labels, *,
@@ -810,13 +824,10 @@ def tiered_train_step(params: dict, dense, sparse, labels, *,
     :class:`TieredEmb`); returns the loss (0-d, no host sync of its own:
     the host tier's duplicate sum syncs once).  Both tiers' gradients stay
     per hit; the device tier takes one ``index_add_``, the host tier one
-    add a distinct row."""
-    lr = train_lib._f32(lr)
-    emb = _tiered(params)
-    loss, dgrads, dev, host = _tier_forward_backward(
-        _dense(params), emb, dense, sparse, labels, config=config)
-    _sgd_apply(params, dgrads, dev, host, lr)
-    return loss
+    add a distinct row.  :func:`tiered_train_step_opt` with
+    ``optimizer='sgd'``."""
+    return _tiered_step(params, None, dense, sparse, labels, config=config,
+                        optimizer="sgd", lr=train_lib._f32(lr))
 
 
 def _block_host_rows(emb: TieredEmb, sparse):
@@ -848,7 +859,7 @@ def tiered_train_block(params: dict, dense, sparse, labels, *,
     losses."""
     lr = train_lib._f32(lr)
     emb = _tiered(params)
-    plan, k, d = emb.plan, dense.shape[0], config.feature_size
+    plan, k = emb.plan, dense.shape[0]
     ids, rows, out = _block_host_rows(emb, sparse)
     losses = train_lib._run_block(
         _device_view(params), None, dense, sparse, labels,
@@ -856,9 +867,8 @@ def tiered_train_block(params: dict, dense, sparse, labels, *,
         scheduled=False, grad_clip_norm=None,
         value_and_grad=_TierGrads(emb, config, rows, out))
     if plan.host_tables:
-        with torch.no_grad():
-            _host_sgd(emb, emb_ops.SparseGrad(ids.reshape(-1),
-                                              out.reshape(-1, d)), lr)
+        with torch.no_grad(), phase_scope("host_tier_update"):
+            _host_sgd(emb.host, ids, out, lr)
     return losses
 
 
@@ -871,14 +881,11 @@ def tiered_train_step_pipelined(params: dict, pref_rows, dense, sparse,
     the next batch ``sparse_next`` gathered on the same stream: they read
     the updated tiers, so they are exact.  Returns (the next batch's rows,
     loss)."""
-    lr = train_lib._f32(lr)
-    emb = _tiered(params)
-    loss, dgrads, dev, host = _tier_forward_backward(
-        _dense(params), emb, dense, sparse, labels, config=config,
-        rows=pref_rows)
-    _sgd_apply(params, dgrads, dev, host, lr)
+    loss = _tiered_step(params, None, dense, sparse, labels, config=config,
+                        optimizer="sgd", lr=train_lib._f32(lr),
+                        rows=pref_rows)
     with phase_scope("host_tier_prefetch_next"):
-        nxt = prime_host_prefetch(emb, sparse_next)
+        nxt = prime_host_prefetch(params["emb"], sparse_next)
     return nxt, loss
 
 
@@ -891,52 +898,34 @@ def prime_host_prefetch(emb: TieredEmb, sparse) -> torch.Tensor:
 
 # -- the optimizers -----------------------------------------------------------
 
-def _adagrad_rows(acc_rows, g, scaled=None):
-    """Elementwise Adagrad on distinct rows: (accumulator delta ``g^2``,
-    step rows ``g * rsqrt(acc + g^2 + eps)``, 0 where that sum is 0; with
-    ``scaled``, ``scaled * rsqrt(...)``); the caller applies the learning
-    rate."""
-    acc_new = acc_rows + g * g
-    return g * g, (g if scaled is None else scaled) * optim._rss_scale(
-        acc_new)
-
-
-def _rowwise_rows(acc_sel, g, scaled=None):
-    """Row-wise Adagrad on distinct rows: ``acc_sel`` (M,) one scalar a row;
-    (delta ``mean_D(g^2)`` (M,), step rows (M, D))."""
-    g2m = (g * g).mean(dim=-1)
-    return g2m, (g if scaled is None else scaled) * optim._rss_scale(
-        acc_sel + g2m)[:, None]
-
-
 def _host_tier_opt_apply(emb_host, acc, flat_ids, g, *, optimizer: str,
                          lr: float, scaled=None) -> None:
     """Dedup-then-apply Adagrad on the host tier, in place: the hits of a
     row summed in f32 on the card, the distinct rows' accumulator gathered,
-    the update computed on the card, then the accumulator and the table
-    updated by ``host_update_rows`` (the accumulator's ``acc + g^2`` is
-    the same f32 sum the step used).  ``scaled`` (n, D): each hit's
-    gradient times its own micro-step's lr, summed beside ``g`` (the twin
-    payload of a scheduled block); the weights then take its sum, with
-    ``lr`` 1."""
+    the update computed on the card (``ops.embedding.adagrad_rows``), then
+    the accumulator and the table updated by ``host_update_rows`` (the
+    accumulator's ``acc + g^2`` is the same f32 sum the step used).
+    ``scaled`` (n, D): each hit's gradient times its own micro-step's lr,
+    summed beside ``g`` (the twin payload of a scheduled block); the
+    weights then take its sum and ``lr`` is not used."""
     with phase_scope("host_tier_update"):
         d = g.shape[1]
         rows = g if scaled is None else torch.cat([g, scaled], dim=1)
         u = emb_ops.sum_duplicates(emb_ops.SparseGrad(flat_ids, rows))
-        acc_rows = host_tier_gather(acc, u.ids)
-        rows_fn = _rowwise_rows if optimizer == "rowwise_adagrad" \
-            else _adagrad_rows
-        d_acc, step = rows_fn(acc_rows, u.rows[:, :d],
-                              None if scaled is None else u.rows[:, d:])
+        d_acc, upd = emb_ops.adagrad_rows(
+            host_tier_gather(acc, u.ids), u.rows[:, :d], lr,
+            rowwise=optimizer == "rowwise_adagrad",
+            scaled=None if scaled is None else u.rows[:, d:])
         _host_update(acc, u.ids, d_acc)
-        _host_update(emb_host, u.ids, step * -lr)
+        _host_update(emb_host, u.ids, upd)
 
 
 def _host_opt(emb: TieredEmb, opt_state: dict, grad, *, optimizer: str,
               lr: float) -> None:
     with torch.no_grad():
         if optimizer == "sgd":
-            _host_sgd(emb, grad, lr)
+            with phase_scope("host_tier_update"):
+                _host_sgd(emb.host, grad.ids, grad.rows, lr)
         else:
             _host_tier_opt_apply(emb.host, opt_state["host_acc"], grad.ids,
                                  grad.rows.float(), optimizer=optimizer,
@@ -960,17 +949,10 @@ def tiered_train_step_opt(params: dict, opt_state: dict, dense, sparse,
     device sub-config; the host tier its own on the pinned accumulator.
     Returns the loss."""
     optim.check_optimizer(optimizer)
-    emb = _tiered(params)
-    lr_t = train_lib._f32(lr(opt_state["count"]) if callable(lr) else lr)
-    grads = _TierGrads(emb, config)
-    dev_state = _device_state(opt_state)
-    loss, _ = train_lib._micro_step(
-        _device_view(params), dev_state, dense, sparse, labels,
-        config=_tier_config(emb.plan, config), optimizer=optimizer, lr=lr_t,
-        grad_clip_norm=None, value_and_grad=grads, apply_big=True)
-    if grads.host[0] is not None:
-        _host_opt(emb, opt_state, grads.host[0], optimizer=optimizer,
-                  lr=lr_t)
+    loss = _tiered_step(
+        params, opt_state, dense, sparse, labels, config=config,
+        optimizer=optimizer,
+        lr=train_lib._f32(lr(opt_state["count"]) if callable(lr) else lr))
     opt_state["count"] += 1
     return loss
 

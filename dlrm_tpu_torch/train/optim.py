@@ -3,17 +3,22 @@
 
 SGD, Adagrad and row-wise Adagrad.  Dense parameters take the elementwise
 update of ``optax.sgd`` / ``optax.adagrad(initial_accumulator_value=0,
-eps=1e-10)``.  Embedding rows follow the dedup-then-apply contract: the
-gradient contributions of a row hit several times are summed first and the
-optimizer is applied once with the sum, touching only the hit rows.  The
-Adagrad accumulator of the stacked ``(total_rows, D)`` table is one
-``(total_rows, D)`` f32 tensor; the row-wise one, ``(total_rows,)`` f32,
-holds one scalar per row (``acc[r] += mean_D(g_r^2)``).
+eps=1e-10)``.  The table-update rules live in ``ops/embedding.py``
+(``apply_sparse_sgd``, ``adagrad_rows`` and the device stack's
+``apply_adagrad_rows`` / ``apply_sparse_adagrad``): Adagrad follows the
+dedup-then-apply contract, a row's hits summed first and the optimizer
+applied once with the sum, touching only the hit rows.  The Adagrad
+accumulator of the stacked ``(total_rows, D)`` table is one ``(total_rows,
+D)`` f32 tensor; the row-wise one, ``(total_rows,)`` f32, holds one scalar
+per row (``acc[r] += mean_D(g_r^2)``).  This module keeps the dense
+optimizer, the state, the clip, the schedules and the route: which rule a
+step's device tables take (:func:`apply_sparse_update`).
 
 The JAX package has three implementations of the exact sparse Adagrad
 (``dedup``, ``dense_g``, ``hybrid[:MB]``) that differ in TPU cost, not in
-result.  This package has one, :func:`apply_sparse_adagrad`; the names are
-still accepted where the JAX package takes them (:func:`check_emb_impl`).
+result.  This package has one, ``ops.embedding.apply_sparse_adagrad``; the
+names are still accepted where the JAX package takes them
+(:func:`check_emb_impl`).
 
 ``make_schedule`` returns a plain step -> lr function with optax's values
 (``constant_schedule``, ``linear_schedule``, ``polynomial_schedule`` and
@@ -33,7 +38,6 @@ from dlrm_tpu_torch.ops import embedding as emb_ops
 from dlrm_tpu_torch.utils.telemetry import count, phase_scope
 
 OPTIMIZERS = ("sgd", "adagrad", "rowwise_adagrad")
-ADAGRAD_EPS = 1e-10
 
 
 def check_optimizer(optimizer: str) -> None:
@@ -88,12 +92,6 @@ def clip_scale(max_norm: float, sq: torch.Tensor
     gnorm = torch.sqrt(sq)
     return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12),
                        max=1.0), gnorm
-
-
-def _rss_scale(acc_new: torch.Tensor) -> torch.Tensor:
-    """optax.scale_by_rss: ``rsqrt(acc + eps)``, and 0 where acc == 0."""
-    return torch.where(acc_new > 0, torch.rsqrt(acc_new + ADAGRAD_EPS),
-                       torch.zeros_like(acc_new))
 
 
 def init_dense_state(optimizer: str, dense_params: dict) -> Optional[dict]:
@@ -163,7 +161,7 @@ def dense_adagrad_reference(params: Sequence[torch.Tensor],
     each op rounded to the leaves' dtype."""
     for p, g, acc in zip(params, grads, accs):
         acc.add_(g * g)
-        p.sub_((g * _rss_scale(acc) * lr).to(p.dtype))
+        p.sub_((g * emb_ops._rss_scale(acc) * lr).to(p.dtype))
 
 
 def _checked_leaves(params, grads, accs
@@ -257,48 +255,6 @@ def _kernel():
                                     _P))
 
 
-def apply_adagrad_rows(emb: torch.Tensor, acc: torch.Tensor,
-                       ids: torch.Tensor, g: torch.Tensor, lr, *,
-                       rowwise: bool,
-                       scaled: Optional[torch.Tensor] = None) -> None:
-    """Adagrad on the rows ``ids`` of the stacked table, in place.  Every
-    id appears once and ``g`` (n, D) f32 is its summed gradient:
-    ``acc[r] += g^2`` (row-wise: ``mean_D(g^2)``), then
-    ``emb[r] -= lr * g * rsqrt(acc[r] + eps)``, 0 where ``acc[r] == 0``.
-    With ``scaled`` (the per-row sum of ``lr_k * g``) the weight step is
-    ``scaled * rsqrt(...)`` and ``lr`` is not used."""
-    g2 = (g * g).mean(dim=1) if rowwise else g * g
-    acc_new = acc.index_select(0, ids) + g2
-    acc.index_add_(0, ids, g2)
-    rs = _rss_scale(acc_new)
-    if rowwise:
-        rs = rs[:, None]
-    step = scaled * rs if scaled is not None else g * rs * lr
-    emb.index_add_(0, ids, (-step).to(emb.dtype))
-
-
-def apply_sparse_adagrad(emb: torch.Tensor, acc: torch.Tensor,
-                         grad: emb_ops.SparseGrad, lr, *, rowwise: bool,
-                         scaled_rows: Optional[torch.Tensor] = None) -> None:
-    """Exact sparse Adagrad, dedup then apply, in place: the rows of
-    duplicate ids are summed in f32 (one ``unique`` and one ``index_add_``),
-    then :func:`apply_adagrad_rows` runs on the distinct rows.
-
-    ``scaled_rows``: the gradient rows already scaled by their own
-    micro-step's lr, for a coalesced block under a schedule.  They ride
-    through the same dedup as a twin payload ``(g, lr_k * g)``: the
-    accumulator folds in ``(sum g)^2`` and the weight step is
-    ``sum(lr_k * g) * rsqrt(...)``; for a row hit in one micro-step only
-    that is that step's exact update."""
-    d = grad.rows.shape[1]
-    rows = grad.rows.float()
-    if scaled_rows is not None:
-        rows = torch.cat([rows, scaled_rows.float()], dim=1)
-    u = emb_ops.sum_duplicates(emb_ops.SparseGrad(grad.ids, rows))
-    apply_adagrad_rows(emb, acc, u.ids, u.rows[:, :d], lr, rowwise=rowwise,
-                       scaled=None if scaled_rows is None else u.rows[:, d:])
-
-
 # -- which update a step's device tables take -----------------------------------
 
 # Devices whose f32 tables take the sorted segment sum for row-wise Adagrad
@@ -313,7 +269,7 @@ def takes_sorted_update(optimizer: str, emb: torch.Tensor,
     takes :func:`apply_sorted_rowwise`: row-wise Adagrad, no clip, f32
     tables on the card, of a width the kernel takes.  Everything else
     (SGD, Adagrad, bf16 tables, the CPU, the clip, deferred blocks) keeps
-    the split, dedup and apply of :func:`apply_sparse_adagrad`."""
+    the dedup and apply of ``ops.embedding``."""
     return (optimizer == "rowwise_adagrad" and grad_clip_norm is None
             and emb.dtype is torch.float32
             and emb.device.type in CARD_DEVICES
@@ -335,14 +291,35 @@ def apply_sorted_rowwise(emb: torch.Tensor, acc: torch.Tensor,
                          grad: emb_ops.SparseGrad, lr: float) -> None:
     """Row-wise Adagrad of every device table in one pass, in place: the
     hits sorted (span ``dedup``), then the sorted segment sum (span
-    ``sparse_update``).  The same arithmetic as the split, dedup and apply
-    of :func:`apply_sparse_adagrad` on the small and the big tables, which
-    own disjoint rows, with the hits of a row summed in another order."""
+    ``sparse_update``).  The same arithmetic as
+    ``ops.embedding.apply_sparse_adagrad``, with the hits of a row summed
+    in another order."""
     hits = emb_ops.sort_hits(grad.ids)
     with phase_scope("sparse_update"):
         emb_ops.sorted_rowwise_adagrad(emb, acc, hits,
                                        grad.rows.contiguous(), lr)
     count_hits(emb, grad.ids.numel(), sorted_update=True)
+
+
+def apply_sparse_update(optimizer: str, emb: torch.Tensor,
+                        acc: Optional[torch.Tensor],
+                        grad: emb_ops.SparseGrad, lr: float, *,
+                        grad_clip_norm=None) -> None:
+    """The route: the device stack's update from the per-hit gradient
+    ``grad``, applied in the step that made it, in place.  The sorted
+    segment sum where :func:`takes_sorted_update` says so; otherwise
+    ``ops.embedding.apply_sparse_adagrad`` (``acc`` the stack's
+    accumulator) or ``apply_sparse_sgd``, under the span
+    ``sparse_update``.  Counts the hits (:func:`count_hits`)."""
+    if takes_sorted_update(optimizer, emb, grad_clip_norm):
+        return apply_sorted_rowwise(emb, acc, grad, lr)
+    with phase_scope("sparse_update"):
+        if optimizer == "sgd":
+            emb_ops.apply_sparse_sgd(emb, grad, lr)
+        else:
+            emb_ops.apply_sparse_adagrad(
+                emb, acc, grad, lr, rowwise=optimizer == "rowwise_adagrad")
+    count_hits(emb, grad.ids.numel())
 
 
 def _constant(value: float) -> Callable[[int], float]:

@@ -5,10 +5,11 @@
 One step: gather every table's rows outside autograd, take the gradients
 of the loss with respect to the dense parameters and the gathered rows
 (``torch.autograd.grad``; nothing is accumulated in ``.grad``), apply dense
-SGD ``p -= lr * g``, then sparse SGD as one ``index_add_`` that sums
-duplicate ids.  Table gradients are never densified.  The parameters (and
-the optimizer state) are updated in place, which stands in for the JAX
-package's buffer donation.
+SGD ``p -= lr * g``, then sparse SGD as one ``index_add_`` in which each
+hit's ``-lr * g`` is added on its own.  Table gradients are never
+densified.  The parameters (and the optimizer state) are updated in place,
+which stands in for the JAX package's buffer donation.  The device tables'
+update takes ``optim.apply_sparse_update``, the route.
 
 ``sharded_train_step``, ``sharded_train_step_opt``, ``sharded_train_block``
 and ``sharded_train_block_opt`` are the hybrid-parallel steps of one rank
@@ -75,25 +76,15 @@ def train_step(params: dict, dense: torch.Tensor, sparse: torch.Tensor,
                lr: float) -> torch.Tensor:
     """One SGD step on ``params``, in place; returns the loss as a 0-d
     tensor (no host sync).  ``dense``, ``sparse`` and ``labels`` lie on the
-    parameters' device.
+    parameters' device.  :func:`train_step_opt` with ``optimizer='sgd'``.
 
     The JAX package takes small tables through a one-hot matmul whose
     gradient is a dense slice; here every table is gathered and updated by
-    the scatter-add, with the same pooled values (``mixed_pool``) and the
-    same per-row sums.
+    the scatter-add, with the same pooled values (``mixed_pool``).
     """
-    dense_params, emb = _split_trainable(params)
-    value_and_grad = emb_ops.sparse_value_and_grad(
-        functools.partial(_loss, config=config),
-        pool_fn=functools.partial(emb_ops.mixed_pool, config=config))
-    loss, (dgrads, sgrad) = value_and_grad(
-        dense_params, emb, sparse, config.table_offsets, dense, labels)
-    with torch.no_grad():
-        optim.apply_dense("sgd", emb_ops.tree_leaves(dense_params),
-                          emb_ops.tree_leaves(dgrads), None, lr)
-        with phase_scope("sparse_update"):
-            emb_ops.apply_sparse_sgd(emb, sgrad, lr)
-    optim.count_hits(emb, sgrad.ids.numel())
+    loss, _ = _micro_step(params, None, dense, sparse, labels, config=config,
+                          optimizer="sgd", lr=lr, grad_clip_norm=None,
+                          apply_big=True)
     return loss
 
 
@@ -148,13 +139,17 @@ def _micro_step(params: dict, opt_state: Optional[dict], dense, sparse,
     tables (``config.small_table_threshold``), in place.  Returns (loss,
     the big tables' per-hit SparseGrad or None), clipped but not applied.
     With ``apply_big`` the big tables are updated here as well and None
-    takes their place; where ``optim.takes_sorted_update`` says so, every
-    table is then updated in one sorted segment sum, with no split by
-    table group.
+    takes their place.
 
-    The clip's norm counts what the JAX package's counts: dense gradients,
-    big-table rows once per hit, and small-table rows with a row's hits
-    summed first.
+    The gradient is split into small and big tables only where the split
+    changes a number: the clip, whose norm counts what the JAX package's
+    counts (dense gradients, big-table rows once per hit, small-table rows
+    with a row's hits summed first); a block's deferred big tables; and
+    Adagrad on tables that are not f32, whose small tables' summed rows are
+    rounded to the table's dtype as the JAX package's dense slice is.
+    Everywhere else one call of ``optim.apply_sparse_update`` updates the
+    whole stack: the tables own disjoint rows, and a row's hits are summed
+    in hit order either way.
 
     ``value_and_grad``: a function of the form that
     :func:`emb_ops.sparse_value_and_grad` returns (default: that one over
@@ -167,75 +162,54 @@ def _micro_step(params: dict, opt_state: Optional[dict], dense, sparse,
             pool_fn=functools.partial(emb_ops.mixed_pool, config=config))
     loss, (dgrads, sgrad) = value_and_grad(
         dense_params, emb, sparse, config.table_offsets, dense, labels)
-    if apply_big and optim.takes_sorted_update(optimizer, emb,
-                                               grad_clip_norm):
-        with torch.no_grad():
-            optim.apply_dense(optimizer, emb_ops.tree_leaves(dense_params),
-                              emb_ops.tree_leaves(dgrads),
-                              emb_ops.tree_leaves(opt_state["dense"]), lr)
-            optim.apply_sorted_rowwise(emb, opt_state["emb"], sgrad, lr)
-        return loss, None
-    optim.count_hits(emb, sgrad.ids.numel())
+    adagrad = optimizer != "sgd"
+    acc = opt_state["emb"] if adagrad else None
+    leaves = emb_ops.tree_leaves(dense_params)
+    grads = emb_ops.tree_leaves(dgrads)
+    accs = emb_ops.tree_leaves(opt_state["dense"]) if adagrad else None
     small_t, big_t = emb_ops.partition_tables(config.table_sizes,
                                               config.small_table_threshold)
-    batch, tables = sparse.shape[0], config.num_tables
-    big = small = small_sum = None
-    if big_t:
-        big = sgrad if not small_t else emb_ops.split_by_tables(
-            sgrad, batch, tables, big_t)
-    if small_t:
-        small = sgrad if not big_t else emb_ops.split_by_tables(
-            sgrad, batch, tables, small_t)
-    adagrad = optimizer != "sgd"
+    rounds = adagrad and emb.dtype is not torch.float32
     with torch.no_grad():
-        if small is not None and (adagrad or grad_clip_norm is not None):
-            small_sum = emb_ops.sum_duplicates(small)
-            small_sum = small_sum._replace(
-                rows=small_sum.rows.to(small.rows.dtype))
-        grads = emb_ops.tree_leaves(dgrads)
+        if apply_big and grad_clip_norm is None and not (rounds and small_t):
+            optim.apply_dense(optimizer, leaves, grads, accs, lr)
+            optim.apply_sparse_update(optimizer, emb, acc, sgrad, lr)
+            return loss, None
+        batch, tables = sparse.shape[0], config.num_tables
+        big = small = None
+        if big_t:
+            big = sgrad if not small_t else emb_ops.split_by_tables(
+                sgrad, batch, tables, big_t)
+        if small_t:
+            small = sgrad if not big_t else emb_ops.split_by_tables(
+                sgrad, batch, tables, small_t)
+            optim.count_hits(emb, small.ids.numel())
+            if adagrad or grad_clip_norm is not None:
+                u = emb_ops.sum_duplicates(small)
+                small = u._replace(rows=u.rows.to(small.rows.dtype))
         if grad_clip_norm is not None:
-            sparse_parts = [g for g in (big, small_sum) if g is not None]
+            parts = [g for g in (big, small) if g is not None]
             clipped, _ = optim.clip_by_global_norm(
-                grad_clip_norm, grads + [g.rows for g in sparse_parts])
-            grads = clipped[:len(grads)]
-            scaled = iter(clipped[len(grads):])
+                grad_clip_norm, grads + [g.rows for g in parts])
+            grads, rows = clipped[:len(grads)], clipped[len(grads):]
             if big is not None:
-                big = big._replace(rows=next(scaled))
-            if small_sum is not None:
-                small_sum = small_sum._replace(rows=next(scaled))
-        optim.apply_dense(
-            optimizer, emb_ops.tree_leaves(dense_params), grads,
-            emb_ops.tree_leaves(opt_state["dense"]) if adagrad else None, lr)
-        with phase_scope("sparse_update"):
-            if adagrad:
-                if small_sum is not None:
-                    optim.apply_adagrad_rows(
-                        emb, opt_state["emb"], small_sum.ids,
-                        small_sum.rows.float(), lr,
+                big = big._replace(rows=rows.pop(0))
+            if small is not None:
+                small = small._replace(rows=rows.pop(0))
+        optim.apply_dense(optimizer, leaves, grads, accs, lr)
+        if small is not None:
+            with phase_scope("sparse_update"):
+                if adagrad:
+                    emb_ops.apply_adagrad_rows(
+                        emb, acc, small.ids, small.rows.float(), lr,
                         rowwise=optimizer == "rowwise_adagrad")
-            elif small is not None:
-                emb_ops.apply_sparse_sgd(
-                    emb, small if small_sum is None else small_sum, lr)
-    if apply_big and big is not None:
-        _apply_big(emb, opt_state, big, optimizer=optimizer, lr=lr)
-        big = None
+                else:
+                    emb_ops.apply_sparse_sgd(emb, small, lr)
+        if apply_big and big is not None:
+            optim.apply_sparse_update(optimizer, emb, acc, big, lr,
+                                      grad_clip_norm=grad_clip_norm)
+            big = None
     return loss, big
-
-
-def _apply_big(emb, opt_state, big: emb_ops.SparseGrad, *, optimizer: str,
-               lr: float, scaled_rows=None) -> None:
-    """The deferred big-table update.  With ``scaled_rows`` (rows already
-    multiplied by their own micro-step's lr) the update applies with lr 1."""
-    with torch.no_grad(), phase_scope("sparse_update"):
-        if optimizer == "sgd":
-            if scaled_rows is not None:
-                big, lr = big._replace(rows=scaled_rows), 1.0
-            emb_ops.apply_sparse_sgd(emb, big, lr)
-        else:
-            optim.apply_sparse_adagrad(
-                emb, opt_state["emb"], big, lr,
-                rowwise=optimizer == "rowwise_adagrad",
-                scaled_rows=scaled_rows)
 
 
 def train_step_opt(params: dict, opt_state: dict, dense, sparse, labels, *,
@@ -251,10 +225,10 @@ def train_step_opt(params: dict, opt_state: dict, dense, sparse, labels, *,
     ``grad_clip_norm``: global-norm clip over everything autograd produced
     (``optim.clip_by_global_norm``) before the updates.  ``emb_impl`` takes
     the JAX package's names and every one runs the same update (see
-    ``optim.check_emb_impl``): row-wise Adagrad without a clip on f32
-    tables on the card, one sorted segment sum over every table
-    (``optim.apply_sorted_rowwise``); anything else
-    ``optim.apply_sparse_adagrad``.
+    ``optim.check_emb_impl``), the one ``optim.apply_sparse_update``
+    picks: row-wise Adagrad without a clip on f32 tables on the card, one
+    sorted segment sum over every table; anything else
+    ``ops.embedding.apply_sparse_adagrad``.
     """
     optim.check_optimizer(optimizer)
     optim.check_emb_impl(emb_impl)
@@ -298,10 +272,19 @@ def _run_block(params: dict, opt_state: Optional[dict], dense, sparse,
             if scheduled:
                 scaled.append(big.rows.float() * lrs[k])
     if ids:
-        _apply_big(params["emb"], opt_state,
-                   emb_ops.SparseGrad(torch.cat(ids), torch.cat(rows)),
-                   optimizer=optimizer, lr=lrs[0],
-                   scaled_rows=torch.cat(scaled) if scheduled else None)
+        emb = params["emb"]
+        big = emb_ops.SparseGrad(torch.cat(ids), torch.cat(rows))
+        twin = torch.cat(scaled) if scheduled else None
+        with torch.no_grad(), phase_scope("sparse_update"):
+            if optimizer == "sgd":
+                emb_ops.apply_sparse_sgd(
+                    emb, big if twin is None else big._replace(rows=twin),
+                    lrs[0] if twin is None else 1.0)
+            else:
+                emb_ops.apply_sparse_adagrad(
+                    emb, opt_state["emb"], big, lrs[0],
+                    rowwise=optimizer == "rowwise_adagrad", scaled_rows=twin)
+        optim.count_hits(emb, big.ids.numel())
     return torch.stack(losses)
 
 
@@ -370,7 +353,7 @@ def train_block_opt(params: dict, opt_state: dict, dense, sparse, labels, *,
     big-table update then carries the twin payload ``(g, lr_k * g)``).
     ``adagrad_impl`` (``dedup`` or ``dense_g``) and ``unroll`` are the JAX
     package's cost knobs: both values of each run the same Python loop and
-    the same ``optim.apply_sparse_adagrad``.
+    the same ``ops.embedding.apply_sparse_adagrad``.
     """
     del unroll
     if optimizer not in ("adagrad", "rowwise_adagrad"):
@@ -521,23 +504,12 @@ def sharded_train_step(params: dict, dense, sparse, labels, *,
     (``parallel.mesh.local_batch_rows``; the batch must divide by the
     mesh's ranks) to the parameters' device; with ``local_batch`` they are
     this rank's rows of it already (every rank's the same number).  The
-    gradients are those of the global mean (:func:`_sharded_grads`)."""
-    from dlrm_tpu_torch.parallel import embedding as pemb
-
-    _, emb, cs, emb_h = _sharded_parts(params)
-    dense, sparse, labels = _local_rows(mesh, emb, dense, sparse, labels,
-                                        local_batch=local_batch)
-    loss, flat, d_pooled = _sharded_grads(
-        params, dense, sparse, labels, config=config, mesh=mesh,
-        placement=placement, axis=axis)
-    _dense_apply(params, flat, "sgd", None, lr)
-    with phase_scope("sparse_update"):
-        pemb.sharded_update_sgd(emb, sparse, d_pooled, lr, mesh=mesh,
-                                placement=placement, axis=axis, cs=cs,
-                                emb_h=emb_h,
-                                exchange_dtype=config.exchange_dtype)
-    optim.count_hits(emb, sparse.numel())  # the rank's hits
-    return loss
+    gradients are those of the global mean (:func:`_sharded_grads`).
+    :func:`sharded_train_step_opt` with ``optimizer='sgd'``."""
+    return sharded_train_step_opt(
+        params, {"dense": None, "count": 0}, dense, sparse, labels,
+        config=config, optimizer="sgd", lr=lr, mesh=mesh,
+        placement=placement, axis=axis, local_batch=local_batch)
 
 
 def make_sharded_train_step(config: DLRMConfig, lr: float, mesh, placement,

@@ -32,8 +32,9 @@ and fires ``:sym_back`` on the reverse pass, and its training loop emits
                                tier (``ops/embedding.split_by_tables``,
                                ``parallel/host_tier.py``)
    ``dense_apply``             ``train/optim.apply_dense``
-   ``sparse_update``           the device tables' updates (``train/train.py``
-                               and the sharded step)
+   ``sparse_update``           the device tables' updates (the route
+                               ``train/optim.apply_sparse_update``,
+                               ``train/train.py`` and the sharded step)
    ``dedup``                   ``ops/embedding.sum_duplicates``: ``unique``
                                and the duplicates' sum (a host sync on
                                CUDA); ``ops/embedding.sort_hits``: the

@@ -46,7 +46,6 @@ import make_auc_curve_torch as mac
 from dlrm_tpu_torch.data.synthetic import ClickthroughModel
 from dlrm_tpu_torch.io.convert import params_from_numpy, save_npz
 from dlrm_tpu_torch.ops import embedding as temb
-from dlrm_tpu_torch.train import optim as toptim
 from dlrm_tpu_torch.train.train import init_opt_state
 from test_torch_model import jax_config, jax_params_to_numpy
 
@@ -149,8 +148,8 @@ def test_bf16_adagrad_rounds_once_per_distinct_row(rowwise, rng):
                             * 0.01).bfloat16()
     start = torch.from_numpy(emb0).bfloat16()
     emb, acc = start.clone(), torch.from_numpy(acc0.copy())
-    toptim.apply_sparse_adagrad(emb, acc, temb.SparseGrad(ids, rows),
-                                float(lr), rowwise=rowwise)
+    temb.apply_sparse_adagrad(emb, acc, temb.SparseGrad(ids, rows),
+                              float(lr), rowwise=rowwise)
 
     uniq = ids.unique()                       # ascending, as the port's
     g = torch.zeros(len(uniq), 8)

@@ -36,6 +36,7 @@ from dlrm_tpu_torch.train import optim as toptim
 from dlrm_tpu_torch.train import train as ttrain
 from dlrm_tpu_torch.train.optim import make_schedule
 from test_torch_model import jax_config, jax_params_to_numpy
+from test_torch_sharded_lookup import solo  # noqa: F401
 
 BATCH_KEYS = ("dense", "sparse", "labels")
 OPTIMIZERS = ("sgd", "adagrad", "rowwise_adagrad")
@@ -340,8 +341,8 @@ def test_small_table_adagrad_bf16_rounding_bound(rowwise, rng):
     emb = torch.from_numpy(table).bfloat16()
     tacc = torch.from_numpy(acc.copy())
     hit = torch.tensor([0, 2, 3, 5], dtype=torch.int32)
-    toptim.apply_adagrad_rows(emb, tacc, hit, torch.from_numpy(g)[hit.long()],
-                              0.1, rowwise=rowwise)
+    temb.apply_adagrad_rows(emb, tacc, hit, torch.from_numpy(g)[hit.long()],
+                            0.1, rowwise=rowwise)
     np.testing.assert_allclose(tacc.numpy(), np.asarray(jacc), rtol=1e-6)
     got = emb.float().numpy()
     assert np.abs(got - np.asarray(jt).astype(np.float32)).max() <= 3e-3
@@ -513,7 +514,7 @@ def test_bf16_dense_leaves_keep_the_per_leaf_loop(rng, monkeypatch):
         toptim.apply_dense("adagrad", params, step, accs, 0.1)
         for p, g, acc in zip(want_p, step, want_a):
             acc.add_(g * g)
-            p.sub_((g * toptim._rss_scale(acc) * 0.1).to(p.dtype))
+            p.sub_((g * temb._rss_scale(acc) * 0.1).to(p.dtype))
     assert all(torch.equal(a, b) for a, b in zip(params + accs,
                                                  want_p + want_a))
     assert all(p.dtype == torch.bfloat16 for p in params + accs)
@@ -564,7 +565,7 @@ def test_apply_sparse_adagrad_dedups_then_applies(rowwise, rng):
     ids = np.array([2, 7, 2, 2, 5], np.int32)
     g = rng.normal(size=(5, 4)).astype(np.float32)
     emb, acc = torch.from_numpy(emb0.copy()), torch.from_numpy(acc0.copy())
-    toptim.apply_sparse_adagrad(
+    temb.apply_sparse_adagrad(
         emb, acc, temb.SparseGrad(torch.from_numpy(ids), torch.from_numpy(g)),
         0.3, rowwise=rowwise)
     for r in range(9):
@@ -587,14 +588,114 @@ def test_apply_sparse_adagrad_twin_payload(rng):
     g = torch.from_numpy(rng.normal(size=(3, 4)).astype(np.float32))
     lr_k = torch.tensor([0.5, 0.2, 0.1])[:, None]
     emb, acc = torch.zeros(5, 4), torch.zeros(5, 4)
-    toptim.apply_sparse_adagrad(emb, acc, temb.SparseGrad(ids, g), 123.0,
-                                rowwise=False, scaled_rows=g * lr_k)
+    temb.apply_sparse_adagrad(emb, acc, temb.SparseGrad(ids, g), 123.0,
+                              rowwise=False, scaled_rows=g * lr_k)
     gs = g[0] + g[2]
     torch.testing.assert_close(acc[1], gs * gs)
     torch.testing.assert_close(
         emb[1], -(0.5 * g[0] + 0.1 * g[2]) * torch.rsqrt(gs * gs + 1e-10))
     torch.testing.assert_close(emb[3], -0.2 * g[1] / g[1].abs(), rtol=1e-5,
                                atol=1e-6)
+
+
+STORE_ROWS, STORE_DIM, STORE_HITS = 50, 8, 40
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous().view(torch.int32)
+
+
+def _column_shard_update(optimizer, emb0, acc0, ids, g, lr, scaled, mesh):
+    """The update of one column-sharded table of a world-size-1 gang
+    (``parallel.embedding``) from the same hits; a slot table beside it
+    takes zero gradients.  Returns (table, accumulator or None)."""
+    from dlrm_tpu_torch.parallel import embedding as pemb
+    from dlrm_tpu_torch.parallel.placement import plan_placement
+
+    sizes = (6, STORE_ROWS)
+    config = dataclasses.replace(
+        tc.tiny_config(num_tables=2, feature_size=STORE_DIM),
+        table_sizes=sizes)
+    p = plan_placement(sizes, 1, col_sharded_tables=(1,))
+    stack = torch.cat([torch.zeros(6, STORE_DIM), emb0])
+    emb = torch.as_tensor(pemb.shard_tables(stack, p, config)[0])
+    cs = torch.as_tensor(pemb.shard_col_tables(stack, p, config)[0][0])
+    both = torch.stack([torch.zeros_like(ids), ids], dim=1)
+
+    def pooled(rows):
+        return torch.stack([torch.zeros_like(rows), rows], dim=1)
+
+    kw = dict(mesh=mesh, placement=p, cs=(cs,))
+    if optimizer == "sgd":
+        pemb.sharded_update_sgd(
+            emb, both, pooled(g if scaled is None else scaled),
+            lr if scaled is None else 1.0, **kw)
+        return cs, None
+    rowwise = optimizer == "rowwise_adagrad"
+    acc = torch.zeros(emb.shape[:1] if rowwise else emb.shape)
+    acc_cs = acc0.clone()
+    pemb.sharded_update_adagrad(
+        emb, acc, both, pooled(g), lr, acc_cs=(acc_cs,), rowwise=rowwise,
+        d_pooled_scaled=None if scaled is None else pooled(scaled), **kw)
+    return cs, acc_cs
+
+
+@pytest.mark.parametrize("twin", [False, True])
+@pytest.mark.parametrize("optimizer", OPTIMIZERS)
+def test_every_store_applies_the_same_rule(optimizer, twin, solo, rng):
+    """The device stack (``ops.embedding``), the host tier
+    (``parallel.host_tier`` on CPU tensors) and a world-size-1 column shard
+    (``parallel.embedding``) give the same f32 table and accumulator bits
+    for the same hits and gradients: Adagrad and row-wise Adagrad after the
+    dedup, SGD's ``-lr * g`` on distinct ids (the host tier sums a row's
+    hits before its one add; the others add each hit), at a constant lr
+    and with a scheduled block's twin payload (the weights take the sum of
+    ``lr_k * g``, lr 1)."""
+    from dlrm_tpu_torch.parallel import host_tier as ht
+
+    rowwise = optimizer == "rowwise_adagrad"
+    if optimizer == "sgd":
+        ids = rng.permutation(STORE_ROWS)[:STORE_HITS]
+    else:
+        ids = rng.integers(0, STORE_ROWS, STORE_HITS)
+    ids = torch.from_numpy(ids).long()
+    g = torch.from_numpy(rng.normal(size=(STORE_HITS, STORE_DIM))
+                         .astype(np.float32))
+    scaled = None
+    if twin:
+        scaled = g * torch.from_numpy(
+            rng.uniform(0.05, 0.2, (STORE_HITS, 1)).astype(np.float32))
+    emb0 = torch.from_numpy(rng.normal(size=(STORE_ROWS, STORE_DIM))
+                            .astype(np.float32))
+    acc0 = torch.from_numpy(rng.uniform(
+        0, 2, (STORE_ROWS,) if rowwise else (STORE_ROWS, STORE_DIM))
+        .astype(np.float32))
+    acc0[:5] = 0  # rows from a zero accumulator too
+    lr = 0.1
+    grad = temb.SparseGrad(ids, g)
+
+    dev, dev_acc = emb0.clone(), acc0.clone()
+    host, host_acc = emb0.clone(), acc0.clone()
+    if optimizer == "sgd":
+        temb.apply_sparse_sgd(dev, grad if scaled is None
+                              else grad._replace(rows=scaled),
+                              lr if scaled is None else 1.0)
+        ht._host_sgd(host, ids, g if scaled is None else scaled,
+                     lr if scaled is None else 1.0)
+    else:
+        temb.apply_sparse_adagrad(dev, dev_acc, grad, lr, rowwise=rowwise,
+                                  scaled_rows=scaled)
+        ht._host_tier_opt_apply(host, host_acc, ids, g, optimizer=optimizer,
+                                lr=lr, scaled=scaled)
+    cs, cs_acc = _column_shard_update(optimizer, emb0, acc0, ids, g, lr,
+                                      scaled, solo)
+    assert not torch.equal(dev, emb0)
+    assert torch.equal(_bits(host), _bits(dev))
+    assert torch.equal(_bits(cs), _bits(dev))
+    if optimizer != "sgd":
+        assert not torch.equal(dev_acc, acc0)
+        assert torch.equal(_bits(host_acc), _bits(dev_acc))
+        assert torch.equal(_bits(cs_acc), _bits(dev_acc))
 
 
 def test_init_state_shapes_and_checks():

@@ -229,9 +229,13 @@ def test_traced_rowwise_step_shows_the_step_spans():
         params, state, *b, config=tcfg, optimizer="rowwise_adagrad",
         lr=0.1))
     assert set(STEP_SPANS) <= set(spans), sorted(spans)
-    # small and big tables: two splits, two dedups, two updates
-    for name in ("grad_split", "dedup", "sparse_update"):
-        assert len(spans[name]) == 2, name
+    # small and big tables updated together: no split, one dedup, one
+    # update, the dedup inside it
+    assert "grad_split" not in spans
+    for name in ("dedup", "sparse_update"):
+        assert len(spans[name]) == 1, name
+    (upd,), (dedup,) = spans["sparse_update"], spans["dedup"]
+    assert upd[0] <= dedup[0] and dedup[1] <= upd[1]
     assert len(spans["loss"]) == 1 and len(spans["dense_apply"]) == 1
     bwd = [spans[n][0] for n in ("loss.bwd", "top_mlp.bwd",
                                  "interaction.bwd", "bottom_mlp.bwd")]

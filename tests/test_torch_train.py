@@ -167,6 +167,74 @@ def test_train_step_updates_in_place_and_touches_only_hit_rows():
     assert len(changed) > 0
 
 
+def _flat_bits(params: dict) -> list:
+    """Every table and dense leaf of ``params`` as raw bits."""
+    emb = params["emb"]
+    tables = [emb.dev, emb.host] if hasattr(emb, "host") else [emb]
+    return [t.detach().float().view(torch.int32) for t in
+            tables + temb.tree_leaves(tmodel.split_params(params)[0])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tiered", [False, True])
+def test_sgd_step_is_the_sgd_opt_step(tiered, dtype):
+    """``train_step`` is ``train_step_opt(optimizer="sgd")`` and
+    ``tiered_train_step`` is ``tiered_train_step_opt(optimizer="sgd")``:
+    one route, the same bits over 3 steps of the tiny config (two of its
+    tables in the host tier)."""
+    from dlrm_tpu_torch.parallel import host_tier as ht
+    from dlrm_tpu_torch.train import train as ttrain
+
+    tcfg = dataclasses.replace(tc.tiny_config(), embedding_dtype=dtype)
+    plan = ht.plan_tiers(tcfg, 2 * 32 * tcfg.feature_size * dtype.itemsize)
+    rng = np.random.default_rng(3)
+    batches = [[torch.from_numpy(b[k]) for k in BATCH_KEYS]
+               for b in (random_batch(rng, tcfg, 16) for _ in range(3))]
+    runs = []
+    for opt in (False, True):
+        params = tmodel.init_params(torch.Generator().manual_seed(4), tcfg)
+        if tiered:
+            assert len(plan.host_tables) == 2
+            params = ht.init_tiered_params(params, plan, tcfg)
+            init, plain, with_opt = (ht.init_tiered_opt_state,
+                                     ht.tiered_train_step,
+                                     ht.tiered_train_step_opt)
+        else:
+            init, plain, with_opt = (ttrain.init_opt_state,
+                                     ttrain.train_step, ttrain.train_step_opt)
+        state = init(params, config=tcfg, optimizer="sgd")
+        losses = [with_opt(params, state, *b, config=tcfg, optimizer="sgd",
+                           lr=0.1) if opt
+                  else plain(params, *b, config=tcfg, lr=0.1)
+                  for b in batches]
+        runs.append((losses, _flat_bits(params)))
+    (l0, p0), (l1, p1) = runs
+    assert [float(x) for x in l0] == [float(x) for x in l1]
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+def test_ops_and_sharded_tables_do_not_import_the_training_layer():
+    """The rules live below the route: nothing under ``dlrm_tpu_torch/ops``
+    and not ``parallel/embedding.py`` imports ``dlrm_tpu_torch.train``."""
+    import ast
+
+    pkg = REPO / "dlrm_tpu_torch"
+    files = sorted((pkg / "ops").glob("*.py")) + [
+        pkg / "parallel" / "embedding.py"]
+    for f in files:
+        src = f.read_text()
+        assert "dlrm_tpu_torch.train" not in src, f
+        for node in ast.walk(ast.parse(src)):
+            if isinstance(node, ast.ImportFrom):
+                names = [f"{node.module}.{a.name}" for a in node.names]
+            elif isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            else:
+                continue
+            assert not any(n.startswith("dlrm_tpu_torch.train")
+                           for n in names), (f, names)
+
+
 def test_init_train_state():
     cfg = tc.tiny_config()
     st = dlrm_tpu_torch.init_train_state(torch.Generator().manual_seed(0),
